@@ -1,0 +1,25 @@
+"""akka_allreduce_tpu_torch — the PyTorch/CUDA port of ``akka_allreduce_tpu``.
+
+A second package beside the JAX one, written for one NVIDIA Hopper card
+(H100, ``sm_90a``). Every kernel the JAX package wrote in Pallas for the TPU
+is a kernel written by hand here (CUDA C++ under ``ops/csrc``); plain tensor
+code is PyTorch. The package imports ``torch`` and never ``jax`` nor anything
+of ``akka_allreduce_tpu``: what it shares with the JAX package (configs,
+timing helpers) it keeps as its own copy.
+
+Module names mirror the JAX package so each counterpart is easy to find:
+
+- ``config``        — ``ThresholdConfig`` and ``MetaDataConfig``
+- ``ops``           — the single-card threshold-reduce kernels
+  (``masked_average``, ``elastic_average_step``) and their plain versions
+- ``state``         — hand-over of the ``(K, data)`` replica state to and from
+  numpy, in the JAX package's flat or packed layout
+- ``utils``         — slope timing, CUDA-event timing, card description
+- ``bench_suite``   — the single-card branch of BASELINE configs 2 and 4
+- ``bench``         — the single-card ``local_threshold_reduce_bw`` metric
+
+Entry points run on the card unless the caller passes ``device="cpu"``; with
+no CUDA they raise instead of running on the CPU (see ``_device``).
+"""
+
+__version__ = "0.1.0"

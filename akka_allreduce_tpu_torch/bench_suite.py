@@ -1,0 +1,224 @@
+"""The BASELINE benchmark matrix on the port: the single-card branch of
+configs 2 and 4 (``akka_allreduce_tpu/bench_suite.py``), one JSON record
+each.
+
+On one card the round's work is the fused threshold reduce over K = 8
+virtual workers (the reference's "N local workers" shape): the payload is
+masked, averaged and folded back into every replica by the elastic-average
+kernel (K2), in a slope-timed loop. Records carry the same fields as the JAX
+package's, plus ``device`` (the card's name, or ``"cpu"``) and
+``power_limit`` (``nvidia-smi``'s, or null on the CPU).
+
+Configs 1, 3 and 5 (host engine, MLP data-parallel step, elastic re-mesh)
+and the multi-rank collective branch wait for later slices of the port; they
+are not stubbed.
+
+Usage: ``python -m akka_allreduce_tpu_torch bench-suite [--quick]
+[--device cpu] [--floats N] [--out FILE]``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from typing import Any, Callable
+
+import torch
+
+from akka_allreduce_tpu_torch._device import resolve_device
+from akka_allreduce_tpu_torch.ops import elastic_average_step, pack_tiles
+from akka_allreduce_tpu_torch.utils.benchmarking import (
+    SlopeEstimate,
+    card_info,
+    median_slope,
+)
+
+REFERENCE_GBPS = 1.25  # 10 GbE ceiling of the reference's Netty data plane
+VIRTUAL_WORKERS = 8
+ALPHA = 0.125
+
+
+def _record(config: int, name: str, **fields: Any) -> dict:
+    rec = {"config": config, "name": name}
+    rec.update(fields)
+    return rec
+
+
+def _world_size() -> int:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def device_fields(dev: torch.device) -> dict:
+    """``device`` and ``power_limit`` for a record measured on ``dev``."""
+    if dev.type != "cuda":
+        return {"device": "cpu", "power_limit": None}
+    info = card_info(dev)
+    return {"device": info["name"], "power_limit": info["power_limit"]}
+
+
+def elastic_rounds(
+    xt: torch.Tensor, valid: torch.Tensor, alpha: float, rounds: int
+) -> torch.Tensor:
+    """``rounds`` elastic-averaging rounds over the stack ``xt`` in place."""
+    for _ in range(rounds):
+        elastic_average_step(xt, valid, alpha)
+    return xt
+
+
+def time_elastic_rounds(
+    floats: int,
+    dev: torch.device,
+    *,
+    trips_lo: int,
+    trips_hi: int,
+    outer: int,
+    target_signal_s: float | None = None,
+) -> tuple[SlopeEstimate, torch.Tensor]:
+    """Slope-timed elastic rounds over ``floats`` floats split across the K
+    virtual workers (seeded normal data, all-ones mask, alpha 0.125), carried
+    in the packed form. Returns the estimate and the packed stack."""
+    k = VIRTUAL_WORKERS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((k, floats // k), generator=gen, device=dev)
+    valid = torch.ones(k, device=dev)
+    xt = pack_tiles(x)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+
+    def timed(trips: int) -> float:
+        t0 = time.perf_counter()
+        elastic_rounds(xt, valid, ALPHA, trips)
+        sync()
+        return time.perf_counter() - t0
+
+    est = median_slope(
+        timed, trips_lo, trips_hi, outer=outer, target_signal_s=target_signal_s
+    )
+    return est, xt
+
+
+def _allreduce_record(
+    config: int,
+    name: str,
+    floats: int,
+    *,
+    device: str | torch.device | None = None,
+    target_signal_s: float | None = 0.3,
+) -> dict:
+    """The single-card analog of the allreduce: fused K-worker threshold
+    reduce on the card. More than one rank needs the collective data plane,
+    which is the next slice of the port."""
+    if _world_size() >= 2:
+        raise NotImplementedError(
+            "multi-rank allreduce arrives with the next slice of the port "
+            "(comm/allreduce.py over torch.distributed, with the ring kernel)"
+        )
+    dev = resolve_device(device)
+    est, xt = time_elastic_rounds(
+        floats, dev, trips_lo=3, trips_hi=103, outer=6,
+        target_signal_s=target_signal_s,
+    )
+    k = VIRTUAL_WORKERS
+    per = floats // k
+    dt = est.seconds_per_iter
+    gbps = k * per * 4 / dt / 1e9 if dt > 0 else 0.0
+    max_spread = float(os.environ.get("BENCH_MAX_SPREAD_PCT", 15.0))
+    if dt <= 0:
+        suffix = "_UNMEASURABLE"
+    elif est.noisy(max_spread):
+        suffix = "_NOISY"
+    else:
+        suffix = ""
+    # The JAX record tags working sets under ~110 MB "_vmem_resident" (the
+    # v5e's VMEM held the whole loop carry). Hopper has no such memory: the
+    # 50 MB L2 is all there is, so the path tag has no counterpart here.
+    return _record(
+        config,
+        name + suffix,
+        devices=1,
+        virtual_workers=k,
+        floats=floats,
+        working_set_mb=round(xt.numel() * 4 / 1e6, 1),
+        seconds_per_iter=round(dt, 6),
+        spread_pct=est.spread_pct if math.isfinite(est.spread_pct) else None,
+        reduce_gbps=round(gbps, 2),
+        vs_baseline=round(gbps / REFERENCE_GBPS, 1),
+        path="single_chip_fused_reduce",
+        **device_fields(dev),
+    )
+
+
+# -- config 2: butterfly allreduce, 16 workers, 64M floats --------------------
+
+
+def config2_butterfly(
+    floats: int = 64 * 1024 * 1024,
+    *,
+    device: str | torch.device | None = None,
+    target_signal_s: float | None = 0.3,
+) -> dict:
+    return _allreduce_record(
+        2, "butterfly_allreduce", floats, device=device,
+        target_signal_s=target_signal_s,
+    )
+
+
+# -- config 4: ResNet-50-class grad sync, 25M params --------------------------
+
+
+def config4_grad_sync(
+    params: int = 25_000_000,
+    *,
+    device: str | torch.device | None = None,
+    target_signal_s: float | None = 0.3,
+) -> dict:
+    return _allreduce_record(
+        4, "resnet_grad_sync_25M", params, device=device,
+        target_signal_s=target_signal_s,
+    )
+
+
+# -- suite driver --------------------------------------------------------------
+
+
+def run_suite(
+    *,
+    quick: bool = False,
+    out: str | None = None,
+    device: str | torch.device | None = None,
+    floats: int | None = None,
+) -> list[dict]:
+    """Configs 2 and 4, one JSON line each. ``quick`` runs 1/8-size payloads
+    at fixed trip counts (no growing them to a 0.3 s timing signal, so its
+    run time is bounded); ``floats`` sets both payload sizes."""
+    scale = 8 if quick else 1
+    signal = None if quick else 0.3
+    configs: list[Callable[[], dict]] = [
+        lambda: config2_butterfly(
+            floats or 64 * 1024 * 1024 // scale, device=device,
+            target_signal_s=signal,
+        ),
+        lambda: config4_grad_sync(
+            floats or 25_000_000 // scale, device=device,
+            target_signal_s=signal,
+        ),
+    ]
+    records = []
+    stream = open(out, "a", buffering=1) if out else None
+    try:
+        for fn in configs:
+            rec = fn()
+            records.append(rec)
+            line = json.dumps(rec)
+            print(line, flush=True)
+            if stream:
+                stream.write(line + "\n")
+    finally:
+        if stream:
+            stream.close()
+    return records

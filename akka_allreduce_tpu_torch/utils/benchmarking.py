@@ -1,0 +1,124 @@
+"""Timing helpers for the port.
+
+- :class:`SlopeEstimate` / :func:`median_slope`: the port's copy of the JAX
+  package's slope timing (``akka_allreduce_tpu/utils/benchmarking.py``).
+  Per-iteration time is the median slope between interleaved short and long
+  runs, so constant launch and sync overhead cancels in the difference.
+- :func:`cuda_event_ms`: a kernel's time on the card from CUDA events around
+  many launches after a warm-up.
+- :func:`card_info`: the card's name, power limit and count, as
+  ``nvidia-smi`` reports them; every number measured on a card is written
+  down beside them.
+"""
+
+from __future__ import annotations
+
+import subprocess
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+SMI_QUERY = (
+    "nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+)
+
+
+@dataclass(frozen=True)
+class SlopeEstimate:
+    """Per-iteration seconds with a robustness diagnostic."""
+
+    seconds_per_iter: float  # median of per-pair slopes
+    spread_pct: float  # 100 * IQR / median over the slope samples
+    n_samples: int
+
+    def noisy(self, max_spread_pct: float = 15.0) -> bool:
+        return not (self.spread_pct <= max_spread_pct)
+
+
+def median_slope(
+    timed: Callable[[int], float],
+    trips_lo: int,
+    trips_hi: int,
+    *,
+    outer: int = 8,
+    warmup: bool = True,
+    target_signal_s: float | None = None,
+    max_trips: int = 100_000,
+) -> SlopeEstimate:
+    """Median per-iteration time from interleaved (lo, hi) timing pairs.
+
+    ``timed(trips)`` runs the workload ``trips`` iterations, waits for it to
+    finish, and returns wall seconds including any constant overhead.
+    ``target_signal_s`` rescales ``trips_hi`` from one rough warm-up slope so
+    the (hi - lo) signal reaches that many seconds whatever the throughput.
+    """
+    import numpy as np
+
+    if trips_hi <= trips_lo:
+        raise ValueError(f"need trips_hi > trips_lo, got {trips_lo}/{trips_hi}")
+    t_hi_rough = None
+    if warmup:
+        timed(trips_lo)
+        t_hi_rough = timed(trips_hi)
+    if target_signal_s is not None:
+        # grow trips_hi until the (hi - lo) signal is clearly positive and
+        # ~target_signal_s seconds, at most 16x per step
+        for _ in range(4):
+            if t_hi_rough is None:
+                t_hi_rough = timed(trips_hi)
+            rough = (t_hi_rough - timed(trips_lo)) / (trips_hi - trips_lo)
+            t_hi_rough = None
+            if rough > 0:
+                want = trips_lo + int(target_signal_s / rough)
+                if want <= trips_hi or trips_hi >= max_trips:
+                    break
+                trips_hi = min(want, 16 * trips_hi, max_trips)
+            elif trips_hi >= max_trips:
+                break
+            else:
+                trips_hi = min(16 * trips_hi, max_trips)
+    slopes = []
+    for _ in range(outer):
+        t_lo = timed(trips_lo)
+        t_hi = timed(trips_hi)
+        slopes.append((t_hi - t_lo) / (trips_hi - trips_lo))
+    med = float(np.median(slopes))
+    q1, q3 = np.percentile(slopes, [25, 75])
+    spread = 100.0 * float(q3 - q1) / med if med > 0 else float("inf")
+    return SlopeEstimate(med, round(spread, 1), outer)
+
+
+def cuda_event_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
+    """Milliseconds per call of ``fn`` on the card: CUDA events around
+    ``iters`` back-to-back calls on the current stream, after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def card_info(device: torch.device | int = 0) -> dict:
+    """``{"smi": raw nvidia-smi line, "name", "power_limit", "count"}`` for
+    the card ``device``; raises when there is no card or no ``nvidia-smi``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card")
+    index = device if isinstance(device, int) else (device.index or 0)
+    out = subprocess.run(
+        SMI_QUERY, capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip().splitlines()
+    line = out[index] if index < len(out) else out[0]
+    name, _, limit = line.rpartition(",")
+    return {
+        "smi": line,
+        "name": name.strip(),
+        "power_limit": limit.strip(),
+        "count": torch.cuda.device_count(),
+    }

@@ -1,0 +1,197 @@
+"""Guards on the PyTorch/CUDA port as a package.
+
+- It imports neither ``jax`` nor anything of ``akka_allreduce_tpu`` (checked
+  in a fresh interpreter, and in the source text).
+- Its entry points run on the card unless asked for the CPU: with no CUDA
+  they raise instead of running on the CPU.
+- The CPU path launches no kernel.
+- The ``bench-suite`` command prints parseable records at a tiny size.
+- Its copy of the configs behaves as the JAX package's.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import akka_allreduce_tpu_torch
+from akka_allreduce_tpu import config as jconfig
+from akka_allreduce_tpu_torch import bench, bench_suite, config, state
+from akka_allreduce_tpu_torch.__main__ import main as cli_main
+from akka_allreduce_tpu_torch._device import resolve_device, use_kernel
+from akka_allreduce_tpu_torch.ops import local_reduce as tlr
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "akka_allreduce_tpu_torch"
+
+
+def _module_names() -> list[str]:
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages([str(PKG)], prefix="akka_allreduce_tpu_torch.")
+    )
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_module_names()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'akka_allreduce_tpu' or m.startswith('akka_allreduce_tpu.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_source_names_no_jax_package():
+    pattern = re.compile(r"^\s*(import jax|from jax)|akka_allreduce_tpu\.", re.M)
+    offenders = [
+        str(p.relative_to(REPO))
+        for p in PKG.rglob("*.py")
+        if pattern.search(p.read_text())
+    ]
+    assert offenders == []
+    assert "akka_allreduce_tpu_torch.ops.local_reduce" in _module_names()
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert not use_kernel(torch.zeros(2))
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((2, 8), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state.state_from_numpy(x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_suite.config2_butterfly(1024)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_suite.run_suite(floats=1024)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["bench-suite", "--quick", "--floats", "1024"])
+    assert capsys.readouterr().out == ""  # nothing was measured or printed
+
+
+def test_cpu_path_counts_no_launches():
+    before = dict(tlr.LAUNCHES)
+    x = torch.randn(4, 300, generator=torch.Generator().manual_seed(0))
+    tlr.masked_average(x, torch.ones(4))
+    tlr.elastic_average_step(x, torch.ones(4), 0.5)
+    tlr.elastic_average_step(tlr.pack_tiles(x), torch.ones(4), 0.5)
+    assert tlr.LAUNCHES == before
+    assert set(before) == {"masked_average", "elastic_average_step"}
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The CPU bench loop on one intra-op thread: beside other test workers,
+    torch's default of one thread per core oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_bench_suite_cli_prints_records(capsys, tmp_path, one_torch_thread):
+    out = tmp_path / "records.jsonl"
+    rc = cli_main([
+        "bench-suite", "--quick", "--device", "cpu", "--floats", "4096",
+        "--out", str(out),
+    ])
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    records = [json.loads(line) for line in lines]
+    assert [r["config"] for r in records] == [2, 4]
+    assert out.read_text().strip().splitlines() == lines
+    for rec in records:
+        assert rec["name"].startswith(
+            ("butterfly_allreduce", "resnet_grad_sync_25M")
+        )
+        assert rec["floats"] == 4096 and rec["virtual_workers"] == 8
+        assert rec["device"] == "cpu" and rec["power_limit"] is None
+        assert rec["path"] == "single_chip_fused_reduce"
+        # timings on a shared CPU are noise: check their form, not their size
+        assert math.isfinite(rec["seconds_per_iter"]) and rec["reduce_gbps"] >= 0
+        # the packed working set: 8 workers x one 512 x 128 tile each
+        assert rec["working_set_mb"] == round(8 * 512 * 128 * 4 / 1e6, 1)
+
+
+def test_cli_rejects_unknown_command(capsys):
+    assert cli_main(["no-such-command"]) == 2
+    assert "bench-suite" in capsys.readouterr().err
+
+
+def test_multi_rank_raises_not_implemented(monkeypatch):
+    monkeypatch.setattr(bench_suite, "_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        bench_suite.config4_grad_sync(1024, device="cpu")
+
+
+@pytest.mark.parametrize("fraction,peers", [(0.75, 16), (1.0, 4), (0.5, 3), (0.01, 7)])
+def test_threshold_config_copy_matches_jax(fraction, peers):
+    ours = config.ThresholdConfig(fraction, fraction, fraction)
+    theirs = jconfig.ThresholdConfig(fraction, fraction, fraction)
+    for method in ("reduce_count", "complete_count", "allreduce_count"):
+        assert getattr(ours, method)(peers) == getattr(theirs, method)(peers)
+    assert config.ThresholdConfig(th_reduce=0.75).reduce_count(16) == 12
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(data_size=1_000_000, max_chunk_size=262_144),
+        dict(data_size=17, max_chunk_size=5, wire_dtype="f16"),
+        dict(data_size=0),
+        dict(data_size=10, max_chunk_size=0),
+        dict(data_size=10, wire_dtype="bf16"),
+    ],
+)
+def test_metadata_config_copy_matches_jax(kwargs):
+    try:
+        theirs = jconfig.MetaDataConfig(**kwargs)
+    except ValueError:
+        with pytest.raises(ValueError):
+            config.MetaDataConfig(**kwargs)
+        return
+    ours = config.MetaDataConfig(**kwargs)
+    for peers in (1, 3, 4):
+        assert ours.block_size(peers) == theirs.block_size(peers)
+        n = ours.chunks_per_block(peers)
+        assert n == theirs.chunks_per_block(peers)
+        for chunk in range(n):
+            assert ours.chunk_size(peers, chunk) == theirs.chunk_size(peers, chunk)
+    with pytest.raises(IndexError):
+        ours.chunk_size(1, ours.chunks_per_block(1))
+
+
+def test_threshold_config_rejects_bad_fraction():
+    for bad in (0.0, 1.5, -0.1):
+        with pytest.raises(ValueError):
+            config.ThresholdConfig(th_reduce=bad)
+    assert akka_allreduce_tpu_torch.__version__
