@@ -10,12 +10,21 @@ timing helpers) it keeps as its own copy.
 Module names mirror the JAX package so each counterpart is easy to find:
 
 - ``config``        — ``ThresholdConfig`` and ``MetaDataConfig``
-- ``ops``           — the single-card threshold-reduce kernels
-  (``masked_average``, ``elastic_average_step``) and their plain versions
+- ``parallel``      — meshes of n virtual ranks on one device
+  (``line_mesh``, ``grid_mesh``)
+- ``comm``          — the threshold allreduce over those ranks (psum,
+  butterfly, ring and the ring kernel; bf16/int8 wire compression) and the
+  bus-bandwidth harness
+- ``ops``           — the hand-written kernels and their plain versions:
+  the single-card threshold reduce (``masked_average``,
+  ``elastic_average_step``) and the ring allreduce
+  (``ring_kernel_allreduce_sum``)
 - ``state``         — hand-over of the ``(K, data)`` replica state to and from
   numpy, in the JAX package's flat or packed layout
-- ``utils``         — slope timing, CUDA-event timing, card description
+- ``utils``         — slope timing, CUDA-event timing, card description,
+  per-round metrics
 - ``bench_suite``   — the single-card branch of BASELINE configs 2 and 4
+- ``__main__``      — ``bench-suite`` and ``bench`` (allreduce bandwidth)
 - ``bench``         — the single-card ``local_threshold_reduce_bw`` metric
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with

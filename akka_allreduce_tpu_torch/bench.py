@@ -12,7 +12,8 @@ The line also carries ``device`` and ``power_limit``.
 Usage: ``python -m akka_allreduce_tpu_torch.bench [--device cpu]``; the sizes
 follow ``BENCH_FLOATS``, ``BENCH_INNER_LO``, ``BENCH_INNER_HI``,
 ``BENCH_OUTER`` and ``BENCH_MAX_SPREAD_PCT`` as in the JAX package. More
-than one rank needs the collective data plane of the next slice and raises.
+than one rank needs the transport between cards, which waits for a
+machine with several cards, and raises.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def main(argv: list[str] | None = None) -> dict:
     if _world_size() >= 2:
         raise NotImplementedError(
             "multi-rank bus bandwidth arrives with the next slice of the port "
-            "(comm/allreduce.py over torch.distributed)"
+            "that has several cards (comm.allreduce runs virtual ranks on one "
+            "card; `python -m akka_allreduce_tpu_torch bench` measures them)"
         )
     dev = resolve_device(args.device)
     est, _ = time_elastic_rounds(

@@ -31,7 +31,7 @@ from akka_allreduce_tpu_torch._device import resolve_device
 from akka_allreduce_tpu_torch.ops import elastic_average_step, pack_tiles
 from akka_allreduce_tpu_torch.utils.benchmarking import (
     SlopeEstimate,
-    card_info,
+    device_fields,
     median_slope,
 )
 
@@ -51,14 +51,6 @@ def _world_size() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return 1
-
-
-def device_fields(dev: torch.device) -> dict:
-    """``device`` and ``power_limit`` for a record measured on ``dev``."""
-    if dev.type != "cuda":
-        return {"device": "cpu", "power_limit": None}
-    info = card_info(dev)
-    return {"device": info["name"], "power_limit": info["power_limit"]}
 
 
 def elastic_rounds(
@@ -111,12 +103,13 @@ def _allreduce_record(
     target_signal_s: float | None = 0.3,
 ) -> dict:
     """The single-card analog of the allreduce: fused K-worker threshold
-    reduce on the card. More than one rank needs the collective data plane,
-    which is the next slice of the port."""
+    reduce on the card. More than one rank needs the transport between
+    cards, which waits for a machine with several cards."""
     if _world_size() >= 2:
         raise NotImplementedError(
             "multi-rank allreduce arrives with the next slice of the port "
-            "(comm/allreduce.py over torch.distributed, with the ring kernel)"
+            "that has several cards (comm.allreduce runs virtual ranks on one "
+            "card)"
         )
     dev = resolve_device(device)
     est, xt = time_elastic_rounds(

@@ -1,0 +1,575 @@
+"""Threshold-masked allreduce over n virtual ranks on one device.
+
+Counterpart of ``akka_allreduce_tpu/comm/allreduce.py``, forward path only.
+Semantics are the JAX package's: every rank contributes ``(payload, valid)``
+where ``valid`` is 1.0 for a live contributor and 0.0 for a straggler whose
+data must not count; one round computes ``sum = psum(payload * valid)`` and
+``count = psum(valid)``, and consumers divide. The mask may be per bucket
+(the ``max_chunk_size`` granularity). Counts always stay float32.
+
+Where the signatures differ from JAX's: the JAX primitives run inside
+``shard_map`` on each device's own ``(data,)`` payload and name the mesh
+axis they reduce over (``axis_name``); here a mesh is n virtual ranks on one
+device (``parallel.mesh.RankMesh``), so every function takes the whole
+``(n, data)`` stack, one row per rank in the mesh's row-major rank order,
+and returns the per-rank results as a stack. The ring functions reduce over
+the rows of their stack and take no axis at all; ``masked_psum`` and
+``_staged_masked_psum`` take the mesh and the axes to reduce over, so a
+partial axis of a grid works as in ``shard_map``. A ``ppermute`` to rank
+``(i + 1) % n`` is a roll of the stack by one row.
+
+Schedules (``build_threshold_allreduce`` / ``threshold_allreduce``):
+
+- ``"psum"``      — one fused sum over all axes, ranks added in rank order
+  (as XLA's all-reduce adds its participants); ``compress="bf16"`` casts
+  the payload to bf16 and rounds the float32 sum back to bf16, as XLA's bf16
+  all-reduce does.
+- ``"butterfly"`` — staged per-axis sums on a 2D grid: ``rows`` then ``cols``.
+- ``"ring"``      — the explicit reduce-scatter + all-gather ring of the JAX
+  package (``ring_allreduce_sum``), plain tensor code: the all-gather
+  forwards the quantized pair unchanged, so ranks agree bit for bit.
+- ``"pallas_ring"`` — the same schedule through K3, the ring kernel
+  (``ops.ring``), in buckets; on the card it runs the hand-written CUDA
+  kernel, on the CPU its plain version.
+
+The backward-sync and training family of the JAX module (``localize_tree``,
+``grouped_tree_psum``, ``backward_*_sync``, ``overlap_value_and_grad``,
+``compressed_value_and_grad``, ``validate_trainer_compress``,
+``ring_ef_residual``) arrives with the trainer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from akka_allreduce_tpu_torch.ops.ring import (
+    _DEF_SEG_ROWS,
+    COMPRESS_MODES,
+    LANE,
+    _quantize,
+    ring_kernel_allreduce_sum,
+)
+from akka_allreduce_tpu_torch.parallel.mesh import RankMesh
+
+Axes = tuple[str, ...]
+SCHEDULES = ("psum", "butterfly", "ring", "pallas_ring")
+
+
+def _normalize_axes(mesh: RankMesh, axes: str | Sequence[str] | None) -> Axes:
+    if axes is None:
+        names = tuple(mesh.axis_names)
+    elif isinstance(axes, str):
+        names = (axes,)
+    else:
+        names = tuple(axes)
+    for name in names:
+        if name not in mesh.axis_names:
+            raise ValueError(f"axis {name!r} not in mesh axes {mesh.axis_names}")
+    return names
+
+
+def _num_buckets(data_size: int, bucket_size: int | None) -> int:
+    if bucket_size is None:
+        return 1
+    if bucket_size <= 0:
+        raise ValueError(f"bucket_size must be positive, got {bucket_size}")
+    return math.ceil(data_size / bucket_size)
+
+
+def _rank_mask(mesh: RankMesh, xs: torch.Tensor, valid) -> torch.Tensor:
+    """``valid`` as float32 on xs's device: a scalar (every rank alike),
+    ``(n,)`` or ``(n, n_buckets)``."""
+    if isinstance(valid, torch.Tensor) and valid.device != xs.device:
+        raise ValueError(f"valid is on {valid.device}, xs on {xs.device}")
+    v = torch.as_tensor(valid, dtype=torch.float32, device=xs.device)
+    if v.ndim == 0:
+        v = v.expand(mesh.size)
+    if v.shape[0] != mesh.size:
+        raise ValueError(
+            f"valid must have one row per rank ({mesh.size}), got {tuple(v.shape)}"
+        )
+    return v
+
+
+def _apply_mask(
+    xs: torch.Tensor, v: torch.Tensor, bucket_size: int | None
+) -> torch.Tensor:
+    """``x * valid`` per rank: a whole-payload ``(n,)`` mask, or a per-bucket
+    ``(n, n_buckets)`` one over buckets of ``bucket_size``."""
+    mask = v.to(xs.dtype)
+    if mask.ndim == 1:
+        return xs * mask[:, None]
+    if bucket_size is None:
+        raise ValueError("per-bucket valid mask requires bucket_size")
+    n, data = xs.shape
+    n_buckets = _num_buckets(data, bucket_size)
+    if mask.shape != (n, n_buckets):
+        raise ValueError(
+            f"per-bucket mask must have shape ({n_buckets},), got "
+            f"{tuple(mask.shape[1:])}"
+        )
+    xp = F.pad(xs, (0, n_buckets * bucket_size - data))
+    xp = xp.reshape(n, n_buckets, bucket_size)
+    return (xp * mask[:, :, None]).reshape(n, -1)[:, :data].contiguous()
+
+
+# A stack in "grid form" has the mesh's shape in front, ``(*mesh.sizes,
+# ...)``; a dim of size 1 there holds a value replicated along that axis.
+
+
+def _grid(t: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    return t.reshape(*mesh.sizes, *t.shape[1:])
+
+
+def _psum_grid(
+    g: torch.Tensor,
+    mesh: RankMesh,
+    axis_names: Axes,
+    wire_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Sum the grid-form ``g`` over ``axis_names``; the reduced dims come back
+    as size 1.
+
+    Ranks are added one at a time in rank order, as XLA's all-reduce adds its
+    participants. With ``wire_dtype`` each rank's payload is cast to it, the
+    sum runs in g's dtype and is rounded to ``wire_dtype`` once, as XLA's
+    bf16 all-reduce on the CPU does; the result comes back in g's dtype."""
+    dims = sorted(mesh.axis_names.index(a) for a in axis_names)
+    cast = wire_dtype is not None and g.dtype != wire_dtype
+    total = None
+    for idx in itertools.product(*(range(mesh.sizes[d]) for d in dims)):
+        at = [slice(None)] * len(mesh.sizes)
+        for d, i in zip(dims, idx):
+            at[d] = slice(i, i + 1) if g.shape[d] > 1 else slice(0, 1)
+        part = g[tuple(at)]
+        if cast:
+            part = part.to(wire_dtype).to(g.dtype)
+        total = part if total is None else total + part
+    if cast:
+        total = total.to(wire_dtype).to(g.dtype)
+    return total
+
+
+def _per_rank(g: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """A grid-form result as the ``(n, ...)`` per-rank stack."""
+    rest = g.shape[len(mesh.sizes):]
+    return g.expand(*mesh.sizes, *rest).reshape(mesh.size, *rest).contiguous()
+
+
+def _rank0(g: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """Rank 0's entry of a grid-form result."""
+    return g[(0,) * len(mesh.sizes)]
+
+
+def masked_psum(
+    mesh: RankMesh,
+    xs: torch.Tensor,
+    valid,
+    axis_names: str | Axes,
+    *,
+    bucket_size: int | None = None,
+    wire_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused threshold-masked allreduce of the rank stack over ``axis_names``.
+
+    Args:
+      mesh: the virtual ranks; ``xs`` has one row per rank, in rank order.
+      xs: ``(n, data)`` payloads.
+      valid: scalar 0/1 mask (every rank alike), ``(n,)``, or per-bucket
+        ``(n, n_buckets)`` when ``bucket_size`` is given.
+      axis_names: mesh axis (or axes) to reduce over; a partial axis of a
+        grid reduces within each group of ranks that share the other axes.
+      wire_dtype: dtype the PAYLOAD sum runs in (e.g. ``torch.bfloat16``).
+        The count sum always runs float32: 0/1 sums must stay exact.
+    Returns:
+      ``(sum, count)`` per rank: ``sum`` ``(n, data)`` in xs's dtype, ``count``
+      float32 ``(n,)`` or ``(n, n_buckets)``.
+    """
+    names = _normalize_axes(mesh, axis_names)
+    v = _rank_mask(mesh, xs, valid)
+    if bucket_size is not None and v.ndim == 1:
+        n_buckets = _num_buckets(xs.shape[1], bucket_size)
+        raise ValueError(
+            f"per-bucket mask must have shape ({n_buckets},), got ()"
+        )
+    masked = _apply_mask(xs, v, bucket_size)
+    total = _psum_grid(_grid(masked, mesh), mesh, names, wire_dtype)
+    count = _psum_grid(_grid(v, mesh), mesh, names)
+    return _per_rank(total, mesh), _per_rank(count, mesh)
+
+
+def expand_counts(
+    count: torch.Tensor, data_size: int, bucket_size: int | None
+) -> torch.Tensor:
+    """Expand a per-bucket count vector to per-element counts of ``data_size``."""
+    if count.ndim == 0:
+        return count.reshape(1).expand(data_size).contiguous()
+    return torch.repeat_interleave(count, bucket_size)[:data_size]
+
+
+def _staged_grid(
+    mesh: RankMesh,
+    masked: torch.Tensor,
+    v: torch.Tensor,
+    axis_names: Axes,
+    wire_dtype: torch.dtype | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Butterfly stages over the masked stack: grid-form (sum, count)."""
+    total, count = _grid(masked, mesh), _grid(v, mesh)
+    for name in axis_names:
+        total = _psum_grid(total, mesh, (name,), wire_dtype)
+        count = _psum_grid(count, mesh, (name,))
+    return total, count
+
+
+def _staged_masked_psum(
+    mesh: RankMesh,
+    xs: torch.Tensor,
+    valid,
+    axis_names: Axes,
+    bucket_size: int | None,
+    wire_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Butterfly: reduce one grid axis at a time, in ``axis_names`` order
+    (dim-0 sink feeds dim-1 source). Numerically the fused sum reassociated;
+    ``wire_dtype`` (e.g. bf16) compresses each stage's payload sum, counts
+    always stay float32. Per-rank ``(sum, count)`` stacks, as
+    :func:`masked_psum`."""
+    names = _normalize_axes(mesh, axis_names)
+    v = _rank_mask(mesh, xs, valid)
+    masked = _apply_mask(xs, v, bucket_size)
+    total, count = _staged_grid(mesh, masked, v, names, wire_dtype)
+    return _per_rank(total, mesh), _per_rank(count, mesh)
+
+
+# -- the ring over the rank dimension -------------------------------------------
+
+
+def _compress_seg(
+    seg: torch.Tensor, mode: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize ring segments (..., seg) for the wire: (payload, scale), one
+    scale per segment (``(..., 1)``). ``bf16``: round the mantissa, scale 1.
+    ``int8``: the ``ops.ring.int8_quantize`` formula per segment."""
+    if mode == "bf16":
+        return seg.to(torch.bfloat16), torch.ones(
+            (*seg.shape[:-1], 1), dtype=torch.float32, device=seg.device
+        )
+    return _quantize(seg, -1)
+
+
+def _decompress_seg(
+    payload: torch.Tensor, scale: torch.Tensor, mode: str
+) -> torch.Tensor:
+    if mode == "bf16":
+        return payload.to(torch.float32)
+    return payload.to(torch.float32) * scale
+
+
+def _compressed_hop(block: torch.Tensor, compress: str | None, *, with_sent=False):
+    """One ring hop of ``block`` (n, seg), row r = what rank r sends to rank
+    r+1: (optionally compress,) roll by one rank (, decompress).
+
+    ``with_sent=True`` also returns each sender's own reconstruction of what
+    its receiver decodes (``block`` itself when uncompressed): ``block -
+    sent`` is the quantization error the hop injects."""
+    if compress is None:
+        recv = torch.roll(block, 1, 0)
+        return (recv, block) if with_sent else recv
+    payload, scale = _compress_seg(block, compress)
+    sent = _decompress_seg(payload, scale, compress)
+    payload = torch.roll(payload, 1, 0)
+    if compress == "int8":
+        scale = torch.roll(scale, 1, 0)
+    recv = _decompress_seg(payload, scale, compress)
+    return (recv, sent) if with_sent else recv
+
+
+def _forward_hop(payload, scale, compress: str):
+    """One forward-only hop of an already-quantized (payload, scale) pair,
+    unchanged (no requantization); bf16 carries no scale to move."""
+    payload = torch.roll(payload, 1, 0)
+    if compress == "int8":
+        scale = torch.roll(scale, 1, 0)
+    return payload, scale
+
+
+def _rs_phase(segs: torch.Tensor, n: int, compress: str | None):
+    """The ring reduce-scatter phase over ``segs`` (ranks, n, seg): ``n - 1``
+    hops, each sending every rank's current partial of a rotating segment and
+    accumulating the neighbour's, with each hop's quantization error recorded
+    at the segment it affected. Returns ``(segs, errs)``; after it, rank
+    ``i`` owns fully-reduced segment ``(i + 1) mod n``."""
+    ranks = torch.arange(n, device=segs.device)
+    errs = torch.zeros_like(segs)
+    for s in range(n - 1):
+        send_i = (ranks - s) % n
+        block = segs[ranks, send_i]
+        recv, sent = _compressed_hop(block, compress, with_sent=True)
+        errs[ranks, send_i] = block - sent
+        recv_i = (ranks - s - 1) % n
+        segs[ranks, recv_i] = segs[ranks, recv_i] + recv
+    return segs, errs
+
+
+def _ring_segments(xs: torch.Tensor) -> torch.Tensor:
+    """(n, data) -> a new (n, n, ceil(data / n)) stack of zero-padded
+    segments, rank by rank."""
+    n, data = xs.shape
+    seg = math.ceil(data / n)
+    segs = F.pad(xs, (0, n * seg - data)).reshape(n, n, seg)
+    if segs.data_ptr() == xs.data_ptr():
+        segs = segs.clone()
+    return segs
+
+
+def ring_allreduce_sum(
+    xs: torch.Tensor,
+    *,
+    compress: str | None = None,
+    return_residual: bool = False,
+):
+    """Explicit ring allreduce over the ranks (rows) of ``xs`` (n, data).
+
+    Reduce-scatter then all-gather, each in ``n - 1`` steps, the payload
+    padded to ``n`` equal segments. ``compress`` ("bf16" | "int8")
+    quantizes every reduce-scatter hop; the reduced segment is quantized once
+    more by its owner and the all-gather forwards that (payload, scale) pair
+    unchanged, so every rank's row is bit-identical.
+
+    ``return_residual=True`` also returns each rank's injected quantization
+    error ``(n, data)``: its reduce-scatter hop errors plus the owner's final
+    requantization error, at the elements they affected; the float32 ring
+    result minus the compressed one equals the sum of all ranks' residuals.
+    Requires ``compress``.
+    """
+    n = xs.shape[0]
+    if return_residual and compress is None:
+        raise ValueError("return_residual needs a compress mode")
+    if n == 1:
+        return (xs.clone(), torch.zeros_like(xs)) if return_residual else xs.clone()
+    if compress not in COMPRESS_MODES:
+        raise ValueError(f"unknown compress mode {compress!r}")
+    data = xs.shape[1]
+    segs = _ring_segments(xs)
+    ranks = torch.arange(n, device=xs.device)
+    segs, errs = _rs_phase(segs, n, compress)
+    # rank i now owns fully-reduced segment (i + 1) mod n
+    if compress is not None:
+        own_i = (ranks + 1) % n
+        own = segs[ranks, own_i]
+        payload, scale = _compress_seg(own, compress)
+        own_q = _decompress_seg(payload, scale, compress)
+        errs[ranks, own_i] = errs[ranks, own_i] + (own - own_q)
+        payloads = torch.zeros((n, *segs.shape[1:]), dtype=payload.dtype,
+                               device=xs.device)
+        payloads[ranks, own_i] = payload
+        scales = torch.zeros((n, n, 1), dtype=torch.float32, device=xs.device)
+        scales[ranks, own_i] = scale
+        for s in range(n - 1):
+            send_i = (ranks + 1 - s) % n
+            recv_p, recv_s = _forward_hop(
+                payloads[ranks, send_i], scales[ranks, send_i], compress
+            )
+            recv_i = (ranks - s) % n
+            payloads[ranks, recv_i] = recv_p
+            scales[ranks, recv_i] = recv_s
+        segs = _decompress_seg(payloads, scales, compress)
+    else:
+        for s in range(n - 1):
+            send_i = (ranks + 1 - s) % n
+            recv = _compressed_hop(segs[ranks, send_i], compress)
+            segs[ranks, (ranks - s) % n] = recv
+    out = segs.reshape(n, -1)[:, :data]
+    if return_residual:
+        return out, errs.reshape(n, -1)[:, :data]
+    return out
+
+
+def ring_reduce_scatter_sum(
+    xs: torch.Tensor,
+    *,
+    compress: str | None = None,
+    return_residual: bool = False,
+):
+    """Ring reduce-scatter over the ranks (rows) of ``xs`` (n, data): row
+    ``i`` of the result is the fully-reduced segment ``i``, shape
+    ``(n, ceil(data / n))`` with a zero-padded tail.
+
+    The reduce half of :func:`ring_allreduce_sum` plus one final
+    (compressed) hop that moves each reduced segment from its ring owner
+    ``(i + 1) mod n`` back to rank ``i``. ``return_residual=True`` also
+    returns each rank's full-length ``(n, n * seg)`` injected quantization
+    error; requires ``compress``.
+    """
+    n, data = xs.shape
+    seg = math.ceil(data / n)
+    if return_residual and compress is None:
+        raise ValueError("return_residual needs a compress mode")
+    if n == 1:
+        out = F.pad(xs, (0, seg * n - data))
+        return (out, torch.zeros_like(out)) if return_residual else out
+    if compress not in COMPRESS_MODES:
+        raise ValueError(f"unknown compress mode {compress!r}")
+    segs = _ring_segments(xs)
+    ranks = torch.arange(n, device=xs.device)
+    segs, errs = _rs_phase(segs, n, compress)
+    # rank i owns reduced segment (i + 1) mod n; one more hop hands segment j
+    # to rank j
+    own_i = (ranks + 1) % n
+    own = segs[ranks, own_i]
+    out, sent = _compressed_hop(own, compress, with_sent=True)
+    if return_residual:
+        errs[ranks, own_i] = own - sent
+        return out, errs.reshape(n, -1)
+    return out
+
+
+# -- host-facing collective -----------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AllreduceResult:
+    """Mirror of the sink payload (protocol.AllReduceOutput) on the device."""
+
+    sum: torch.Tensor  # (data,) — masked sum across contributors
+    count: torch.Tensor  # (data,) — per-element contributor count
+
+    def average(self) -> torch.Tensor:
+        return self.sum / torch.clamp_min(self.count, 1.0)
+
+
+def _to_mesh_order(t: torch.Tensor, mesh: RankMesh, axis_names: Axes):
+    """Rows of ``t`` in ``axis_names``-major order -> the mesh's rank order
+    (how ``PartitionSpec(axis_names)`` lays a stack over the devices)."""
+    if axis_names == mesh.axis_names:
+        return t
+    sizes = [mesh.shape[a] for a in axis_names]
+    perm = [axis_names.index(a) for a in mesh.axis_names]
+    rest = t.shape[1:]
+    g = t.reshape(*sizes, *rest).permute(*perm, *range(len(sizes), len(sizes) + len(rest)))
+    return g.reshape(mesh.size, *rest)
+
+
+def build_threshold_allreduce(
+    mesh: RankMesh,
+    *,
+    axes: str | Sequence[str] | None = None,
+    bucket_size: int | None = None,
+    schedule: str = "psum",
+    compress: str | None = None,
+) -> Callable[[torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
+    """Build a ``(xs, valid) -> (sum, count)`` collective over ``mesh``.
+
+    ``xs`` is the ``(n, data)`` float32 stack on ``mesh.device``, one row per
+    rank (in ``axes``-major order, as JAX lays a stack sharded over
+    ``axes``); ``valid`` is ``(n,)`` (whole-payload mask) or
+    ``(n, n_buckets)`` (per-chunk mask). The outputs are the replicated
+    result, taken from rank 0: ``sum`` and ``count`` both ``(data,)``.
+
+    ``compress``: ``"bf16"`` runs the psum/butterfly sums in bfloat16 (or
+    bf16 ring hops); ``"int8"`` (ring schedules only) quarters the hop bytes
+    with per-segment max-abs scaling. Counts always stay float32.
+
+    The JAX function's ``donate`` has no counterpart: the port never writes
+    the caller's stack.
+    """
+    axis_names = _normalize_axes(mesh, axes)
+    if set(axis_names) != set(mesh.axis_names):
+        raise ValueError(
+            "host-facing allreduce reduces over the full mesh (output is "
+            f"replicated); got axes {axis_names} of {mesh.axis_names}. For "
+            "partial-axis reduction call masked_psum on the rank stack."
+        )
+    n_devices = int(np.prod([mesh.shape[a] for a in axis_names]))
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if schedule == "butterfly" and len(axis_names) < 2:
+        raise ValueError("butterfly schedule needs a 2D grid mesh")
+    if schedule in ("ring", "pallas_ring") and len(axis_names) != 1:
+        raise ValueError("ring schedules reduce over exactly one axis")
+    if compress not in COMPRESS_MODES:
+        raise ValueError(f"unknown compress mode {compress!r}")
+    if compress == "int8" and schedule not in ("ring", "pallas_ring"):
+        raise ValueError(
+            "int8 compression needs per-hop scales: only the ring schedules "
+            "carry them (psum/butterfly sum on the wire)"
+        )
+    wire = torch.bfloat16 if compress else None
+
+    def collective(xs: torch.Tensor, valid: torch.Tensor):
+        data_size = xs.shape[1]
+        xs = _to_mesh_order(xs, mesh, axis_names)
+        v = _to_mesh_order(_rank_mask(mesh, xs, valid), mesh, axis_names)
+        if bucket_size is not None and v.ndim == 1:
+            v = v[:, None].expand(n_devices, _num_buckets(data_size, bucket_size))
+        if bucket_size is None and v.ndim != 1:
+            raise ValueError("per-bucket valid mask requires bucket_size")
+        masked = _apply_mask(xs, v, bucket_size)
+        if schedule in ("ring", "pallas_ring"):
+            if schedule == "pallas_ring":
+                # max_chunk_size doubles as the kernel's staging size: one
+                # ring step moves bucket_size / n elements per neighbour
+                seg_rows = (
+                    max(1, bucket_size // (n_devices * LANE))
+                    if bucket_size is not None
+                    else _DEF_SEG_ROWS
+                )
+                total = ring_kernel_allreduce_sum(
+                    masked, seg_rows=seg_rows, compress=compress
+                )[0]
+            else:
+                total = ring_allreduce_sum(masked, compress=compress)[0]
+            count = _rank0(_psum_grid(_grid(v, mesh), mesh, axis_names), mesh)
+        elif schedule == "butterfly":
+            t, c = _staged_grid(mesh, masked, v, axis_names, wire)
+            total, count = _rank0(t, mesh), _rank0(c, mesh)
+        else:
+            g = _psum_grid(_grid(masked, mesh), mesh, axis_names, wire)
+            total = _rank0(g, mesh)
+            count = _rank0(_psum_grid(_grid(v, mesh), mesh, axis_names), mesh)
+        return total.clone(), expand_counts(count, data_size, bucket_size)
+
+    return collective
+
+
+def threshold_allreduce(
+    mesh: RankMesh,
+    xs,
+    valid=None,
+    *,
+    axes: str | Sequence[str] | None = None,
+    bucket_size: int | None = None,
+    schedule: str = "psum",
+    compress: str | None = None,
+) -> AllreduceResult:
+    """Convenience entry: threshold-masked allreduce of per-rank payloads.
+
+    ``xs``: ``(n_devices, data)``, a numpy array or a tensor (moved to
+    ``mesh.device`` as float32; the caller's tensor is never written).
+    ``valid``: None (all contribute), ``(n_devices,)``, or
+    ``(n_devices, n_buckets)``. ``compress``: None | "bf16" | "int8" — see
+    :func:`build_threshold_allreduce`.
+    """
+    fn = build_threshold_allreduce(
+        mesh, axes=axes, bucket_size=bucket_size, schedule=schedule,
+        compress=compress,
+    )
+    n_devices = mesh.size
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=mesh.device)
+    if xs.ndim != 2 or xs.shape[0] != n_devices:
+        raise ValueError(
+            f"xs must be (n_devices={n_devices}, data), got {tuple(xs.shape)}"
+        )
+    if valid is None:
+        valid = torch.ones((n_devices,), dtype=torch.float32, device=mesh.device)
+    valid = torch.as_tensor(valid, dtype=torch.float32, device=mesh.device)
+    total, count = fn(xs.contiguous(), valid)
+    return AllreduceResult(sum=total, count=count)

@@ -1,0 +1,15 @@
+"""Mesh helpers: n virtual ranks on one device, named like the JAX package's
+``parallel`` axes (a 1D ``line`` mesh, a 2D ``rows`` x ``cols`` grid).
+
+Process groups over several cards (``parallel/multihost.py`` in the JAX
+package) wait for a machine with several cards.
+"""
+
+from akka_allreduce_tpu_torch.parallel.mesh import (  # noqa: F401
+    GRID_AXES,
+    LINE_AXIS,
+    RankMesh,
+    grid_factors,
+    grid_mesh,
+    line_mesh,
+)

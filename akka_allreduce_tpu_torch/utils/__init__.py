@@ -1,8 +1,12 @@
-"""Timing and card-description helpers."""
+"""Timing, card-description and per-round metrics helpers."""
 
 from akka_allreduce_tpu_torch.utils.benchmarking import (  # noqa: F401
     SlopeEstimate,
     card_info,
     cuda_event_ms,
     median_slope,
+)
+from akka_allreduce_tpu_torch.utils.metrics import (  # noqa: F401
+    MetricsLogger,
+    RoundMetrics,
 )

@@ -122,3 +122,12 @@ def card_info(device: torch.device | int = 0) -> dict:
         "power_limit": limit.strip(),
         "count": torch.cuda.device_count(),
     }
+
+
+def device_fields(dev: torch.device) -> dict:
+    """``device`` and ``power_limit`` for a record measured on ``dev``: the
+    card's name and power limit, or ``"cpu"`` and None."""
+    if dev.type != "cuda":
+        return {"device": "cpu", "power_limit": None}
+    info = card_info(dev)
+    return {"device": info["name"], "power_limit": info["power_limit"]}

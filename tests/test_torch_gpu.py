@@ -1,12 +1,13 @@
-"""The port's CUDA kernels (K1 masked_average, K2 elastic_average_step)
-against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (K1 masked_average, K2 elastic_average_step, K3
+the ring allreduce) against their plain PyTorch versions on the card.
 
 Marked ``gpu``; without a card every test skips (decided in the ``card``
 fixture, never at import). Run on the card with
 ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 
 The kernels avoid FMA contraction, so they are held to bit equality with the
-plain versions (which run as separate mul and add kernels on the card).
+plain versions (which run as separate mul and add kernels on the card); K3
+under int8 is held to rtol = atol = 1e-6, and equality is expected there too.
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from akka_allreduce_tpu_torch.comm import allreduce as ar
 from akka_allreduce_tpu_torch.ops import local_reduce as lr
+from akka_allreduce_tpu_torch.ops import ring as rk
+from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
 
 pytestmark = pytest.mark.gpu
 
@@ -131,3 +135,109 @@ def test_kernels_run_on_the_callers_stream(card):
     side.synchronize()
     assert torch.equal(x, ref)
     assert torch.equal(snapshot, lr.masked_average_reference(ref, valid)[0])
+
+
+# -- K3: the ring allreduce ------------------------------------------------------
+
+
+def _assert_ring_equal(out, ref, compress):
+    if compress == "int8":
+        torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    else:
+        assert torch.equal(out, ref)
+
+
+def _assert_replicated(out, compress):
+    for d in range(out.shape[0]):
+        if compress == "int8":
+            torch.testing.assert_close(out[d], out[0], rtol=2e-6, atol=1e-6)
+        else:
+            assert torch.equal(out[d], out[0])
+
+
+@pytest.mark.parametrize("compress", [None, "bf16", "int8"])
+@pytest.mark.parametrize("seg_rows", [1, 4, 512])
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 16])
+def test_ring_kernel_matches_plain(card, n, seg_rows, compress):
+    data = 2 * n * seg_rows * rk.LANE + 37  # three buckets, ragged tail
+    xs = _stack(n, data, card, seed=n + seg_rows)
+    keep = xs.clone()
+    before = rk.LAUNCHES["ring_allreduce"]
+    out = rk.ring_kernel_allreduce_sum(xs, seg_rows=seg_rows, compress=compress)
+    ref = rk.ring_kernel_allreduce_sum_reference(xs, seg_rows=seg_rows,
+                                                 compress=compress)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["ring_allreduce"] == before + 3
+    assert out.shape == (n, data) and out.is_cuda
+    assert torch.equal(xs, keep)  # the caller's stack is never written
+    _assert_ring_equal(out, ref, compress)
+    _assert_replicated(out, compress)
+    if compress is None:
+        torch.testing.assert_close(out[0], xs.sum(0), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("compress", [None, "bf16", "int8"])
+def test_ring_kernel_whole_buckets_copy_path(card, compress):
+    """No padding needed: the kernel copies the stack into a new output."""
+    xs = _stack(8, 8 * 4 * rk.LANE * 2, card, seed=9)
+    keep = xs.clone()
+    out = rk.ring_kernel_allreduce_sum(xs, seg_rows=4, compress=compress)
+    ref = rk.ring_kernel_allreduce_sum_reference(xs, seg_rows=4, compress=compress)
+    assert out.data_ptr() != xs.data_ptr() and torch.equal(xs, keep)
+    _assert_ring_equal(out, ref, compress)
+
+
+def test_ring_kernel_int8_all_zero_segment(card):
+    xs = _stack(4, 4 * 4 * rk.LANE, card, seed=10)
+    xs[:, : 4 * rk.LANE] = 0.0  # segment 0 is zero on every rank
+    out = rk.ring_kernel_allreduce_sum(xs, seg_rows=4, compress="int8")
+    ref = rk.ring_kernel_allreduce_sum_reference(xs, seg_rows=4, compress="int8")
+    assert bool(torch.isfinite(out).all())
+    assert not bool(out[:, : 4 * rk.LANE].any())
+    _assert_ring_equal(out, ref, "int8")
+
+
+def test_ring_kernel_runs_on_the_callers_stream(card):
+    xs = _stack(8, 1 << 20, card, seed=11)
+    ref = rk.ring_kernel_allreduce_sum_reference(xs, compress="bf16")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = rk.ring_kernel_allreduce_sum(xs, compress="bf16")
+        snapshot = out.clone()  # ordered after the kernel on the same stream
+    side.synchronize()
+    assert torch.equal(snapshot, ref)
+
+
+def test_ring_rejects_what_the_kernel_does_not_take(card):
+    xs = _stack(4, 1000, card)
+    with pytest.raises(TypeError):
+        rk.ring_kernel_allreduce_sum(xs.double())
+    with pytest.raises(ValueError):
+        rk.ring_kernel_allreduce_sum(xs.t().contiguous().t())
+    mesh = line_mesh(4)
+    with pytest.raises(ValueError, match="valid is on cpu"):
+        ar.masked_psum(mesh, xs, torch.ones(4), "line")
+
+
+@pytest.mark.parametrize(
+    "schedule,compress,bucket",
+    [("psum", None, None), ("psum", "bf16", 1000), ("ring", "int8", None),
+     ("pallas_ring", None, None), ("pallas_ring", "bf16", 4096),
+     ("pallas_ring", "int8", 2048), ("butterfly", "bf16", None)],
+)
+def test_threshold_allreduce_card_equals_cpu(card, schedule, compress, bucket):
+    """The card's result (K3 for pallas_ring, plain tensor code otherwise)
+    equals the CPU's (the plain versions) on the same inputs."""
+    rng = np.random.default_rng(12)
+    xs = rng.standard_normal((8, 5000)).astype(np.float32)
+    n_b = 1 if bucket is None else -(-5000 // bucket)
+    valid = (rng.uniform(size=(8, n_b)) > 0.3).astype(np.float32)
+    valid = valid[:, 0] if bucket is None else valid
+    make = grid_mesh if schedule == "butterfly" else line_mesh
+    args = (2, 4) if schedule == "butterfly" else (8,)
+    kw = dict(schedule=schedule, compress=compress, bucket_size=bucket)
+    on_card = ar.threshold_allreduce(make(*args), xs, valid, **kw)
+    on_cpu = ar.threshold_allreduce(make(*args, device="cpu"), xs, valid, **kw)
+    torch.testing.assert_close(on_card.sum.cpu(), on_cpu.sum, rtol=1e-6, atol=1e-6)
+    assert torch.equal(on_card.count.cpu(), on_cpu.count)

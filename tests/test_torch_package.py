@@ -5,8 +5,10 @@
 - Its entry points run on the card unless asked for the CPU: with no CUDA
   they raise instead of running on the CPU.
 - The CPU path launches no kernel.
-- The ``bench-suite`` command prints parseable records at a tiny size.
-- Its copy of the configs behaves as the JAX package's.
+- The ``bench-suite`` and ``bench`` commands print parseable records at a
+  tiny size.
+- Its copies of the configs and of the per-round metrics behave as the JAX
+  package's.
 """
 
 from __future__ import annotations
@@ -26,10 +28,15 @@ import torch
 
 import akka_allreduce_tpu_torch
 from akka_allreduce_tpu import config as jconfig
+from akka_allreduce_tpu.utils import metrics as jmetrics
 from akka_allreduce_tpu_torch import bench, bench_suite, config, state
 from akka_allreduce_tpu_torch.__main__ import main as cli_main
 from akka_allreduce_tpu_torch._device import resolve_device, use_kernel
+from akka_allreduce_tpu_torch.comm import measure_allreduce, threshold_allreduce
 from akka_allreduce_tpu_torch.ops import local_reduce as tlr
+from akka_allreduce_tpu_torch.ops import ring as tring
+from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
+from akka_allreduce_tpu_torch.utils import metrics
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "akka_allreduce_tpu_torch"
@@ -68,7 +75,10 @@ def test_source_names_no_jax_package():
         if pattern.search(p.read_text())
     ]
     assert offenders == []
-    assert "akka_allreduce_tpu_torch.ops.local_reduce" in _module_names()
+    names = _module_names()
+    for mod in ("ops.local_reduce", "ops.ring", "comm.allreduce",
+                "comm.bandwidth", "parallel.mesh", "utils.metrics"):
+        assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
 def test_resolve_device():
@@ -95,6 +105,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, capsys):
         bench.main([])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["bench-suite", "--quick", "--floats", "1024"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        line_mesh(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        grid_mesh(2, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["bench", "--floats", "1024", "--devices", "4"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["bench", "--mesh", "grid", "--schedule", "butterfly"])
     assert capsys.readouterr().out == ""  # nothing was measured or printed
 
 
@@ -106,6 +124,17 @@ def test_cpu_path_counts_no_launches():
     tlr.elastic_average_step(tlr.pack_tiles(x), torch.ones(4), 0.5)
     assert tlr.LAUNCHES == before
     assert set(before) == {"masked_average", "elastic_average_step"}
+
+
+def test_cpu_ring_path_counts_no_launches():
+    before = dict(tring.LAUNCHES)
+    mesh = line_mesh(4, device="cpu")
+    xs = torch.randn(4, 3000, generator=torch.Generator().manual_seed(1))
+    for compress in (None, "bf16", "int8"):
+        threshold_allreduce(mesh, xs, schedule="pallas_ring", bucket_size=1024,
+                            compress=compress)
+    measure_allreduce(mesh, 2048, iters=1, warmup=0, schedule="pallas_ring")
+    assert tring.LAUNCHES == before == {"ring_allreduce": before["ring_allreduce"]}
 
 
 @pytest.fixture
@@ -140,6 +169,34 @@ def test_bench_suite_cli_prints_records(capsys, tmp_path, one_torch_thread):
         assert math.isfinite(rec["seconds_per_iter"]) and rec["reduce_gbps"] >= 0
         # the packed working set: 8 workers x one 512 x 128 tile each
         assert rec["working_set_mb"] == round(8 * 512 * 128 * 4 / 1e6, 1)
+
+
+@pytest.mark.parametrize(
+    "extra,schedule,n",
+    [
+        ([], "psum", 4),
+        (["--schedule", "ring", "--compress", "int8", "--bucket", "512"], "ring", 4),
+        (["--mesh", "grid", "--schedule", "butterfly", "--compress", "bf16"],
+         "butterfly", 4),
+    ],
+)
+def test_bench_cli_prints_one_record(capsys, one_torch_thread, extra, schedule, n):
+    rc = cli_main(["bench", "--device", "cpu", "--devices", "4", "--floats",
+                   "4096", "--iters", "2", *extra])
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["num_floats"] == 4096 and rec["n_devices"] == n
+    assert rec["schedule"] == schedule and rec["iters"] == 2
+    assert rec["device"] == "cpu" and rec["power_limit"] is None
+    assert rec["path"] == "virtual_ranks_one_card"
+    assert math.isfinite(rec["bus_gbps_median"]) and rec["bus_gbps_best"] > 0
+
+
+def test_bench_cli_keeps_the_jax_schedule_choices():
+    with pytest.raises(SystemExit):
+        cli_main(["bench", "--device", "cpu", "--schedule", "pallas_ring"])
 
 
 def test_cli_rejects_unknown_command(capsys):
@@ -188,6 +245,26 @@ def test_metadata_config_copy_matches_jax(kwargs):
             assert ours.chunk_size(peers, chunk) == theirs.chunk_size(peers, chunk)
     with pytest.raises(IndexError):
         ours.chunk_size(1, ours.chunks_per_block(1))
+
+
+def test_metrics_copy_matches_jax(tmp_path):
+    kw = dict(round_num=3, latency_s=0.002, data_bytes=1 << 20, n_devices=8,
+              contributors=6.0, schedule="ring", extra={"num_floats": 262144})
+    ours, theirs = metrics.RoundMetrics(**kw), jmetrics.RoundMetrics(**kw)
+    assert ours.bus_gbps == theirs.bus_gbps
+    assert ours.to_json() == theirs.to_json()
+    assert metrics.RoundMetrics(0, 0.0, 10, 2, 1.0).bus_gbps == 0.0
+    for mod in (metrics, jmetrics):
+        mem = mod.MetricsLogger()
+        mem.log_round(mod.RoundMetrics(**kw))
+        mem.close()
+        assert mem.dump() == ours.to_json() + "\n"
+    path = tmp_path / "rounds.jsonl"
+    log = metrics.MetricsLogger(str(path))
+    log.log_round(ours)
+    log.log_event(kind="note", t=1.0)
+    log.close()
+    assert path.read_text().splitlines() == [ours.to_json(), '{"kind": "note", "t": 1.0}']
 
 
 def test_threshold_config_rejects_bad_fraction():
