@@ -17,14 +17,20 @@ Module names mirror the JAX package so each counterpart is easy to find:
   bus-bandwidth harness
 - ``ops``           — the hand-written kernels and their plain versions:
   the single-card threshold reduce (``masked_average``,
-  ``elastic_average_step``) and the ring allreduce
-  (``ring_kernel_allreduce_sum``)
+  ``elastic_average_step``), the ring allreduce
+  (``ring_kernel_allreduce_sum``) and the flash-attention forward
+  (``flash_attention``), with the attention dispatch
+  (``local_attention``: dense, flash or blockwise)
+- ``models``        — the Transformer LM on one device (``TransformerLM``,
+  ``rope``), its KV-cache decoder (``LMGenerator``), the copy task's data
+  and the carrying-over of flax weights
 - ``state``         — hand-over of the ``(K, data)`` replica state to and from
   numpy, in the JAX package's flat or packed layout
 - ``utils``         — slope timing, CUDA-event timing, card description,
-  per-round metrics
+  FLOP accounting, per-round metrics
 - ``bench_suite``   — the single-card branch of BASELINE configs 2 and 4
-- ``__main__``      — ``bench-suite`` and ``bench`` (allreduce bandwidth)
+- ``__main__``      — ``bench-suite``, ``bench`` (allreduce bandwidth) and
+  ``lm-generate`` (KV-cache decoding)
 - ``bench``         — the single-card ``local_threshold_reduce_bw`` metric
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with

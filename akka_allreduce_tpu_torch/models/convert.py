@@ -1,0 +1,89 @@
+"""Weights carried across from the JAX package's flax parameter trees.
+
+:func:`transformer_state_dict_from_flax` maps a ``TransformerLM`` flax tree,
+given as nested dicts of numpy arrays (``{"params": {...}}`` or the inner
+dict), to the ``state_dict`` of :class:`.transformer.TransformerLM`. The
+port keeps the flax shapes, so each leaf is renamed, never transposed. An
+unknown or a missing leaf raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_BLOCK_LEAVES = {
+    "Attention_0/q/kernel": "attn.q_kernel",
+    "Attention_0/q/bias": "attn.q_bias",
+    "Attention_0/k/kernel": "attn.k_kernel",
+    "Attention_0/k/bias": "attn.k_bias",
+    "Attention_0/v/kernel": "attn.v_kernel",
+    "Attention_0/v/bias": "attn.v_bias",
+    "Attention_0/out/kernel": "attn.out_kernel",
+    "Attention_0/out_bias": "attn.out_bias",
+    "LayerNorm_0/scale": "ln1.scale",
+    "LayerNorm_0/bias": "ln1.bias",
+    "LayerNorm_1/scale": "ln2.scale",
+    "LayerNorm_1/bias": "ln2.bias",
+    "mlp_up/kernel": "mlp_up_kernel",
+    "mlp_up/bias": "mlp_up_bias",
+    "mlp_down/kernel": "mlp_down_kernel",
+    "mlp_bias": "mlp_bias",
+}
+_TOP_LEAVES = {
+    "Embed_0/embedding": "embedding",
+    "LayerNorm_0/scale": "ln_f.scale",
+    "LayerNorm_0/bias": "ln_f.bias",
+    "Dense_0/kernel": "head_kernel",
+    "Dense_0/bias": "head_bias",
+}
+_BLOCK = re.compile(r"Block_(\d+)/(.+)")
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            flat.update(_flatten(val, path + "/"))
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def transformer_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ``TransformerLM`` ``state_dict`` from a flax tree.
+
+    Raises ``ValueError`` on a leaf with no counterpart in the port and on
+    a leaf the port needs that the tree lacks (blocks numbered from 0 with
+    no gap, each with all its leaves).
+    """
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, torch.Tensor] = {}
+    blocks: dict[int, set[str]] = {}
+    unknown = []
+    for path, arr in _flatten(tree).items():
+        name = _TOP_LEAVES.get(path)
+        m = _BLOCK.fullmatch(path)
+        if name is None and m is not None and m.group(2) in _BLOCK_LEAVES:
+            i = int(m.group(1))
+            blocks.setdefault(i, set()).add(m.group(2))
+            name = f"blocks.{i}.{_BLOCK_LEAVES[m.group(2)]}"
+        if name is None:
+            unknown.append(path)
+            continue
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if unknown:
+        raise ValueError(f"flax leaves with no counterpart in the port: {sorted(unknown)}")
+    missing = [p for p, n in _TOP_LEAVES.items() if n not in out]
+    if blocks and sorted(blocks) != list(range(len(blocks))):
+        missing.append(f"Block_i for i in {sorted(set(range(max(blocks) + 1)) - set(blocks))}")
+    for i, leaves in sorted(blocks.items()):
+        missing += [f"Block_{i}/{p}" for p in _BLOCK_LEAVES if p not in leaves]
+    if missing:
+        raise ValueError(f"flax tree lacks leaves: {missing}")
+    return out

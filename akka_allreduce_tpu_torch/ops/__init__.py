@@ -5,10 +5,14 @@
   one pass over HBM, with their plain PyTorch versions beside them.
 - :mod:`.ring` — the ring allreduce-sum (K3) over n virtual ranks on one
   card, f32 or bf16/int8 hops, with its plain PyTorch version.
-
-Flash attention arrives with the transformer families.
+- :mod:`.flash_attention` — the flash-attention forward (K4), f32 or
+  bf16, causal or not, with its plain PyTorch version; reached through
+  :func:`.local_attention.local_attention`, which also holds the dense and
+  blockwise paths (helpers in :mod:`.ring_attention`). The two functions
+  share their modules' names, so they are imported from the modules.
 """
 
+from akka_allreduce_tpu_torch.ops.local_attention import blockwise_attention
 from akka_allreduce_tpu_torch.ops.local_reduce import (
     elastic_average_step,
     masked_average,
@@ -19,8 +23,11 @@ from akka_allreduce_tpu_torch.ops.ring import (
     int8_quantize,
     ring_kernel_allreduce_sum,
 )
+from akka_allreduce_tpu_torch.ops.ring_attention import attention_reference
 
 __all__ = [
+    "attention_reference",
+    "blockwise_attention",
     "elastic_average_step",
     "int8_quantize",
     "masked_average",

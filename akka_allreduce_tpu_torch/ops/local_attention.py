@@ -1,0 +1,151 @@
+"""Single-device attention cores: blockwise (flash-style) and kernel dispatch.
+
+Counterpart of ``akka_allreduce_tpu/ops/local_attention.py``.
+:func:`local_attention` dispatches three ways, as the JAX function does:
+
+- dense (:func:`attention_reference`) when the score matrix is small,
+  Tq * Tk <= 512 * 512 (the decode-over-cache shape lands here);
+- K4, the flash-attention kernel (:mod:`.flash_attention`), when the flash
+  gate holds: zero offsets, Tq == Tk and :func:`flash_shapes_ok`;
+- :func:`blockwise_attention` otherwise: an online-softmax loop over K/V
+  blocks, O(T * block) live memory instead of O(T^2).
+
+The JAX gate also refused interpret mode, because the Pallas kernel cannot
+run compiled off the TPU. Here the K4 wrapper makes that choice from the
+tensor itself: a CUDA tensor runs the kernel (or raises), a CPU tensor runs
+K4's plain PyTorch version. So on the CPU a gated shape takes K4's plain
+version, and on the card it takes the kernel, never a silent fallback.
+
+Convention for a query row with no visible keys: the output row is zero.
+``quantized_cache_attention``, ``seq_decode_attention`` and their score
+helpers wait for the int8 cache and the sequence-sharded decode.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from akka_allreduce_tpu_torch.ops.flash_attention import flash_attention
+from akka_allreduce_tpu_torch.ops.ring_attention import (
+    _MASK_VALUE,
+    attention_reference,
+    online_softmax_update,
+    repeat_kv,
+)
+
+# dense is fine (and fastest) below this score-matrix side
+_DENSE_MAX_T = 512
+
+
+def _blockwise_olm(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+    q_offset: int,
+    k_offset: int,
+    block_k: int,
+):
+    """Blockwise online-softmax partials ``(o, l, m)`` over a local K/V
+    slice: ``o`` (B, H, Tq, D), ``l`` and ``m`` (B, H, Tq), all f32. The
+    un-normalized core of :func:`blockwise_attention`; a Python loop over
+    the K/V blocks takes the place of the JAX ``lax.scan``."""
+    h = q.shape[2]
+    if k.shape[2] != h:  # grouped-query K/V expand at compute
+        k, v = repeat_kv(k, h), repeat_kv(v, h)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    qf = q.float()
+    q_pos = q_offset + torch.arange(tq, device=q.device)
+    o = torch.zeros((b, h, tq, d), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, tq), _MASK_VALUE, dtype=torch.float32, device=q.device)
+    for start in range(0, tk, block_k):
+        # the last block is short where JAX zero-pads it and masks the tail:
+        # the padded keys contribute exactly zero either way
+        kk = k[:, start:start + block_k]
+        vv = v[:, start:start + block_k]
+        k_pos = k_offset + start + torch.arange(kk.shape[1], device=q.device)
+        mask = q_pos[:, None] >= k_pos[None, :] if causal else None
+        o, l, m = online_softmax_update((o, l, m), qf, kk, vv, scale, mask)
+    return o, l, m
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Memory-efficient attention over K/V blocks; same result as
+    :func:`attention_reference` to float tolerance.
+
+    Shapes: ``q`` (B, Tq, H, D); ``k``/``v`` (B, Tk, H, D). Offsets position
+    the local windows globally for causal masking.
+    """
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    o, l, _ = _blockwise_olm(
+        q, k, v, causal=causal, scale=scale,
+        q_offset=q_offset, k_offset=k_offset, block_k=block_k,
+    )
+    out = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def flash_shapes_ok(t: int, d: int) -> bool:
+    """The flash gate on shapes: T > 512, T % 512 == 0 and D % 32 == 0 (the
+    JAX package's static gate for the Pallas kernel, kept as it is)."""
+    return t > _DENSE_MAX_T and t % 512 == 0 and d % 32 == 0
+
+
+def _flash_ok(q: torch.Tensor, k: torch.Tensor, q_offset, k_offset) -> bool:
+    """Shape and placement gate for K4: zero int offsets, Tq == Tk and
+    :func:`flash_shapes_ok`. Whether the kernel or its plain version runs
+    follows the tensor's device, inside the K4 wrapper."""
+    if not (isinstance(q_offset, int) and q_offset == 0):
+        return False
+    if not (isinstance(k_offset, int) and k_offset == 0):
+        return False
+    tq, d = q.shape[1], q.shape[3]
+    return tq == k.shape[1] and flash_shapes_ok(tq, d)
+
+
+def local_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+) -> torch.Tensor:
+    """Best single-device attention for the shape at hand.
+
+    Dispatch: dense for small score matrices, K4 on gated shapes, else the
+    blockwise path. All three agree with the dense oracle. Grouped-query
+    K/V (fewer heads than ``q``) expand at the compute site; K4 reads the
+    compact form directly.
+    """
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.shape[1] * k.shape[1] <= _DENSE_MAX_T * _DENSE_MAX_T:
+        h = q.shape[2]
+        return attention_reference(
+            q, repeat_kv(k, h), repeat_kv(v, h), causal=causal, sm_scale=scale,
+            q_offset=q_offset, k_offset=k_offset,
+        )
+    if _flash_ok(q, k, q_offset, k_offset):
+        return flash_attention(q, k, v, causal=causal, sm_scale=scale)
+    return blockwise_attention(
+        q, k, v, causal=causal, sm_scale=scale,
+        q_offset=q_offset, k_offset=k_offset,
+    )

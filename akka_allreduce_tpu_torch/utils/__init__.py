@@ -4,7 +4,10 @@ from akka_allreduce_tpu_torch.utils.benchmarking import (  # noqa: F401
     SlopeEstimate,
     card_info,
     cuda_event_ms,
+    device_peak_flops,
     median_slope,
+    transformer_forward_flops,
+    transformer_train_flops,
 )
 from akka_allreduce_tpu_torch.utils.metrics import (  # noqa: F401
     MetricsLogger,

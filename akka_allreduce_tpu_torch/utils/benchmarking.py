@@ -9,6 +9,9 @@
 - :func:`card_info`: the card's name, power limit and count, as
   ``nvidia-smi`` reports them; every number measured on a card is written
   down beside them.
+- FLOP accounting: the port's copy of ``transformer_train_flops``, a
+  forward-only form for serving (:func:`transformer_forward_flops`), and
+  :func:`device_peak_flops`, the card's dense bf16 peak.
 """
 
 from __future__ import annotations
@@ -22,6 +25,63 @@ import torch
 SMI_QUERY = (
     "nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
 )
+
+#: dense bf16 tensor-core peak FLOP/s by ``torch.cuda.get_device_name``
+#: (NVIDIA's data sheet; the SXM part at its full 700 W limit)
+PEAK_BF16_FLOPS = {
+    "NVIDIA H100 80GB HBM3": 989.4e12,  # H100 SXM
+}
+
+
+def device_peak_flops(device: torch.device | int | None = None) -> float | None:
+    """Dense bf16 peak of the CUDA card ``device`` (default: card 0), or None
+    for the CPU and for cards without an entry."""
+    if isinstance(device, torch.device) and device.type != "cuda":
+        return None
+    if not torch.cuda.is_available():
+        return None
+    if isinstance(device, torch.device):
+        index = device.index or 0
+    else:
+        index = device or 0
+    return PEAK_BF16_FLOPS.get(torch.cuda.get_device_name(index))
+
+
+def transformer_train_flops(
+    *,
+    n_params: int | float,
+    batch: int,
+    seq: int,
+    d_model: int,
+    n_layers: int,
+    causal: bool = True,
+    remat: bool = False,
+) -> float:
+    """Model FLOPs of one Transformer LM training step (the JAX package's
+    accounting): dense ``6·N·B·T`` (``8·N·B·T`` with ``remat``) plus the
+    attention score/value products, ``4·B·T²·d`` per layer forward, 2x that
+    backward, halved for causal attention."""
+    n_forwards = 4.0 if remat else 3.0  # forward-equivalents in one step
+    dense = 2.0 * float(n_params) * batch * seq * n_forwards
+    attn = 4.0 * batch * float(seq) ** 2 * d_model * n_layers * n_forwards
+    if causal:
+        attn *= 0.5
+    return dense + attn
+
+
+def transformer_forward_flops(
+    *,
+    n_params: int | float,
+    batch: int,
+    seq: int,
+    d_model: int,
+    n_layers: int,
+    causal: bool = True,
+) -> float:
+    """Model FLOPs of one forward (a prefill): ``2·N·B·T`` plus the
+    attention products ``4·B·T²·d`` per layer, halved for causal."""
+    attn = 4.0 * batch * float(seq) ** 2 * d_model * n_layers
+    return 2.0 * float(n_params) * batch * seq + (0.5 * attn if causal else attn)
 
 
 @dataclass(frozen=True)

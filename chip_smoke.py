@@ -9,8 +9,8 @@ non-zero and prints no result.
 Phases, each printed as it ends:
 
 1. card: name, power limit and count (``nvidia-smi``);
-2. build: ``nvcc`` compiles every kernel source of the path (``local_reduce``
-   and ``ring``), all in parallel;
+2. build: ``nvcc`` compiles every kernel source of the paths
+   (``local_reduce``, ``ring`` and ``flash_attention``), all in parallel;
 3. kernel vs plain: K1 ``masked_average`` and K2 ``elastic_average_step``
    against their plain versions on the card, at the main path's shapes
    (K = 16 workers x 64M floats with a 12-of-16 threshold mask, and the
@@ -21,7 +21,11 @@ Phases, each printed as it ends:
    ``seg_rows`` in {1, 4, 512}, every compress mode, ragged data, an int8
    all-zero segment, and the full shape, n = 8 ranks x 25,000,000 floats
    (BASELINE config 4's ResNet-50 buffer; 48 buckets) under a 6-of-8 mask,
-   with every rank's row checked against rank 0's;
+   with every rank's row checked against rank 0's; then K4, the
+   flash-attention forward, against its plain version: the flagship shape
+   (B 8, T 2048, H 16, D 128) in bf16, causal; the same in f32 at B 2;
+   non-causal; D in {32, 64, 96, 128, 256}; T in {1024, 1536, 4096};
+   grouped-query K/V (4 and 1 KV heads);
 4. main paths, each with its launch counters set to 0 just before it and
    read just after: (a) threshold rounds at K = 16 x 64M (each round's
    result from ``masked_average``, the fold from ``elastic_average_step`` on
@@ -32,17 +36,32 @@ Phases, each printed as it ends:
    at 8 x 25M against the same round through the plain K3, and one
    ``measure_allreduce`` record, printed on its own line; (c) the butterfly
    ``threshold_allreduce(grid_mesh(4, 4), ...)`` at 16 x 64M (config 2's
-   shape) against a float64 sum;
+   shape) against a float64 sum; (d) the Transformer LM's serving path at
+   the flagship width (vocab 256, d_model 2048, 16 heads, 8 layers, seeded
+   random weights): the bf16 forward on B 8 x T 2048 copy-task tokens
+   (K4 once a layer, finite logits); the f32 forward against
+   ``LMGenerator.decode_logits(chunk=256)``, whose nonzero offsets take the
+   dense or blockwise path (no K4); ``LMGenerator.generate`` with the
+   2048-token prompt and 32 greedy steps in f32 (K4 at prefill), its first
+   8 tokens against a naive re-forward; then ``lm-generate`` at that width
+   in bf16, whose prefill ms and decode ms per token are printed on their
+   own line;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
-   whole buckets), each by CUDA events, beside its plain version, the
-   nearest PyTorch library call and the HBM bound;
+   whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
+   by CUDA events, beside its plain version, the nearest PyTorch library
+   call (``scaled_dot_product_attention`` for K4, timed only) and the bound;
+   one flagship bf16 forward, for K4's share of it; and one prefill and 8
+   decode steps under ``torch.profiler`` (device busy share, top kernels);
 6. one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, ...}`` line.
 
 Kernel and plain version are compared with rtol = atol = 1e-6 (the JAX
 package's tolerance); the kernels avoid FMA contraction, so the error is
 expected to be exactly 0, and K1, K2 and K3 in f32 and bf16 are held to bit
-equality.
+equality. K4 sums in another order than its plain version (dense products)
+and in bf16 rounds P to bf16 for the PV product: f32 is held to
+rtol = atol = 1e-4, bf16 to rtol = atol = 2e-2. The LM's f32 forward and
+its decode-path oracle must agree within 1e-4 x max|logit|.
 """
 
 from __future__ import annotations
@@ -60,9 +79,15 @@ ROUNDS = 3
 RTOL = ATOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989.4e12  # H100 SXM dense bf16 on the tensor cores
 RING_RANKS = 8
 RING_FLOATS = 25_000_000  # BASELINE config 4: ResNet-50's gradient buffer
 RING_MODES = (None, "bf16", "int8")
+# the flagship LM (the JAX package's bench_mfu.py defaults): 404M parameters
+LM = dict(vocab=256, d_model=2048, n_heads=16, n_layers=8)
+LM_BATCH, LM_SEQ, LM_GEN, LM_GREEDY_CHECK = 8, 2048, 32, 8
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LOGIT_TOL = 1e-4  # relative to max|logit|
 
 
 def ring_name(mode: str | None) -> str:
@@ -74,11 +99,16 @@ SOURCE = {
     "masked_average": "akka_allreduce_tpu_torch/ops/csrc/local_reduce.cu",
     "elastic_average_step": "akka_allreduce_tpu_torch/ops/csrc/local_reduce.cu",
     **{ring_name(m): "akka_allreduce_tpu_torch/ops/csrc/ring.cu" for m in RING_MODES},
+    "flash_attention_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
 }
 REPLACES = {
     "masked_average": "akka_allreduce_tpu/ops/local_reduce.py:79",
     "elastic_average_step": "akka_allreduce_tpu/ops/local_reduce.py:142",
     **{ring_name(m): "akka_allreduce_tpu/ops/ring.py:264" for m in RING_MODES},
+    # the flash branch of local_attention (the library Pallas kernel)
+    "flash_attention_bf16": "akka_allreduce_tpu/ops/local_attention.py:378",
+    "flash_attention_f32": "akka_allreduce_tpu/ops/local_attention.py:378",
 }
 
 
@@ -90,6 +120,197 @@ def require(ok: bool, what: str) -> None:
 def phase(label: str, t0: float, **fields) -> None:
     print(json.dumps({"phase": label, "s": round(time.perf_counter() - t0, 3), **fields}),
           flush=True)
+
+
+def flash_name(dtype) -> str:
+    """The kernels line's name of K4 in one dtype."""
+    return "flash_attention_" + ("bf16" if str(dtype).endswith("bfloat16") else "f32")
+
+
+def check_flash(dev, gen) -> tuple[dict, float]:
+    """K4 against its plain version at every listed shape; returns the error
+    at each dtype's flagship shape and the largest error elsewhere."""
+    import torch
+
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, t, h, d = LM_BATCH, LM_SEQ, LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    flagship = {bf16: (b, t, h, h, d, True), f32: (2, t, h, h, d, True)}
+    shapes = [(dt, shape) for dt, shape in flagship.items()]
+    shapes += [(bf16, (2, t, h, h, d, False)), (f32, (2, 1024, 4, 4, d, False))]
+    for dt in (bf16, f32):
+        shapes += [(dt, (2, 1024, 4, 4, hd, True)) for hd in (32, 64, 96, 128, 256)]
+        shapes += [(dt, (1, tt, 4, 4, 128, True)) for tt in (1024, 1536, 4096)]
+        shapes += [(dt, (2, t, h, 4, d, True)), (dt, (1, 1024, 8, 1, 64, True))]
+    err, other = {}, 0.0
+    for dt, (bb, tt, hh, hkv, hd, causal) in shapes:
+        q = torch.randn((bb, tt, hh, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((bb, tt, hkv, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((bb, tt, hkv, hd), generator=gen, device=dev).to(dt)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_reference(q, k, v, causal=causal)
+        tol = FLASH_TOL[str(dt).split(".")[-1]]
+        what = f"flash {dt} B{bb} T{tt} H{hh}/{hkv} D{hd} causal={causal}"
+        require(got.shape == want.shape and got.dtype == dt, f"{what}: shape/dtype")
+        require(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+        e = float((got.float() - want.float()).abs().max())
+        require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                f"{what}: max abs err {e}")
+        if (bb, tt, hh, hkv, hd, causal) == flagship[dt]:
+            err[flash_name(dt)] = e
+        else:
+            other = max(other, e)
+        del q, k, v, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return err, other
+
+
+def lm_main_path(dev) -> dict:
+    """The LM's serving path at the flagship width; returns K4's launches per
+    dtype, the figures of each part and the bf16 model and tokens (kept for
+    the forward's timing)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from akka_allreduce_tpu_torch.__main__ import main as cli_main
+    from akka_allreduce_tpu_torch.models import LMGenerator, SyntheticCopyLM, TransformerLM
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+
+    count = fa.LAUNCHES
+    x, _ = next(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED).batches(LM_BATCH, 1))
+    tokens = torch.from_numpy(x).to(dev)
+    n_layers = LM["n_layers"]
+
+    # (a) the flagship forward in bf16: K4 once a layer
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, seed=SEED, device=dev)
+    count["flash_attention"] = 0
+    with torch.no_grad():
+        logits16 = model(tokens)
+    torch.cuda.synchronize()
+    launches_a = count["flash_attention"]
+    require(launches_a == n_layers, f"bf16 forward: K4 launched {launches_a} times")
+    require(logits16.shape == (LM_BATCH, LM_SEQ, LM["vocab"])
+            and logits16.dtype == torch.float32, "bf16 logits shape")
+    require(bool(torch.isfinite(logits16).all()), "bf16 logits finite")
+
+    # (b) f32: the forward (K4) against the decode path in 256-token chunks
+    model32 = TransformerLM(**LM, compute_dtype=torch.float32, seed=SEED, device=dev)
+    count["flash_attention"] = 0
+    with torch.no_grad():
+        logits32 = model32(tokens)
+    torch.cuda.synchronize()
+    launches_b = count["flash_attention"]
+    require(launches_b == n_layers, f"f32 forward: K4 launched {launches_b} times")
+    gen = LMGenerator(model32, max_len=LM_SEQ + LM_GEN)
+    oracle = gen.decode_logits(tokens, chunk=256)
+    torch.cuda.synchronize()
+    require(count["flash_attention"] == n_layers, "decode_logits(chunk=256) ran no K4")
+    scale = float(logits32.abs().max())
+    oracle_err = float((logits32 - oracle).abs().max())
+    require(bool(torch.isfinite(logits32).all()) and oracle_err <= LOGIT_TOL * scale,
+            f"f32 forward vs decode_logits: {oracle_err} of max|logit| {scale}")
+    bf16_vs_f32 = float((logits16 - logits32).abs().max())
+    del oracle, logits16
+
+    # (c) generation in f32: K4 at prefill; greedy tokens vs a naive re-forward
+    count["flash_attention"] = 0
+    out = gen.generate(tokens, LM_GEN)
+    torch.cuda.synchronize()
+    launches_c = count["flash_attention"]
+    require(launches_c == n_layers, f"generate: prefill launched K4 {launches_c} times")
+    require(out.shape == (LM_BATCH, LM_GEN), "generated tokens shape")
+    seq = tokens
+    with torch.no_grad():
+        for _ in range(LM_GREEDY_CHECK):
+            nxt = torch.argmax(model32(seq)[:, -1], dim=-1)
+            seq = torch.cat([seq, nxt[:, None]], dim=1)
+    naive = seq[:, LM_SEQ:].to(torch.int32)
+    require(torch.equal(out[:, :LM_GREEDY_CHECK], naive),
+            f"greedy tokens vs naive re-forward: {out[:, :LM_GREEDY_CHECK].tolist()} "
+            f"vs {naive.tolist()}")
+    del model32, gen, logits32, seq
+    torch.cuda.empty_cache()
+
+    # (d) the lm-generate command at the flagship width in bf16
+    count["flash_attention"] = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([
+            "lm-generate", "--vocab", str(LM["vocab"]), "--d-model", str(LM["d_model"]),
+            "--heads", str(LM["n_heads"]), "--layers", str(n_layers),
+            "--batch", str(LM_BATCH), "--prompt-len", str(LM_SEQ),
+            "--gen", str(LM_GEN), "--bf16",
+        ])
+    torch.cuda.synchronize()
+    launches_d = count["flash_attention"]
+    lines = buf.getvalue().strip().splitlines()
+    print("\n".join(ln for ln in lines if not ln.startswith(("prompt", "decoded"))),
+          flush=True)
+    record = json.loads(lines[-1])
+    require(rc == 0 and launches_d > 0, f"lm-generate: rc {rc}, K4 launches {launches_d}")
+    require(record["prefill_ms"] > 0 and record["ms_per_token"] > 0,
+            f"lm-generate record {record}")
+    torch.cuda.empty_cache()
+    return {
+        "launches": {"flash_attention_bf16": launches_a + launches_d,
+                     "flash_attention_f32": launches_b + launches_c},
+        "per_part": {"a_forward_bf16": launches_a, "b_forward_f32": launches_b,
+                     "c_generate_f32": launches_c, "d_lm_generate_bf16": launches_d},
+        "oracle_err": oracle_err,
+        "max_abs_logit": scale,
+        "bf16_vs_f32_logits": bf16_vs_f32,
+        "greedy": out[0, :LM_GREEDY_CHECK].tolist(),
+        "record": record,
+        "model": model,
+        "tokens": tokens,
+    }
+
+
+
+def profile_lm(model, tokens, steps: int = 8) -> dict:
+    """One prefill and ``steps`` greedy decode steps of ``model`` under
+    ``torch.profiler``: for each, the host-clock wall time, the summed
+    device time of its kernels, the device's busy share and the kernels
+    that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from akka_allreduce_tpu_torch.models import LMGenerator
+
+    gen = LMGenerator(model, max_len=tokens.shape[1] + steps + 1)
+    cache = gen.init_cache(tokens.shape[0])
+
+    def traced(fn) -> dict:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        return {"wall_ms": wall_ms, "device_ms": device_ms,
+                "busy_share": device_ms / wall_ms,
+                "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+    out = {}
+    with torch.no_grad():
+        out["prefill"] = traced(lambda: model(tokens, cache))
+        tok = tokens[:, -1:]
+
+        def decode():
+            nonlocal tok
+            for _ in range(steps):
+                tok = torch.argmax(model(tok, cache)[:, -1], dim=-1)[:, None]
+
+        out["decode"] = traced(decode)
+    out["decode"]["steps"] = steps
+    return out
 
 
 def main() -> int:
@@ -119,7 +340,7 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    paths = _build.build("local_reduce", "ring")
+    paths = _build.build("local_reduce", "ring", "flash_attention")
     for path in paths.values():
         ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -260,6 +481,16 @@ def main() -> int:
           tolerance={"f32": "bit-exact", "bf16": "bit-exact",
                      "int8": {"rtol": RTOL, "atol": ATOL}})
 
+    # -- 3c. K4 vs plain ---------------------------------------------------------
+    t0 = time.perf_counter()
+    flash_err, flash_other = check_flash(dev, gen)
+    err.update(flash_err)
+    phase("flash_vs_plain", t0, max_abs_err=flash_err,
+          other_shapes_max_abs_err=flash_other,
+          tolerance={"f32": {"rtol": FLASH_TOL["float32"], "atol": FLASH_TOL["float32"]},
+                     "bf16": {"rtol": FLASH_TOL["bfloat16"],
+                              "atol": FLASH_TOL["bfloat16"]}})
+
     # -- 4. main path -------------------------------------------------------------
     t0 = time.perf_counter()
     x0 = x.clone()
@@ -362,6 +593,20 @@ def main() -> int:
     phase("butterfly_main_path", t0, ranks=K_WORKERS, floats=DATA,
           max_abs_err_vs_f64=bf_err, round_ms=bf_ms)
 
+    # -- 4d. main path: the Transformer LM's serving path -------------------------
+    t0 = time.perf_counter()
+    lm = lm_main_path(dev)
+    rec = lm["record"]
+    print(f"lm serving (B {LM_BATCH}, prompt {LM_SEQ}, bf16, {card['name']}, "
+          f"{card['power_limit']}): prefill {rec['prefill_ms']:.3f} ms, decode "
+          f"{rec['ms_per_token']:.3f} ms/token", flush=True)
+    phase("lm_main_path", t0, launches=lm["launches"], launches_by_part=lm["per_part"],
+          forward_vs_decode_logits_max_abs=lm["oracle_err"],
+          max_abs_logit=lm["max_abs_logit"], tolerance_rel=LOGIT_TOL,
+          bf16_vs_f32_logits_max_abs=lm["bf16_vs_f32_logits"],
+          greedy_row0=lm["greedy"], prefill_ms=rec["prefill_ms"],
+          ms_per_token=rec["ms_per_token"])
+
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
     k = K_WORKERS
@@ -414,32 +659,74 @@ def main() -> int:
             "bytes": 2 * n * padded * 4,
             "ops": (n - 1) * padded + per_element_ops[mode] * hops,
         }
+    del xp
+    torch.cuda.empty_cache()
+
+    # K4 at the flagship shape (bf16) and in f32 at B 2, causal
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+
+    heads, hd = LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    for dt, bb in ((torch.bfloat16, LM_BATCH), (torch.float32, 2)):
+        q, k, v = (torch.randn((bb, LM_SEQ, heads, hd), generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))  # SDPA's (B, H, T, D)
+        timing[flash_name(dt)] = {
+            "ms": cuda_event_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20),
+            "plain_ms": cuda_event_ms(
+                lambda: fa.flash_attention_reference(q, k, v, causal=True), 3),
+            "library_ms": cuda_event_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), 20),
+            "bytes": 4 * q.numel() * q.element_size(),
+            "ops": 4 * bb * heads * LM_SEQ * LM_SEQ * hd / 2,
+            "ops_per_s": BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S,
+        }
+        del q, k, v, qt, kt, vt
+    model, tokens = lm.pop("model"), lm.pop("tokens")
+    with torch.no_grad():
+        forward_ms = cuda_event_ms(lambda: model(tokens), 5, warmup=1)
+    flash_share = LM["n_layers"] * timing["flash_attention_bf16"]["ms"] / forward_ms
+    prof = profile_lm(model, tokens)
+    print(json.dumps({"profile": prof}), flush=True)
+    del model, tokens
+    torch.cuda.empty_cache()
+
     kernels = []
     for name, t in timing.items():
         bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = t["ops"] / FP32_OPS_PER_S * 1e3
+        ops_ms = t["ops"] / t.get("ops_per_s", FP32_OPS_PER_S) * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": {**launches, **ring_launches}[name],
+            "launches": {**launches, **ring_launches, **lm["launches"]}[name],
             "max_abs_err": err[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": bound_by,
             "library_ms": t["library_ms"],
         })
         library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"{name}: {t['ms']:.4f} ms, {t['bytes'] / t['ms'] / 1e6:.1f} GB/s "
-              f"({max(bytes_ms, ops_ms) / t['ms'] * 100:.1f}% of the HBM bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms); plain {t['plain_ms']:.4f} ms; "
-              f"library {library}", flush=True)
+        print(f"{name}: {t['ms']:.4f} ms, {t['bytes'] / t['ms'] / 1e6:.1f} GB/s, "
+              f"{t['ops'] / t['ms'] / 1e9:.1f} GFLOP/s "
+              f"({max(bytes_ms, ops_ms) / t['ms'] * 100:.1f}% of the bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms, by {bound_by}); plain "
+              f"{t['plain_ms']:.4f} ms; library {library}", flush=True)
+    print(f"flagship bf16 forward (B {LM_BATCH} x T {LM_SEQ}): {forward_ms:.3f} ms; "
+          f"K4 x {LM['n_layers']} = {flash_share * 100:.1f}% of it", flush=True)
     phase("timings", t0, library_note="masked_average: torch.mv + sum + clamp + "
           "div; elastic_average_step: the same plus Tensor.addr_; "
           "ring_allreduce_f32: xs.sum(0, keepdim=True).expand_as(xs).contiguous(); "
-          "bf16 and int8 rings: none", ring_shape=[n, padded])
+          "bf16 and int8 rings: none; flash_attention: "
+          "F.scaled_dot_product_attention(is_causal=True) on (B, H, T, D) views",
+          ring_shape=[n, padded], flash_shape={"bf16": [LM_BATCH, LM_SEQ, heads, hd],
+                                               "f32": [2, LM_SEQ, heads, hd]},
+          forward_ms=forward_ms, flash_share_of_forward=flash_share,
+          busy_share={"prefill": prof["prefill"]["busy_share"],
+                      "decode": prof["decode"]["busy_share"]})
 
     # -- 6. result lines ----------------------------------------------------------
     phase("total", t_start)

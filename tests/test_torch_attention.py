@@ -1,0 +1,200 @@
+"""The port's attention paths against the JAX package's, on the CPU.
+
+Same seeded numpy inputs through ``akka_allreduce_tpu.ops`` (JAX on the
+CPU, where ``local_attention`` takes the blockwise path for long sequences)
+and ``akka_allreduce_tpu_torch.ops``:
+
+- the five behaviours of ``tests/test_local_attention.py`` (blockwise vs
+  dense, gradients, global offsets, zero rows, the dispatch), atol 2e-5 as
+  there (gradients 3e-4), zero rows exact;
+- K4's plain version against JAX ``local_attention`` at B 1, H 2,
+  T 1024, D 32, causal and not: f32 within 2e-5, bf16 within 2e-2 (the two
+  sides round the bf16 output of f32 sums taken in another order);
+- which path ``local_attention`` takes for each shape and offset;
+- the guards of the K4 wrapper that hold on every device.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from akka_allreduce_tpu.ops import attention_reference as j_attention_reference
+from akka_allreduce_tpu.ops import local_attention as j_local_attention
+from akka_allreduce_tpu.ops.ring_attention import online_softmax_update as j_olm
+from akka_allreduce_tpu.ops.ring_attention import repeat_kv as j_repeat_kv
+from akka_allreduce_tpu_torch.ops import flash_attention as fa
+from akka_allreduce_tpu_torch.ops import local_attention as la
+from akka_allreduce_tpu_torch.ops import ring_attention as ra
+
+ATOL = 2e-5
+
+
+def _qkv(b=2, tq=96, tk=96, h=2, d=8, seed=0, h_kv=None):
+    rng = np.random.default_rng(seed)
+    h_kv = h if h_kv is None else h_kv
+    return (
+        rng.standard_normal((b, tq, h, d)).astype(np.float32),
+        rng.standard_normal((b, tk, h_kv, d)).astype(np.float32),
+        rng.standard_normal((b, tk, h_kv, d)).astype(np.float32),
+    )
+
+
+def _jax(*xs):
+    return tuple(jnp.asarray(x) for x in xs)
+
+
+def _torch(*xs):
+    return tuple(torch.from_numpy(x) for x in xs)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tk", [96, 100, 33])
+def test_blockwise_matches_dense_and_jax(causal, tk):
+    q, k, v = _qkv(tk=tk)
+    want = np.asarray(j_attention_reference(*_jax(q, k, v), causal=causal))
+    got = la.blockwise_attention(*_torch(q, k, v), causal=causal, block_k=32)
+    dense = ra.attention_reference(*_torch(q, k, v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    np.testing.assert_allclose(dense.numpy(), want, atol=ATOL)
+
+
+def test_blockwise_grads_match_jax_dense():
+    q, k, v = _qkv(tq=64, tk=64)
+
+    def jloss(q, k, v):
+        return (j_attention_reference(q, k, v, causal=True) ** 2).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*_jax(q, k, v))
+    qt, kt, vt = (t.requires_grad_() for t in _torch(q, k, v))
+    (la.blockwise_attention(qt, kt, vt, causal=True, block_k=16) ** 2).sum().backward()
+    for a, b in zip(want, (qt.grad, kt.grad, vt.grad)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=3e-4)
+
+
+def test_blockwise_with_offsets_matches_windowed_dense():
+    """Ring-attention-style global windows: q rows 64.., k rows 32.."""
+    q, k, v = _qkv(tq=32, tk=32, seed=3)
+    want = j_attention_reference(*_jax(q, k, v), causal=True, q_offset=64, k_offset=32)
+    got = la.blockwise_attention(
+        *_torch(q, k, v), causal=True, q_offset=64, k_offset=32, block_k=8
+    )
+    dense = ra.attention_reference(*_torch(q, k, v), causal=True, q_offset=64, k_offset=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(dense.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_fully_masked_rows_are_zero():
+    """A query window entirely before its key window gives zero rows."""
+    q, k, v = _qkv(tq=8, tk=5, seed=7)
+    out = la.blockwise_attention(
+        *_torch(q, k, v), causal=True, q_offset=0, k_offset=32, block_k=4
+    )
+    assert torch.equal(out, torch.zeros_like(out))
+    # K4's plain version: row 0 of a causal window sees key 0 alone, so it
+    # is v's row 0, with nothing leaking in from the masked keys
+    qt, kt, vt = _torch(*_qkv(tq=8, tk=8, seed=8))
+    ref = fa.flash_attention_reference(qt, kt, vt, causal=True)
+    torch.testing.assert_close(ref[:, 0], vt[:, 0], rtol=0, atol=1e-6)
+
+
+def test_local_attention_dispatches_and_matches():
+    # short: dense path; long: blockwise path (both sides) — same numbers
+    q, k, v = _qkv(tq=64, tk=64, seed=5)
+    want = j_attention_reference(*_jax(q, k, v), causal=True)
+    got = la.local_attention(*_torch(q, k, v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    q, k, v = _qkv(tq=768, tk=768, h=1, d=8, seed=6)
+    want = j_local_attention(*_jax(q, k, v), causal=True)
+    got = la.local_attention(*_torch(q, k, v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_jax_local_attention(causal, dtype):
+    """K4's plain version vs JAX local_attention at a gated shape (JAX takes
+    blockwise on the CPU); the port's local_attention dispatches to K4."""
+    q, k, v = _qkv(b=1, tq=1024, tk=1024, h=2, d=32, seed=11)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = j_local_attention(*(x.astype(jdt) for x in _jax(q, k, v)), causal=causal)
+    tq, tk, tv = (x.to(tdt) for x in _torch(q, k, v))
+    got = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tdt
+    via = la.local_attention(tq, tk, tv, causal=causal)
+    assert torch.equal(via, got)
+    tol = ATOL if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_plain_reads_compact_gqa_kv():
+    q, k, v = _qkv(b=1, tq=1024, tk=1024, h=4, d=32, seed=12, h_kv=2)
+    jq, jk, jv = _jax(q, k, v)
+    want = j_attention_reference(jq, j_repeat_kv(jk, 4), j_repeat_kv(jv, 4), causal=True)
+    got = fa.flash_attention(*_torch(q, k, v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_local_attention_takes_each_path(monkeypatch):
+    """dense for small score matrices, K4 on gated shapes with zero int
+    offsets and Tq == Tk, blockwise otherwise."""
+    calls = []
+    monkeypatch.setattr(la, "flash_attention",
+                        lambda *a, **kw: calls.append("flash") or fa.flash_attention(*a, **kw))
+    real_blockwise = la.blockwise_attention
+    monkeypatch.setattr(la, "blockwise_attention",
+                        lambda *a, **kw: calls.append("blockwise") or real_blockwise(*a, **kw))
+    q, k, v = _torch(*_qkv(b=1, tq=1024, tk=1024, h=1, d=32, seed=2))
+    la.local_attention(q, k, v, causal=True)
+    la.local_attention(q[:, 512:], k, v, causal=True, q_offset=512)  # offset
+    la.local_attention(q[:, :768], k[:, :768], v[:, :768], causal=True)  # T % 512
+    la.local_attention(q[:, :1], k, v, causal=True, q_offset=1023)  # dense
+    assert calls == ["flash", "blockwise", "blockwise"]
+    assert la.flash_shapes_ok(1024, 32) and la.flash_shapes_ok(2048, 128)
+    assert not la.flash_shapes_ok(512, 32) and not la.flash_shapes_ok(1024, 48)
+    assert not la._flash_ok(q, k, 0, 1) and la._flash_ok(q, k, 0, 0)
+
+
+def test_online_softmax_update_matches_jax():
+    rng = np.random.default_rng(4)
+    q, k, v = _qkv(b=1, tq=16, tk=8, h=2, d=8, seed=9)
+    o = rng.standard_normal((1, 2, 16, 8)).astype(np.float32)
+    l_ = rng.uniform(1, 2, (1, 2, 16)).astype(np.float32)
+    m = rng.standard_normal((1, 2, 16)).astype(np.float32)
+    m[0, 0, :4] = -1e30  # rows that have seen nothing yet
+    mask = rng.uniform(size=(16, 8)) > 0.4
+    mask[:2] = False  # fully masked rows
+    want = j_olm(_jax(o, l_, m), *_jax(q, k, v), 0.3, jnp.asarray(mask))
+    got = ra.online_softmax_update(_torch(o, l_, m), *_torch(q, k, v), 0.3,
+                                   torch.from_numpy(mask))
+    for a, b in zip(want, got):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-6)
+
+
+def test_repeat_kv_matches_jax_and_rejects_bad_groups():
+    k = np.random.default_rng(3).standard_normal((2, 5, 2, 4)).astype(np.float32)
+    got = ra.repeat_kv(torch.from_numpy(k), 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_repeat_kv(jnp.asarray(k), 6)))
+    assert ra.repeat_kv(torch.from_numpy(k), 2).data_ptr() == torch.from_numpy(k).data_ptr()
+    with pytest.raises(ValueError, match="not divisible"):
+        ra.repeat_kv(torch.from_numpy(k), 3)
+
+
+def test_flash_wrapper_guards_on_every_device():
+    q, k, v = _torch(*_qkv(b=1, tq=64, tk=64, h=4, d=32))
+    with pytest.raises(ValueError, match="k and v must be"):
+        fa.flash_attention(q, k[:, :32], v[:, :32])
+    with pytest.raises(ValueError, match="not divisible"):
+        fa.flash_attention(q, k[:, :, :3], v[:, :, :3])
+    with pytest.raises(TypeError, match="dtypes differ"):
+        fa.flash_attention(q, k.double(), v.double())
+    with pytest.raises(ValueError, match=r"\(B, T, H, D\)"):
+        fa.flash_attention(q[0], k, v)
+    before = dict(fa.LAUNCHES)
+    fa.flash_attention(q, k, v, causal=True)  # the CPU takes the plain version
+    assert fa.LAUNCHES == before

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 masked_average, K2 elastic_average_step, K3
-the ring allreduce) against their plain PyTorch versions on the card.
+the ring allreduce, K4 the flash-attention forward) against their plain
+PyTorch versions on the card.
 
 Marked ``gpu``; without a card every test skips (decided in the ``card``
 fixture, never at import). Run on the card with
@@ -8,6 +9,9 @@ fixture, never at import). Run on the card with
 The kernels avoid FMA contraction, so they are held to bit equality with the
 plain versions (which run as separate mul and add kernels on the card); K3
 under int8 is held to rtol = atol = 1e-6, and equality is expected there too.
+K4 sums in another order than the plain version's dense products and, in
+bf16, rounds P to bf16 for the PV product: f32 is held to rtol = atol =
+1e-4, bf16 to rtol = atol = 2e-2.
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ import pytest
 import torch
 
 from akka_allreduce_tpu_torch.comm import allreduce as ar
+from akka_allreduce_tpu_torch.models import LMGenerator, TransformerLM
+from akka_allreduce_tpu_torch.ops import flash_attention as fa
+from akka_allreduce_tpu_torch.ops import local_attention as la
 from akka_allreduce_tpu_torch.ops import local_reduce as lr
 from akka_allreduce_tpu_torch.ops import ring as rk
 from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
@@ -241,3 +248,114 @@ def test_threshold_allreduce_card_equals_cpu(card, schedule, compress, bucket):
     on_cpu = ar.threshold_allreduce(make(*args, device="cpu"), xs, valid, **kw)
     torch.testing.assert_close(on_card.sum.cpu(), on_cpu.sum, rtol=1e-6, atol=1e-6)
     assert torch.equal(on_card.count.cpu(), on_cpu.count)
+
+
+# -- K4: the flash-attention forward ------------------------------------------
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _qkv(b, t, h, h_kv, d, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def draw(heads):
+        x = rng.standard_normal((b, t, heads, d)).astype(np.float32)
+        return torch.from_numpy(x).to(dev, dtype)
+
+    return draw(h), draw(h_kv), draw(h_kv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "b,t,h,h_kv,d",
+    [(1, 128, 2, 2, 32), (2, 192, 4, 2, 64), (1, 256, 2, 1, 96),
+     (1, 1024, 2, 2, 128), (1, 320, 3, 3, 160), (2, 128, 2, 2, 192),
+     (1, 128, 1, 1, 224), (1, 192, 2, 1, 256)],
+)
+def test_flash_kernel_matches_plain(card, b, t, h, h_kv, d, dtype, causal):
+    q, k, v = _qkv(b, t, h, h_kv, d, dtype, card)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal)
+    ref = fa.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == (b, t, h, d)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_a_cache_slice_in_place(card, dtype):
+    """K/V as the live slots of a longer cache (batch stride > T * H * D)."""
+    q, k, v = _qkv(2, 256, 4, 2, 64, dtype, card, seed=5)
+    ck = torch.zeros((2, 320, 2, 64), dtype=dtype, device=card)
+    cv = torch.zeros_like(ck)
+    ck[:, :256], cv[:, :256] = k, v
+    out = fa.flash_attention(q, ck[:, :256], cv[:, :256], causal=True)
+    ref = fa.flash_attention_reference(q, k, v, causal=True)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_runs_on_the_callers_stream(card):
+    q, k, v = _qkv(1, 1024, 2, 2, 64, torch.bfloat16, card, seed=2)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.current_stream(card).wait_stream(side)
+    ref = fa.flash_attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_rejects_what_the_kernel_does_not_take(card):
+    q, k, v = _qkv(1, 128, 2, 2, 32, torch.float32, card)
+    for bad_d in (16, 48, 288):
+        qd, kd, vd = _qkv(1, 128, 2, 2, bad_d, torch.float32, card)
+        with pytest.raises(ValueError, match="covers D"):
+            fa.flash_attention(qd, kd, vd, causal=True)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fa.flash_attention(q[:, :100], k[:, :100], v[:, :100])
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_attention(q, k.cpu(), v.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_attention_takes_the_kernel_on_gated_shapes(card, dtype):
+    q, k, v = _qkv(1, 1024, 2, 1, 64, dtype, card, seed=3)
+    before = fa.LAUNCHES["flash_attention"]
+    out = la.local_attention(q, k, v, causal=True)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    # the blockwise path and an ungated call (nonzero offset) launch nothing
+    want = la.blockwise_attention(q, k, v, causal=True)
+    tail = la.local_attention(q[:, 512:], k, v, causal=True, q_offset=512)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(tail.float(), want[:, 512:].float(), rtol=tol, atol=tol)
+
+
+def test_lm_forward_and_prefill_launch_the_kernel(card):
+    """A gated forward launches K4 once a layer, as does an empty-cache
+    prefill; teacher-forced chunks at nonzero offsets launch none, and all
+    three agree."""
+    model = TransformerLM(vocab=32, d_model=64, n_heads=2, n_layers=2,
+                          seed=1, device=card)
+    tokens = torch.randint(0, 32, (2, 1024), generator=torch.Generator().manual_seed(4))
+    before = fa.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        logits = model(tokens.to(card))
+    assert fa.LAUNCHES["flash_attention"] == before + 2
+    gen = LMGenerator(model, max_len=1040)
+    chunked = gen.decode_logits(tokens, chunk=256)
+    assert fa.LAUNCHES["flash_attention"] == before + 2
+    scale = float(logits.abs().max())
+    torch.testing.assert_close(chunked, logits, rtol=0, atol=1e-4 * scale)
+    out = gen.generate(tokens, 4)
+    assert fa.LAUNCHES["flash_attention"] == before + 4
+    assert out.shape == (2, 4) and out.dtype == torch.int32

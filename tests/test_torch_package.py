@@ -4,7 +4,8 @@
   in a fresh interpreter, and in the source text).
 - Its entry points run on the card unless asked for the CPU: with no CUDA
   they raise instead of running on the CPU.
-- The CPU path launches no kernel.
+- The CPU path launches no kernel (the threshold reduce, the ring, and a
+  gated attention forward alike).
 - The ``bench-suite`` and ``bench`` commands print parseable records at a
   tiny size.
 - Its copies of the configs and of the per-round metrics behave as the JAX
@@ -33,6 +34,8 @@ from akka_allreduce_tpu_torch import bench, bench_suite, config, state
 from akka_allreduce_tpu_torch.__main__ import main as cli_main
 from akka_allreduce_tpu_torch._device import resolve_device, use_kernel
 from akka_allreduce_tpu_torch.comm import measure_allreduce, threshold_allreduce
+from akka_allreduce_tpu_torch.models import TransformerLM
+from akka_allreduce_tpu_torch.ops import flash_attention as tflash
 from akka_allreduce_tpu_torch.ops import local_reduce as tlr
 from akka_allreduce_tpu_torch.ops import ring as tring
 from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
@@ -77,7 +80,10 @@ def test_source_names_no_jax_package():
     assert offenders == []
     names = _module_names()
     for mod in ("ops.local_reduce", "ops.ring", "comm.allreduce",
-                "comm.bandwidth", "parallel.mesh", "utils.metrics"):
+                "comm.bandwidth", "parallel.mesh", "utils.metrics",
+                "ops.ring_attention", "ops.local_attention", "ops.flash_attention",
+                "models.transformer", "models.generate", "models.convert",
+                "models.data"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
@@ -113,6 +119,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, capsys):
         cli_main(["bench", "--floats", "1024", "--devices", "4"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["bench", "--mesh", "grid", "--schedule", "butterfly"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TransformerLM(vocab=16, d_model=32, n_heads=4, n_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["lm-generate", "--vocab", "16", "--d-model", "32", "--layers", "1"])
     assert capsys.readouterr().out == ""  # nothing was measured or printed
 
 
@@ -135,6 +145,15 @@ def test_cpu_ring_path_counts_no_launches():
                             compress=compress)
     measure_allreduce(mesh, 2048, iters=1, warmup=0, schedule="pallas_ring")
     assert tring.LAUNCHES == before == {"ring_allreduce": before["ring_allreduce"]}
+
+
+def test_cpu_attention_path_counts_no_launches():
+    """A gated forward on the CPU takes K4's plain version: no launch."""
+    before = dict(tflash.LAUNCHES)
+    model = TransformerLM(vocab=16, d_model=64, n_heads=2, n_layers=1, device="cpu")
+    with torch.no_grad():
+        model(torch.zeros((1, 1024), dtype=torch.int64))
+    assert tflash.LAUNCHES == before == {"flash_attention": before["flash_attention"]}
 
 
 @pytest.fixture
