@@ -11,27 +11,35 @@ Module names mirror the JAX package so each counterpart is easy to find:
 
 - ``config``        — ``ThresholdConfig`` and ``MetaDataConfig``
 - ``parallel``      — meshes of n virtual ranks on one device
-  (``line_mesh``, ``grid_mesh``)
+  (``line_mesh``, ``grid_mesh``, ``data_seq_mesh``)
 - ``comm``          — the threshold allreduce over those ranks (psum,
   butterfly, ring and the ring kernel; bf16/int8 wire compression) and the
   bus-bandwidth harness
 - ``ops``           — the hand-written kernels and their plain versions:
   the single-card threshold reduce (``masked_average``,
   ``elastic_average_step``), the ring allreduce
-  (``ring_kernel_allreduce_sum``) and the flash-attention forward
-  (``flash_attention``), with the attention dispatch
-  (``local_attention``: dense, flash or blockwise)
+  (``ring_kernel_allreduce_sum``) and flash attention, forward and
+  backward behind one ``torch.autograd.Function`` (``flash_attention``),
+  with the attention dispatch (``local_attention``: dense, flash or
+  blockwise)
 - ``models``        — the Transformer LM on one device (``TransformerLM``,
-  ``rope``), its KV-cache decoder (``LMGenerator``), the copy task's data
-  and the carrying-over of flax weights
+  ``rope``, ``remat``), its KV-cache decoder (``LMGenerator``), the copy
+  task's data (host batches and a device sampler) and the carrying-over of
+  flax weights
+- ``train``         — ``LongContextTrainer``, the LM's trainer on one card,
+  and ``normalize_valid``
+- ``binder``        — parameters to and from one flat f32 vector in the JAX
+  trainers' leaf order (``flatten_params``)
 - ``state``         — hand-over of the ``(K, data)`` replica state to and from
   numpy, in the JAX package's flat or packed layout
 - ``utils``         — slope timing, CUDA-event timing, card description,
   FLOP accounting, per-round metrics
 - ``bench_suite``   — the single-card branch of BASELINE configs 2 and 4
-- ``__main__``      — ``bench-suite``, ``bench`` (allreduce bandwidth) and
-  ``lm-generate`` (KV-cache decoding)
+- ``__main__``      — ``bench-suite``, ``bench`` (allreduce bandwidth),
+  ``lm-generate`` (KV-cache decoding, optionally after training),
+  ``train-lm`` and ``bench-mfu``
 - ``bench``         — the single-card ``local_threshold_reduce_bw`` metric
+- ``bench_mfu``     — the slope-timed MFU of the LM's training step
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with
 no CUDA they raise instead of running on the CPU (see ``_device``).

@@ -12,12 +12,28 @@ Commands:
   ``path``).
 - ``lm-generate [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
   [--layers N] [--batch N] [--prompt-len N] [--gen N] [--temperature X]
-  [--bf16] [--device cpu]`` — KV-cache decoding of a Transformer LM with
-  seeded random weights: prints the generated tokens, the ``decode: X
-  ms/token`` line (slope between two generation lengths) and one JSON
-  record with ``prefill_ms``, the prefill's model TFLOP/s and MFU,
-  ``ms_per_token``, ``device`` and ``power_limit``. ``--train-steps``, ``--sp``, ``--tp`` and
-  ``--cache-quant`` are not ported yet and are refused.
+  [--train-steps N] [--seq-len N] [--bf16] [--device cpu]`` — KV-cache
+  decoding of a Transformer LM with seeded random weights, or, with
+  ``--train-steps``, after that many copy-task training steps on the card
+  (``LongContextTrainer.train_chain`` at ``--seq-len``; the copy accuracy is
+  printed when ``--prompt-len`` is ``seq_len / 2 + 1``): prints the generated
+  tokens, the ``decode: X ms/token`` line (slope between two generation
+  lengths) and one JSON record with ``prefill_ms``, the prefill's model
+  TFLOP/s and MFU, ``ms_per_token``, ``device`` and ``power_limit``.
+  ``--sp``, ``--tp`` and ``--cache-quant`` are not ported yet and are
+  refused.
+- ``train-lm [--steps N] [--batch N] [--lr X] [--seq-len N] [--impl
+  ring|ulysses] [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
+  [--layers N] [--metrics-out FILE] [--device-data] [--bf16] [--remat]
+  [--device cpu]`` — trains the LM on the copy task with
+  ``LongContextTrainer`` on one card: the host loop (one ``train_step``
+  event a step in the metrics JSONL) or, with ``--device-data``, one chain
+  with batches drawn on the card. Prints the parameter count and mesh, then
+  the step time, TFLOP/s, MFU and the loss trend. ``--dp/--sp/--tp`` above
+  1, ``--compress``, ``--overlap`` and the checkpoint flags are not ported
+  yet and are refused.
+- ``bench-mfu [--workload lm] ...`` — the slope-timed MFU record of
+  ``bench_mfu.py`` (the flagship LM by default).
 """
 
 from __future__ import annotations
@@ -121,6 +137,12 @@ def _cmd_lm_generate(argv: list[str]) -> int:
         "--gen", type=int, default=64,
         help="tokens to generate (>= 2: the slope timing needs two lengths)",
     )
+    p.add_argument(
+        "--train-steps", type=int, default=0,
+        help="copy-task training steps on the device before decoding "
+        "(0 = random params; >0 shows real text completion)",
+    )
+    p.add_argument("--seq-len", type=int, default=64, help="training seq len")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--bf16", action="store_true")
     p.add_argument(
@@ -128,13 +150,11 @@ def _cmd_lm_generate(argv: list[str]) -> int:
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
     # the JAX command's options that need parts not ported yet
-    p.add_argument("--train-steps", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--tp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--cache-quant", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     for flag, value, default, what in (
-        ("--train-steps", args.train_steps, 0, "training waits for the training slice"),
         ("--sp", args.sp, 1, "sequence-sharded decode"),
         ("--tp", args.tp, 1, "tensor-parallel decode"),
         ("--cache-quant", args.cache_quant, None, "the int8 KV cache"),
@@ -160,14 +180,32 @@ def _cmd_lm_generate(argv: list[str]) -> int:
 
     dev = resolve_device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = TransformerLM(
-        vocab=args.vocab, d_model=args.d_model, n_heads=args.heads,
-        n_kv_heads=args.kv_heads, n_layers=args.layers, compute_dtype=dtype,
-        seed=0, device=dev,
-    )
+    if args.train_steps > 0:
+        from akka_allreduce_tpu_torch.parallel import data_seq_mesh
+        from akka_allreduce_tpu_torch.train import LongContextTrainer
+
+        trainer = LongContextTrainer(
+            data_seq_mesh(1, 1, device=dev), vocab=args.vocab,
+            d_model=args.d_model, n_heads=args.heads, n_kv_heads=args.kv_heads,
+            n_layers=args.layers, seq_len=args.seq_len, compute_dtype=dtype,
+            optimizer=lambda ps: torch.optim.Adam(ps, lr=3e-3),
+        )
+        hist = trainer.train_chain(
+            SyntheticCopyLM(args.seq_len, vocab=args.vocab).device_sampler(),
+            args.train_steps, args.batch,
+        )
+        print(f"trained {args.train_steps} steps: loss "
+              f"{hist[0].loss:.3f} -> {hist[-1].loss:.3f}")
+        model = trainer.model
+    else:
+        model = TransformerLM(
+            vocab=args.vocab, d_model=args.d_model, n_heads=args.heads,
+            n_kv_heads=args.kv_heads, n_layers=args.layers, compute_dtype=dtype,
+            seed=0, device=dev,
+        )
     # the JAX command's prompt: the copy task's first batch at seed offset
-    # 123, from a stream at least as long as the prompt
-    seq_len = max(64, args.prompt_len + args.prompt_len % 2)
+    # 123, from a stream of --seq-len tokens, or longer when the prompt is
+    seq_len = max(args.seq_len, args.prompt_len + args.prompt_len % 2)
     x, _ = next(SyntheticCopyLM(seq_len, vocab=args.vocab).batches(
         args.batch, 1, seed_offset=123))
     prompt = torch.from_numpy(x[:, : args.prompt_len]).to(dev)
@@ -214,6 +252,14 @@ def _cmd_lm_generate(argv: list[str]) -> int:
     more = f" ... ({args.prompt_len} tokens)" if args.prompt_len > 64 else ""
     print(f"prompt : {head}{more}")
     print(f"decoded: {out_list}")
+    half = args.seq_len // 2
+    if args.train_steps > 0 and args.prompt_len == half + 1:
+        # the prompt ends at position half, so greedy decoding should emit
+        # the copy x[1:half] (the task repeats [0, half) at [half, 2 half))
+        want = x[0, 1:half][: len(out_list)]
+        got = out_list[: len(want)]
+        acc = float(sum(int(a == b) for a, b in zip(got, want)) / len(want)) if len(want) else 0.0
+        print(f"copy accuracy vs source: {acc:.1%}")
     if ms_per_tok > 1e-3:
         rate = f"{args.batch * 1e3 / ms_per_tok:.0f} tokens/s"
     else:
@@ -248,10 +294,179 @@ def _cmd_lm_generate(argv: list[str]) -> int:
     return 0
 
 
+def _mfu_fields(flops_per_step, sec_per_step, dev) -> dict:
+    """``tflops_per_s`` and, on a card with a known peak, ``mfu`` for a
+    step time (empty without a FLOP model or a positive time)."""
+    from akka_allreduce_tpu_torch.utils.benchmarking import device_peak_flops, mfu
+
+    if not flops_per_step or not sec_per_step or sec_per_step <= 0:
+        return {}
+    out = {"tflops_per_s": round(flops_per_step / sec_per_step / 1e12, 2)}
+    u = mfu(flops_per_step, sec_per_step, device_peak_flops(dev))
+    if u is not None:
+        out["mfu"] = round(u, 4)
+    return out
+
+
+def _mfu_note(fields: dict) -> str:
+    if "mfu" in fields:
+        return f"; {fields['tflops_per_s']} TFLOP/s, MFU {fields['mfu']:.1%}"
+    if fields.get("tflops_per_s", 0) >= 0.01:
+        return f"; {fields['tflops_per_s']} TFLOP/s"
+    return ""
+
+
+def _cmd_train_lm(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "train-lm",
+        description="long-context Transformer LM on the copy task, one card "
+        "(LongContextTrainer on a 1 x 1 data x seq mesh)",
+    )
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--batch", type=int, default=8, help="global batch size")
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--seq-len", type=int, default=256, help="sequence length")
+    p.add_argument("--impl", choices=("ring", "ulysses"), default="ring")
+    p.add_argument("--vocab", type=int, default=64)
+    p.add_argument("--d-model", type=int, default=128)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument(
+        "--kv-heads", type=int, default=None,
+        help="grouped-query attention: K/V heads (divides --heads; 1 = MQA)",
+    )
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--metrics-out", default=None, help="JSONL metrics path")
+    p.add_argument(
+        "--device-data", action="store_true",
+        help="sample token batches on the device inside one chain",
+    )
+    p.add_argument(
+        "--bf16", action="store_true",
+        help="bfloat16 activations and products (params and logits stay f32)",
+    )
+    p.add_argument(
+        "--remat", action="store_true",
+        help="recompute each block in the backward (activation memory for "
+        "one more forward)",
+    )
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' runs the plain PyTorch path; default: the CUDA card",
+    )
+    # the JAX command's options that need parts not ported yet
+    for flag in ("--dp", "--sp"):
+        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--tp", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--compress", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--overlap", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--checkpoint-every", type=int, default=0, help=argparse.SUPPRESS)
+    for flag in ("--async-checkpoint", "--delta-checkpoint"):
+        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    for flag, value, ok, what in (
+        ("--dp", args.dp, (None, 1), "data parallelism needs several ranks"),
+        ("--sp", args.sp, (None, 1), "sequence parallelism needs several ranks"),
+        ("--tp", args.tp, (1,), "tensor parallelism needs several ranks"),
+        ("--compress", args.compress, (None,), "gradient wire compression"),
+        ("--overlap", args.overlap, (False,), "per-leaf gradient collectives"),
+        ("--checkpoint-dir", args.checkpoint_dir, (None,), "checkpoints"),
+        ("--checkpoint-every", args.checkpoint_every, (0,), "checkpoints"),
+        ("--async-checkpoint", args.async_checkpoint, (False,), "checkpoints"),
+        ("--delta-checkpoint", args.delta_checkpoint, (False,), "checkpoints"),
+    ):
+        if value not in ok:
+            p.error(f"{flag} is not ported yet ({what})")
+
+    import time
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch._device import resolve_device
+    from akka_allreduce_tpu_torch.models import lm_copy_task
+    from akka_allreduce_tpu_torch.parallel import data_seq_mesh
+    from akka_allreduce_tpu_torch.train import LongContextTrainer
+    from akka_allreduce_tpu_torch.utils.benchmarking import transformer_train_flops
+    from akka_allreduce_tpu_torch.utils.metrics import MetricsLogger
+
+    dev = resolve_device(args.device)
+    trainer = LongContextTrainer(
+        data_seq_mesh(1, 1, device=dev), vocab=args.vocab, d_model=args.d_model,
+        n_heads=args.heads, n_kv_heads=args.kv_heads, n_layers=args.layers,
+        seq_len=args.seq_len, seq_impl=args.impl, learning_rate=args.lr,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        remat=args.remat,
+    )
+    print(
+        f"LM params: {trainer.param_count / 1e6:.2f}M, mesh "
+        f"dp={trainer.dp} x sp={trainer.sp} x tp={trainer.tp}, "
+        f"seq_len={args.seq_len} ({args.impl}), device {dev}"
+    )
+    label = f"lm_{args.impl}"
+    flops = transformer_train_flops(
+        n_params=trainer.param_count, batch=args.batch, seq=args.seq_len,
+        d_model=args.d_model, n_layers=args.layers,
+    )
+    ds = lm_copy_task(args.seq_len, vocab=args.vocab)
+    logger = MetricsLogger(args.metrics_out)
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    if args.device_data:
+        history = trainer.train_chain(ds.device_sampler(), args.steps, args.batch)
+        total = time.perf_counter() - t0
+        for m in history:
+            logger.log_event(kind="train_step", workload=label, step=m.step,
+                             loss=m.loss, contributors=m.contributors)
+    else:
+        history = []
+        for x, y in ds.batches(args.batch, args.steps):
+            st = time.perf_counter()
+            m = trainer.train_step(x, y)  # ends in the loss's host read
+            dt = time.perf_counter() - st
+            history.append(m)
+            logger.log_event(
+                kind="train_step", workload=label, step=m.step, loss=m.loss,
+                contributors=m.contributors, step_time_s=round(dt, 6),
+                **_mfu_fields(flops, dt, dev),
+            )
+        total = time.perf_counter() - t0
+    losses = [m.loss for m in history]
+    # the first steps' warm-up is included, so this MFU is a floor;
+    # bench-mfu is the slope-timed measurement
+    perf = _mfu_fields(flops, total / max(len(losses), 1), dev)
+    if perf:
+        logger.log_event(kind="train_summary", workload=label, steps=len(losses),
+                         host_loop=not args.device_data, **perf)
+    logger.close()
+    trend = (f"loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f}"
+             if losses else "no steps taken")
+    mode = "on-device " if args.device_data else ""
+    print(
+        f"{label}: {len(losses)} {mode}steps on {trainer.n_devices} device in "
+        f"{total:.2f}s ({total / max(len(losses), 1) * 1e3:.1f} ms/step)"
+        f"{_mfu_note(perf)}; {trend}", flush=True,
+    )
+    return 0
+
+
+def _cmd_bench_mfu(argv: list[str]) -> int:
+    from akka_allreduce_tpu_torch.bench_mfu import main as bench_mfu_main
+
+    return bench_mfu_main(argv)
+
+
 COMMANDS = {
     "bench-suite": _cmd_bench_suite,
     "bench": _cmd_bench,
     "lm-generate": _cmd_lm_generate,
+    "train-lm": _cmd_train_lm,
+    "bench-mfu": _cmd_bench_mfu,
 }
 
 

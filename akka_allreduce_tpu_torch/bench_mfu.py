@@ -1,0 +1,206 @@
+"""MFU benchmark of the port: slope-timed training chains + a FLOP model.
+
+Counterpart of ``akka_allreduce_tpu/bench_mfu.py``, the ``lm`` workload:
+the flagship LM (``--workload lm`` defaults: vocab 256, d_model 2048, 16
+heads of D 128, 8 layers, 404M parameters, seq 2048, batch 8, bf16 compute,
+f32 parameters and Adam moments, no remat) trained by
+``LongContextTrainer.train_chain`` (batches drawn on the card, one host read
+a chain). A step's time is the difference between a short and a long chain
+(constant set-up and synchronisation cancel), with the JAX package's
+escalation rule: the long chain grows until the differential signal reaches
+about ``SIGNAL_S`` seconds. MFU is the model FLOPs (``transformer_train_flops``:
+no remat recompute, causal-halved attention) over the card's dense bf16 peak
+(``utils.benchmarking.device_peak_flops``).
+
+The record has the JAX record's fields, plus ``device`` and ``power_limit``;
+``compile_s`` is the warm-up (the first chains), since nothing is compiled
+ahead here. The mlp, resnet, moe and fsdp workloads are not ported yet.
+Runs on the card unless ``--device cpu`` (where MFU is None: no peak).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+WORKLOADS = ("fsdp", "lm", "mlp", "moe", "resnet")
+SIGNAL_S = 3.0  # seconds of differential signal the slope timing aims at
+
+
+def _chain_mfu_record(
+    name: str,
+    timed,
+    flops_per_step: float,
+    *,
+    lo: int = 2,
+    hi: int = 10,
+    outer: int = 4,
+    n_devices: int = 1,
+    device=None,
+    extra: dict | None = None,
+) -> dict:
+    """Time ``timed(steps)`` chains at two lengths, return the JSON record.
+
+    The probe takes the median of 3 (hi, lo) pairs; while the differential
+    ``rough * (hi - lo)`` stays under two thirds of ``SIGNAL_S``, ``hi``
+    grows to ``lo + SIGNAL_S / rough`` (16x when the probe is not positive),
+    at most 3 times and 100,000 steps, after which the record is flagged
+    ``timing_suspect``.
+    """
+    import torch
+
+    from akka_allreduce_tpu_torch.utils.benchmarking import (
+        device_fields,
+        device_peak_flops,
+        median_slope,
+        mfu,
+    )
+
+    t0 = time.perf_counter()
+    timed(lo)
+    timed(hi)  # warm BOTH lengths before any timing pair
+    compile_s = time.perf_counter() - t0
+    timing_suspect = False
+    for attempt in range(4):  # probe, escalate, re-probe: at most 3 times
+        rough = statistics.median(
+            (timed(hi) - timed(lo)) / (hi - lo) for _ in range(3)
+        )
+        if rough > 0 and rough * (hi - lo) >= SIGNAL_S * 2 / 3:
+            break  # differential signal reaches the target
+        if attempt == 3:
+            timing_suspect = True  # escalations exhausted, still noisy
+            break
+        if rough <= 0:
+            new_hi = lo + min((hi - lo) * 16, 100_000)
+        else:
+            new_hi = lo + min(int(round(SIGNAL_S / rough)), 100_000)
+        if new_hi <= hi:
+            timing_suspect = True  # capped (100k steps); signal still short
+            break
+        hi = new_hi
+        t1 = time.perf_counter()
+        timed(hi)  # warm the rescaled length
+        compile_s += time.perf_counter() - t1
+    est = median_slope(timed, lo, hi, outer=outer, warmup=False)
+    sec = est.seconds_per_iter
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    u = mfu(flops_per_step, sec, device_peak_flops(dev), n_devices=n_devices)
+    metric = f"{name}_mfu"
+    if est.noisy():
+        metric += "_NOISY"
+    rec = {
+        "metric": metric,
+        "value": round(u, 4) if u is not None else None,
+        "unit": "mfu",
+        "tflops_per_step": round(flops_per_step / 1e12, 3),
+        "tflops_per_s": round(flops_per_step / sec / 1e12, 2),
+        "ms_per_step": round(sec * 1e3, 2),
+        "spread_pct": est.spread_pct,
+        "compile_s": round(compile_s, 1),
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "device_kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        **device_fields(dev),
+    }
+    if timing_suspect:
+        rec["timing_suspect"] = True
+    rec.update(extra or {})
+    return rec
+
+
+def run_lm(args) -> dict:
+    import torch
+
+    from akka_allreduce_tpu_torch.models.data import SyntheticCopyLM
+    from akka_allreduce_tpu_torch.parallel import data_seq_mesh
+    from akka_allreduce_tpu_torch.train import LongContextTrainer
+    from akka_allreduce_tpu_torch.utils.benchmarking import transformer_train_flops
+
+    heads = args.heads or max(1, args.d_model // 128)
+    mesh = data_seq_mesh(args.dp or 1, args.sp or 1, device=args.device)
+    trainer = LongContextTrainer(
+        mesh,
+        vocab=args.vocab,
+        d_model=args.d_model,
+        n_heads=heads,
+        n_kv_heads=args.kv_heads,
+        n_layers=args.layers,
+        seq_len=args.seq_len,
+        compute_dtype=torch.bfloat16,
+        remat=bool(args.remat),
+        learning_rate=1e-3,
+    )
+    rows = max(1, args.batch // trainer.dp)
+    batch = rows * trainer.dp
+    sampler = SyntheticCopyLM(args.seq_len, vocab=args.vocab).device_sampler()
+
+    def timed(steps: int) -> float:
+        t0 = time.perf_counter()
+        trainer.train_chain(sampler, steps, rows)  # ends in its one host read
+        return time.perf_counter() - t0
+
+    flops = transformer_train_flops(
+        n_params=trainer.param_count,
+        batch=batch,
+        seq=args.seq_len,
+        d_model=args.d_model,
+        n_layers=args.layers,
+    )
+    return _chain_mfu_record(
+        "lm",
+        timed,
+        flops,
+        n_devices=trainer.n_devices,
+        device=trainer.device,
+        extra={
+            "params_m": round(trainer.param_count / 1e6, 1),
+            "d_model": args.d_model,
+            "n_layers": args.layers,
+            "seq_len": args.seq_len,
+            "batch": batch,
+            "remat": args.remat,
+            "compute_dtype": "bf16",
+        },
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(
+        "bench-mfu",
+        description="slope-timed MFU of the training workloads on the card "
+        "(one JSON line; flagship = lm, the one ported so far)",
+    )
+    p.add_argument("--workload", choices=WORKLOADS, default="lm")
+    p.add_argument("--batch", type=int, default=8, help="global batch size")
+    p.add_argument("--d-model", type=int, default=2048)
+    p.add_argument("--layers", type=int, default=8)
+    p.add_argument("--seq-len", type=int, default=2048)
+    p.add_argument("--heads", type=int, default=None, help="default d/128")
+    p.add_argument(
+        "--kv-heads", type=int, default=None,
+        help="grouped-query attention K/V heads",
+    )
+    p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--dp", type=int, default=None)
+    p.add_argument("--sp", type=int, default=None)
+    p.add_argument(
+        "--remat", nargs="?", const="full", default=False, choices=("full",),
+        help="'full' = recompute each block in the backward",
+    )
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' runs the plain PyTorch path; default: the CUDA card",
+    )
+    args = p.parse_args(argv)
+    if args.workload != "lm":
+        p.error(f"--workload {args.workload} is not ported yet (lm only)")
+    for flag, value in (("--dp", args.dp), ("--sp", args.sp)):
+        if value not in (None, 1):
+            p.error(f"{flag} > 1 is not ported yet (one card, a 1 x 1 mesh)")
+    print(json.dumps(run_lm(args)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -4,7 +4,9 @@
 given as nested dicts of numpy arrays (``{"params": {...}}`` or the inner
 dict), to the ``state_dict`` of :class:`.transformer.TransformerLM`. The
 port keeps the flax shapes, so each leaf is renamed, never transposed. An
-unknown or a missing leaf raises ``ValueError``.
+unknown or a missing leaf raises ``ValueError``. :func:`flax_path` maps the
+other way, one port parameter name to its flax path (the binder orders a
+flat parameter vector by it).
 """
 
 from __future__ import annotations
@@ -52,6 +54,24 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
         else:
             flat[path] = np.asarray(val)
     return flat
+
+
+_TOP_PATHS = {name: tuple(path.split("/")) for path, name in _TOP_LEAVES.items()}
+_BLOCK_PATHS = {name: tuple(path.split("/")) for path, name in _BLOCK_LEAVES.items()}
+_PORT_BLOCK = re.compile(r"blocks\.(\d+)\.(.+)")
+
+
+def flax_path(name: str) -> tuple[str, ...]:
+    """The flax path (inside ``params``) of the port's ``TransformerLM``
+    parameter ``name``, e.g. ``blocks.1.attn.q_kernel`` ->
+    ``("Block_1", "Attention_0", "q", "kernel")``; ``ValueError`` for a name
+    with no flax counterpart."""
+    if name in _TOP_PATHS:
+        return _TOP_PATHS[name]
+    m = _PORT_BLOCK.fullmatch(name)
+    if m is None or m.group(2) not in _BLOCK_PATHS:
+        raise ValueError(f"parameter {name!r} has no flax counterpart")
+    return (f"Block_{m.group(1)}", *_BLOCK_PATHS[m.group(2)])
 
 
 def transformer_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:

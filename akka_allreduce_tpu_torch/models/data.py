@@ -3,12 +3,14 @@
 The port's copy of ``SyntheticCopyLM`` and ``lm_copy_task`` from
 ``akka_allreduce_tpu/models/data.py``. ``batches`` is numpy only and gives
 the same batches as the JAX package's for the same seed (held bit for bit in
-the tests). ``device_sampler`` waits for the training slice.
+the tests). ``device_sampler`` draws batches on the device with a
+``torch.Generator``: the same task, but not ``jax.random``'s numbers.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class SyntheticCopyLM:
@@ -33,6 +35,23 @@ class SyntheticCopyLM:
             )
             seq = np.concatenate([first, first[:, 1:]], axis=1)  # len + 1
             yield seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
+
+    def device_sampler(self):
+        """``(generator, rows) -> (tokens, labels)``, each (rows, seq_len)
+        int64, drawn with ``generator`` on its device: the data-loader path
+        that keeps a training chain free of host-to-device copies
+        (``LongContextTrainer.train_chain``). Deterministic per generator
+        seed; the copy structure is ``batches``'s."""
+        half = self.seq_len // 2
+        vocab = self.vocab
+
+        def sample(generator: torch.Generator, rows: int):
+            first = torch.randint(0, vocab, (rows, half + 1), generator=generator,
+                                  device=generator.device)
+            seq = torch.cat([first, first[:, 1:]], dim=1)
+            return seq[:, :-1], seq[:, 1:]
+
+        return sample
 
 
 def lm_copy_task(seq_len: int = 128, vocab: int = 64, seed: int = 0) -> SyntheticCopyLM:

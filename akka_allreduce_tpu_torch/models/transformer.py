@@ -29,8 +29,15 @@ a gated prompt length launches K4. The JAX package attends over the whole
 ones are causally masked there and add exactly 0 (``exp(-1e30 - m)`` is 0
 in f32), so the values are the same function.
 
-Tensor and sequence parallelism, ``remat``, ``MoEBlock`` and the int8
-cache wait for later slices.
+``remat=True`` wraps each :class:`Block` in
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` when
+gradients are recorded, as ``nn.remat(Block)`` does in the JAX package: the
+backward re-runs each block's forward (K4's included, with its row
+statistic) instead of keeping its activations. It changes memory, never the
+parameters or their names.
+
+Tensor and sequence parallelism, ``MoEBlock`` and the int8 cache wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from akka_allreduce_tpu_torch._device import resolve_device
 from akka_allreduce_tpu_torch.ops.local_attention import local_attention
@@ -210,7 +218,8 @@ class TransformerLM(nn.Module):
     norm scales), so the same seed gives the same weights on every device,
     then moved to ``device``: the CUDA card unless ``"cpu"`` is asked for
     (no CUDA and no ``"cpu"`` raises). ``compute_dtype`` is
-    ``torch.float32`` or ``torch.bfloat16``.
+    ``torch.float32`` or ``torch.bfloat16``. ``remat`` recomputes each
+    block in the backward (see the module docstring).
     """
 
     def __init__(
@@ -225,6 +234,7 @@ class TransformerLM(nn.Module):
         *,
         seed: int = 0,
         device: torch.device | str | None = None,
+        remat: bool = False,
     ) -> None:
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -233,6 +243,7 @@ class TransformerLM(nn.Module):
         self.n_heads = n_heads
         self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
         self.compute_dtype = compute_dtype
+        self.remat = remat
         gen = torch.Generator().manual_seed(seed)
         self.embedding = _param(gen, vocab, d_model, fan_in=d_model)
         self.blocks = nn.ModuleList(
@@ -255,8 +266,9 @@ class TransformerLM(nn.Module):
                 f"max_len {cache.max_len}"
             )
         x = self.embedding.to(self.compute_dtype)[tokens.long()]
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x = block(x, cache, i)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x, cache, i)
         x = self.ln_f(x)
         logits = _dense(x, self.head_kernel, self.head_bias, self.compute_dtype)
         if cache is not None:

@@ -5,8 +5,9 @@
   one pass over HBM, with their plain PyTorch versions beside them.
 - :mod:`.ring` — the ring allreduce-sum (K3) over n virtual ranks on one
   card, f32 or bf16/int8 hops, with its plain PyTorch version.
-- :mod:`.flash_attention` — the flash-attention forward (K4), f32 or
-  bf16, causal or not, with its plain PyTorch version; reached through
+- :mod:`.flash_attention` — flash attention (K4), forward and backward,
+  f32 or bf16, causal or not, behind one ``torch.autograd.Function``, with
+  the plain PyTorch versions; reached through
   :func:`.local_attention.local_attention`, which also holds the dense and
   blockwise paths (helpers in :mod:`.ring_attention`). The two functions
   share their modules' names, so they are imported from the modules.

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers: seconds to build instead of minutes). The build happens at first
 use, into ``build/torch_kernels/`` at the root of the checkout, under a file
-name that carries a hash of the source and flags, so a stale library is never
-loaded. A file lock keeps two processes from racing on one build. A failed
+name that carries a hash of the source, the shared headers and the flags, so
+a stale library is never loaded. A file lock keeps two processes from racing on one build. A failed
 build raises with nvcc's output; nothing falls back.
 """
 
@@ -42,8 +42,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (named by source + flags hash)."""
+    """Where ``csrc/<name>.cu`` builds to (named by a hash of the source, the
+    shared ``csrc/*.cuh`` headers and the flags)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -2,8 +2,8 @@
 //
 // Replaces the flash branch of akka_allreduce_tpu/ops/local_attention.py
 // local_attention, which calls the library Pallas TPU kernel
-// jax.experimental.pallas.ops.tpu.flash_attention (forward; the backward
-// waits for the training slice).
+// jax.experimental.pallas.ops.tpu.flash_attention (forward; the backward is
+// flash_attention_bwd.cu).
 //
 //   o[b, i, h, :] = sum_j p_ij v[b, j, h / G, :] / max(l_i, 1e-30)
 //   s_ij = (q[b, i, h, :] . k[b, j, h / G, :]) * scale      (f32)
@@ -11,7 +11,9 @@
 //   p_ij = exp(s_ij - m_i), exactly 0 where masked;  l_i = sum_j p_ij
 //
 // with m_i the running row max (starting at -1e30) and G = H / H_kv, the
-// grouped-query factor: compact K/V are read in place, never repeated.
+// grouped-query factor: compact K/V are read in place, never repeated. The
+// same launch may also write the row statistic lse_i = m_i + log(l_i)
+// (B, H, T) f32, which the backward needs to rebuild p.
 // Tensors are (B, T, H, D) with heads and D dense and the batch and row
 // strides passed in, so a slice of a longer KV cache needs no copy.
 //
@@ -43,46 +45,33 @@
 //   through a per-warp strip of shared memory for the PV product.
 // The scale multiplies the f32 scores (as the dense oracle does), the
 // exponentials are expf (no fast math), and the output divides by
-// max(l, 1e-30). wgmma, TMA and warp specialisation are for later.
+// max(l, 1e-30). wgmma, TMA and warp specialisation are for later. The
+// copies, fragment loads and warp products are in flash_common.cuh.
 //
 // The C entry launches on the caller's stream, does not synchronise, and
 // returns a CUDA error code (cudaErrorInvalidValue for a shape it does not
 // cover) for the Python wrapper to raise on.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace akka_flash;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockM = kWarps * 16;  // query rows per CTA
-constexpr float kMaskValue = -1e30f;
 
-typedef __nv_bfloat16 bf16;
-
+// f32: 32 keys a tile (shared memory: Q + K + V + P strips); bf16: 64 keys
 template <typename T>
-struct Tile;
-
-// f32: 32 keys a tile (shared memory: Q + K + V + P strips), rows padded by
-// 4 floats; bf16: 64 keys a tile, rows padded by 8 halves (16 bytes)
-template <>
-struct Tile<float> {
-  static constexpr int kBlockN = 32;
-  static constexpr int kPad = 4;
-};
-template <>
-struct Tile<bf16> {
-  static constexpr int kBlockN = 64;
-  static constexpr int kPad = 8;
+struct Tile {
+  static constexpr int kBlockN = sizeof(T) == 2 ? 64 : 32;
 };
 
 template <typename T, int D>
 struct Smem {
   static constexpr int kBlockN = Tile<T>::kBlockN;
-  static constexpr int kLd = D + Tile<T>::kPad;  // row pitch, elements
+  static constexpr int kLd = D + Pad<T>::value;  // row pitch, elements
   static constexpr int kLdP = kBlockN + 4;       // f32 P strip row pitch
   static constexpr size_t kQKV =
       static_cast<size_t>(kBlockM + 2 * kBlockN) * kLd * sizeof(T);
@@ -90,122 +79,6 @@ struct Smem {
       sizeof(T) == 4 ? static_cast<size_t>(kWarps) * 16 * kLdP * 4 : 0;
   static constexpr size_t kBytes = kQKV + kP;
 };
-
-// 16 bytes global -> shared without passing through registers; zero-filled
-// (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// start copying rows [row0, row0 + ROWS) of one head's (T, D) slice into
-// shared memory, 16 bytes a thread per step, every copy in flight at once;
-// rows past t_len are zero
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(T* __restrict__ dst,
-                                                const T* __restrict__ src,
-                                                int64_t row_stride, int row0,
-                                                int t_len) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  constexpr int kLd = Smem<T, D>::kLd;
-  static_assert(ROWS * kChunks % kThreads == 0, "whole steps only");
-#pragma unroll
-  for (int step = 0; step < ROWS * kChunks / kThreads; ++step) {
-    const int i = threadIdx.x + step * kThreads;
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * kVec;
-    const bool valid = row0 + r < t_len;
-    const T* from =
-        valid ? src + static_cast<int64_t>(row0 + r) * row_stride + c : src;
-    cp_async16(dst + r * kLd + c, from, valid);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32_as_bf16(float lo, float hi) {
-  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
-// four 8x8 b16 matrices from shared memory: lanes 8m..8m+7 give the row
-// addresses of matrix m, and each lane receives, from matrix m into r[m],
-// the two elements at (row lane / 4, columns 2 (lane % 4), + 1)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the same, each matrix transposed: (rows 2 (lane % 4), + 1, column lane / 4)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a * b: one m16n8k16 tile, bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// S (16 x kBlockN) = Q_w K^T for this warp's 16 rows, bf16 tensor cores.
-// A (row-major Q): a0 (rows 0-7, columns 2t, 2t + 1), a1 (rows 8-15), a2
-// and a3 the same 8 columns on: one ldmatrix.x4 over the matrices
-// [rows 0-7 | 8-15] x [columns 16kk.. | 16kk + 8..]. B (K^T, "col"):
-// b0 (k = 2t, 2t + 1; n = g) is key row g's D entries 16kk + 2t, + 1, b1
-// those 8 on; one ldmatrix.x4 gives b0, b1 of two 8-key tiles.
-template <int D, int NB>
-__device__ __forceinline__ void scores_bf16(float (&s)[NB][4],
-                                            const bf16* __restrict__ sq,
-                                            const bf16* __restrict__ sk,
-                                            int lane) {
-  constexpr int kLd = Smem<bf16, D>::kLd;
-  const int m = lane / 8;  // the matrix this lane addresses
-  const int r = lane % 8;  // and its row there
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, sq + ((m % 2) * 8 + r) * kLd + kk * 16 + (m / 2) * 8);
-#pragma unroll
-    for (int j = 0; j < NB; j += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, sk + ((j + m / 2) * 8 + r) * kLd + kk * 16 + (m % 2) * 8);
-      mma_bf16(s[j], a, b[0], b[1]);
-      mma_bf16(s[j + 1], a, b[2], b[3]);
-    }
-  }
-}
 
 // O (16 x D) += P V, bf16 tensor cores. P comes from the score registers:
 // for the 16 keys of step kk, a0/a1 are tile 2kk's (c0, c1)/(c2, c3) and
@@ -238,94 +111,26 @@ __device__ __forceinline__ void pv_bf16(float (&o)[D / 8][4],
   }
 }
 
-// S = Q_w K^T in f32 FMAs, in the same register layout as the mma path
-template <int D, int NB>
-__device__ __forceinline__ void scores_f32(float (&s)[NB][4],
-                                           const float* __restrict__ sq,
-                                           const float* __restrict__ sk,
-                                           int g, int t) {
-  constexpr int kLd = Smem<float, D>::kLd;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  }
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    const float4 q0 = *reinterpret_cast<const float4*>(sq + g * kLd + d);
-    const float4 q1 = *reinterpret_cast<const float4*>(sq + (g + 8) * kLd + d);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float4 k0 =
-          *reinterpret_cast<const float4*>(sk + (8 * j + 2 * t) * kLd + d);
-      const float4 k1 =
-          *reinterpret_cast<const float4*>(sk + (8 * j + 2 * t + 1) * kLd + d);
-      s[j][0] = fmaf(q0.x, k0.x, s[j][0]);
-      s[j][0] = fmaf(q0.y, k0.y, s[j][0]);
-      s[j][0] = fmaf(q0.z, k0.z, s[j][0]);
-      s[j][0] = fmaf(q0.w, k0.w, s[j][0]);
-      s[j][1] = fmaf(q0.x, k1.x, s[j][1]);
-      s[j][1] = fmaf(q0.y, k1.y, s[j][1]);
-      s[j][1] = fmaf(q0.z, k1.z, s[j][1]);
-      s[j][1] = fmaf(q0.w, k1.w, s[j][1]);
-      s[j][2] = fmaf(q1.x, k0.x, s[j][2]);
-      s[j][2] = fmaf(q1.y, k0.y, s[j][2]);
-      s[j][2] = fmaf(q1.z, k0.z, s[j][2]);
-      s[j][2] = fmaf(q1.w, k0.w, s[j][2]);
-      s[j][3] = fmaf(q1.x, k1.x, s[j][3]);
-      s[j][3] = fmaf(q1.y, k1.y, s[j][3]);
-      s[j][3] = fmaf(q1.z, k1.z, s[j][3]);
-      s[j][3] = fmaf(q1.w, k1.w, s[j][3]);
-    }
-  }
-}
-
 // O += P V in f32 FMAs; P goes through this warp's strip of shared memory
 template <int D, int NB>
 __device__ __forceinline__ void pv_f32(float (&o)[D / 8][4],
                                        const float (&p)[NB][4],
                                        float* __restrict__ sp,
-                                       const float* __restrict__ sv, int g,
-                                       int t) {
-  constexpr int kLd = Smem<float, D>::kLd;
+                                       const float* __restrict__ sv,
+                                       int lane) {
   constexpr int kLdP = Smem<float, D>::kLdP;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    sp[g * kLdP + 8 * j + 2 * t] = p[j][0];
-    sp[g * kLdP + 8 * j + 2 * t + 1] = p[j][1];
-    sp[(g + 8) * kLdP + 8 * j + 2 * t] = p[j][2];
-    sp[(g + 8) * kLdP + 8 * j + 2 * t + 1] = p[j][3];
-  }
+  store_acc<float, NB>(sp, kLdP, p, 1.f, lane);
   __syncwarp();
-#pragma unroll 2
-  for (int key = 0; key < 8 * NB; ++key) {
-    const float p0 = sp[g * kLdP + key];
-    const float p1 = sp[(g + 8) * kLdP + key];
-    const float* vrow = sv + key * kLd + 2 * t;
-#pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
-      const float2 vv = *reinterpret_cast<const float2*>(vrow + 8 * jd);
-      o[jd][0] = fmaf(p0, vv.x, o[jd][0]);
-      o[jd][1] = fmaf(p0, vv.y, o[jd][1]);
-      o[jd][2] = fmaf(p1, vv.x, o[jd][2]);
-      o[jd][3] = fmaf(p1, vv.y, o[jd][3]);
-    }
-  }
+  warp_mma<true, D / 8, 8 * NB>(o, sp, kLdP, sv, Smem<float, D>::kLd, lane);
   __syncwarp();  // the strip is rewritten by the next key block
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_f32_as_bf16(a, b);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int t_len,
-                     int group, int64_t q_sb, int64_t k_sb,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int t_len, int group,
+                     int64_t q_sb, int64_t k_sb,
                      int64_t v_sb, int64_t o_sb, int64_t q_st, int64_t k_st,
                      int64_t v_st, int64_t o_st, float scale, int causal) {
   using S = Smem<T, D>;
@@ -371,10 +176,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // {V_n+1} (empty past the last block), so "all but the newest group
   // landed" is the wait before each use.
   const int kv_end = causal ? min(t_len, m0 + kBlockM) : t_len;
-  load_tile_async<T, D, kBlockM>(sq, qg, q_st, m0, t_len);
-  load_tile_async<T, D, kBlockN>(sk, kg, k_st, 0, t_len);
+  load_tile_async<T, D, kBlockM, kLd, kThreads>(sq, qg, q_st, m0, t_len);
+  load_tile_async<T, D, kBlockN, kLd, kThreads>(sk, kg, k_st, 0, t_len);
   cp_async_commit();
-  load_tile_async<T, D, kBlockN>(sv, vg, v_st, 0, t_len);
+  load_tile_async<T, D, kBlockN, kLd, kThreads>(sv, vg, v_st, 0, t_len);
   cp_async_commit();
   for (int n0 = 0; n0 < kv_end; n0 += kBlockN) {
     const bool more = n0 + kBlockN < kv_end;
@@ -382,13 +187,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     float s[NB][4];
-    if constexpr (sizeof(T) == 2) {
-      scores_bf16<D, NB>(s, sq + warp * 16 * kLd, sk, lane);
-    } else {
-      scores_f32<D, NB>(s, sq + warp * 16 * kLd, sk, g, t);
-    }
+    zero_acc(s);
+    warp_mma<false, NB, D>(s, sq + warp * 16 * kLd, kLd, sk, kLd, lane);
     __syncthreads();  // every warp is done with K_n
-    if (more) load_tile_async<T, D, kBlockN>(sk, kg, k_st, n0 + kBlockN, t_len);
+    if (more) {
+      load_tile_async<T, D, kBlockN, kLd, kThreads>(sk, kg, k_st,
+                                                    n0 + kBlockN, t_len);
+    }
     cp_async_commit();
 
     // every key of the block visible to every row of this warp: no mask
@@ -446,10 +251,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (sizeof(T) == 2) {
       pv_bf16<D, NB>(o_acc, s, sv, lane);
     } else {
-      pv_f32<D, NB>(o_acc, s, sp + warp * 16 * S::kLdP, sv, g, t);
+      pv_f32<D, NB>(o_acc, s, sp + warp * 16 * S::kLdP, sv, lane);
     }
     __syncthreads();  // every warp is done with V_n
-    if (more) load_tile_async<T, D, kBlockN>(sv, vg, v_st, n0 + kBlockN, t_len);
+    if (more) {
+      load_tile_async<T, D, kBlockN, kLd, kThreads>(sv, vg, v_st,
+                                                    n0 + kBlockN, t_len);
+    }
     cp_async_commit();
   }
   cp_async_wait<0>();
@@ -462,6 +270,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     den[r] = fmaxf(l, 1e-30f);
+    // the row statistic for the backward: lse = m + log(l), in the units of
+    // the scaled scores (-inf for a row that sees no key)
+    const int row = r == 0 ? row_lo : row_hi;
+    if (lse != nullptr && t == 0 && row < t_len) {
+      lse[(static_cast<int64_t>(b) * gridDim.y + h) * t_len + row] =
+          m_run[r] + logf(l);
+    }
   }
   T* og = o + b * o_sb + static_cast<int64_t>(h) * D + 2 * t;
 #pragma unroll
@@ -477,58 +292,51 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// one forward call: pointers, shape, (q, k, v, o) batch and row strides
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  int64_t batch, t_len, heads, group;
+  int64_t sb[4], st[4];
+  float scale;
+  int causal;
+};
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t batch, int64_t t_len, int64_t heads, int64_t group,
-                   const int64_t* sb, const int64_t* st, float scale,
-                   int causal, cudaStream_t stream) {
+cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
   constexpr size_t smem = Smem<T, D>::kBytes;
+  static_assert(smem <= kMaxSmem, "tile set exceeds shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((t_len + kBlockM - 1) / kBlockM),
-                  static_cast<unsigned>(heads), static_cast<unsigned>(batch));
+  const dim3 grid(static_cast<unsigned>((a.t_len + kBlockM - 1) / kBlockM),
+                  static_cast<unsigned>(a.heads),
+                  static_cast<unsigned>(a.batch));
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<int>(t_len),
-      static_cast<int>(group), sb[0], sb[1], sb[2],
-      sb[3], st[0], st[1], st[2], st[3], scale, causal);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse,
+      static_cast<int>(a.t_len), static_cast<int>(a.group), a.sb[0], a.sb[1],
+      a.sb[2], a.sb[3], a.st[0], a.st[1], a.st[2], a.st[3], a.scale,
+      a.causal);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int64_t d, const void* q, const void* k, const void* v,
-                       void* o, int64_t batch, int64_t t_len, int64_t heads,
-                       int64_t group, const int64_t* sb, const int64_t* st,
-                       float scale, int causal, cudaStream_t s) {
+cudaError_t dispatch_d(int64_t d, const FwdArgs& a, cudaStream_t s) {
   switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, batch, t_len, heads, group, sb, st,
-                           scale, causal, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, batch, t_len, heads, group, sb, st,
-                           scale, causal, s);
-    case 96:
-      return launch<T, 96>(q, k, v, o, batch, t_len, heads, group, sb, st,
-                           scale, causal, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, batch, t_len, heads, group, sb, st,
-                            scale, causal, s);
-    case 160:
-      return launch<T, 160>(q, k, v, o, batch, t_len, heads, group, sb, st,
-                            scale, causal, s);
-    case 192:
-      return launch<T, 192>(q, k, v, o, batch, t_len, heads, group, sb, st,
-                            scale, causal, s);
-    case 224:
-      return launch<T, 224>(q, k, v, o, batch, t_len, heads, group, sb, st,
-                            scale, causal, s);
-    case 256:
-      return launch<T, 256>(q, k, v, o, batch, t_len, heads, group, sb, st,
-                            scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
+    case 32: return launch<T, 32>(a, s);
+    case 64: return launch<T, 64>(a, s);
+    case 96: return launch<T, 96>(a, s);
+    case 128: return launch<T, 128>(a, s);
+    case 160: return launch<T, 160>(a, s);
+    case 192: return launch<T, 192>(a, s);
+    case 224: return launch<T, 224>(a, s);
+    case 256: return launch<T, 256>(a, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -541,14 +349,15 @@ const char* akka_error_string(int code) {
 }
 
 // dtype: 0 float32, 1 bfloat16. Strides are in elements: batch strides
-// (q, k, v, o) then row strides (q, k, v, o).
+// (q, k, v, o) then row strides (q, k, v, o). lse, when not null, receives
+// the (B, H, T) f32 row statistics m + log(l).
 int akka_flash_attention_fwd(int dtype, const void* q, const void* k,
-                             const void* v, void* o, int64_t batch,
-                             int64_t t_len, int64_t heads, int64_t kv_heads,
-                             int64_t d, int64_t q_sb, int64_t k_sb,
-                             int64_t v_sb, int64_t o_sb, int64_t q_st,
-                             int64_t k_st, int64_t v_st, int64_t o_st,
-                             float scale, int causal, int device,
+                             const void* v, void* o, float* lse,
+                             int64_t batch, int64_t t_len, int64_t heads,
+                             int64_t kv_heads, int64_t d, int64_t q_sb,
+                             int64_t k_sb, int64_t v_sb, int64_t o_sb,
+                             int64_t q_st, int64_t k_st, int64_t v_st,
+                             int64_t o_st, float scale, int causal, int device,
                              void* stream) {
   if (batch < 1 || t_len < 1 || heads < 1 || kv_heads < 1 ||
       heads % kv_heads != 0 || heads > 65535 || batch > 65535) {
@@ -556,16 +365,14 @@ int akka_flash_attention_fwd(int dtype, const void* q, const void* k,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const FwdArgs a{q, k, v, o, lse, batch, t_len, heads, heads / kv_heads,
+                  {q_sb, k_sb, v_sb, o_sb}, {q_st, k_st, v_st, o_st}, scale,
+                  causal};
   auto s = static_cast<cudaStream_t>(stream);
-  const int64_t sb[4] = {q_sb, k_sb, v_sb, o_sb};
-  const int64_t st[4] = {q_st, k_st, v_st, o_st};
-  const int64_t group = heads / kv_heads;
   if (dtype == 0) {
-    err = dispatch_d<float>(d, q, k, v, o, batch, t_len, heads, group, sb, st,
-                            scale, causal, s);
+    err = dispatch_d<float>(d, a, s);
   } else if (dtype == 1) {
-    err = dispatch_d<bf16>(d, q, k, v, o, batch, t_len, heads, group, sb, st,
-                           scale, causal, s);
+    err = dispatch_d<bf16>(d, a, s);
   } else {
     err = cudaErrorInvalidValue;
   }

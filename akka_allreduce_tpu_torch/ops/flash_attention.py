@@ -1,33 +1,42 @@
-"""Flash-attention forward (K4), hand-written for Hopper.
+"""Flash attention (K4), forward and backward, hand-written for Hopper.
 
 Counterpart of the flash branch of ``akka_allreduce_tpu/ops/local_attention.py``
 (``local_attention``, which calls the library Pallas TPU kernel
-``jax.experimental.pallas.ops.tpu.flash_attention`` with 512 blocks). The
-kernel is ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``:
+``jax.experimental.pallas.ops.tpu.flash_attention`` with 512 blocks, and
+differentiates it through the kernel's custom VJP). The kernels are CUDA C++
+for ``sm_90a``:
 
-- **What it computes**: ``softmax(Q K^T * scale, causal or not) V`` per
-  (batch, head), with the scores, the running max and sum and the output
-  accumulator in f32, and the output in the input dtype (f32 or bf16).
-- **What bounds it**: operations. At the flagship shape (B 8, H 16, T 2048,
-  D 128, causal) the two products are 1.37e11 FLOP against 268 MB of
-  Q, K, V and O: far above the card's ridge in bf16.
-- **Design**: one CTA per (b, h, block of 64 query rows), four warps of 16
-  rows each; K and V tiles staged through shared memory; the online
-  softmax over key blocks, skipping the blocks wholly above the diagonal
-  under causal masking. bf16 runs both products on the tensor cores
-  (``mma.sync`` m16n8k16, P rounded to bf16 for the PV product); f32 runs
-  them as f32 FMAs, never TF32. See the source for the details.
+- **Forward**, ``csrc/flash_attention.cu``: ``softmax(Q K^T * scale, causal
+  or not) V`` per (batch, head), with the scores, the running max and sum
+  and the output accumulator in f32, the output in the input dtype (f32 or
+  bf16), and on request the row statistic ``lse = m + log(l)`` (B, H, T)
+  f32 from the same launch. One CTA per (b, h, block of 64 query rows), four
+  warps of 16 rows; K and V tiles through shared memory; the online softmax
+  over key blocks, causal blocks above the diagonal skipped.
+- **Backward**, ``csrc/flash_attention_bwd.cu``: dQ, dK, dV from Q, K, V,
+  dO, ``lse`` and ``di = sum(o * do, -1)`` (one PyTorch reduction before the
+  launch, as ``jnp.sum`` is in the Pallas VJP), in two deterministic kernels
+  (no atomics): dK/dV, one CTA per block of keys looping over the query
+  blocks and the query heads of its GQA group, and dQ, one CTA per block of
+  queries looping over the key blocks. dK and dV come back in the compact
+  (B, T, H_kv, D) shape.
+- **What bounds them**: operations. At the flagship shape (B 8, H 16, T 2048,
+  D 128, causal) the forward's two products are 1.37e11 FLOP and the
+  backward's five 3.44e11 FLOP, against 268 MB and 403 MB moved: far above
+  the card's ridge in bf16. bf16 runs every product on the tensor cores
+  (``mma.sync`` m16n8k16; P, and dS in the backward, rounded to bf16); f32
+  runs them as f32 FMAs, never TF32.
 
-The kernel reads the (B, T, H, D) layout in place (row strides passed in,
-so a slice of a longer KV cache needs no copy) and grouped-query K/V in
-their compact (B, T, H_kv, D) form. It covers every shape the flash gate
+:class:`FlashAttention` is the ``torch.autograd.Function`` that joins them,
+and :func:`flash_attention` goes through it on every device: on the CPU both
+directions take the plain versions (:func:`flash_attention_reference`,
+:func:`flash_attention_bwd_reference`); on the card both take the kernels or
+raise. The kernels read the (B, T, H, D) layout in place (row strides passed
+in, so a slice of a longer KV cache needs no copy) and grouped-query K/V in
+their compact (B, T, H_kv, D) form. They cover every shape the flash gate
 admits (``local_attention.flash_shapes_ok``: D a multiple of 32 up to 256,
-T a multiple of 512); other shapes raise.
-
-Beside the kernel is :func:`flash_attention_reference`, its plain PyTorch
-version: dense f32 softmax attention with the same masking constants. A
-CUDA tensor takes the kernel or raises; a CPU tensor takes the plain
-version. ``LAUNCHES["flash_attention"]`` counts kernel launches.
+T a multiple of 512; the kernels need T a multiple of 64); other shapes
+raise. ``LAUNCHES`` counts one per wrapper call that launches a kernel.
 """
 
 from __future__ import annotations
@@ -45,19 +54,23 @@ from akka_allreduce_tpu_torch.ops.ring_attention import (
     repeat_kv,
 )
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_LIB = "flash_attention"
-# dtype, q, k, v, o, B, T, H, H_kv, D,
+_I64 = ctypes.c_int64
+_PTR = ctypes.c_void_p
+# dtype, q, k, v, o, lse, B, T, H, H_kv, D,
 # q/k/v/o batch strides, q/k/v/o row strides, scale, causal, device, stream
-_ARGTYPES = [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-    ctypes.c_int64, ctypes.c_int64,
-    *[ctypes.c_int64] * 8,
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+_FWD_ARGTYPES = [
+    ctypes.c_int, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64,
+    *[_I64] * 8, ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR,
+]
+# dtype, q, k, v, do, lse, di, dq, dk, dv, B, T, H, H_kv, D,
+# q/k/v/do batch strides, q/k/v/do row strides, scale, causal, device, stream
+_BWD_ARGTYPES = [
+    ctypes.c_int, *[_PTR] * 9, _I64, _I64, _I64, _I64, _I64,
+    *[_I64] * 8, ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR,
 ]
 
 
@@ -78,6 +91,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def _scale(q: torch.Tensor, sm_scale: float | None) -> float:
+    return sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def _scores(q, k, causal: bool, scale: float):
+    """f32 scaled scores (B, H, T, T) over GQA-expanded k, masked to -1e30,
+    and the (T, T) visibility mask (None when not causal)."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), repeat_kv(k, q.shape[2]).float())
+    scores = scores * scale
+    mask = None
+    if causal:
+        mask = causal_mask(q.shape[1], k.shape[1], 0, 0, q.device)
+        scores = torch.where(mask[None, None], scores, _MASK_VALUE)
+    return scores, mask
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -85,30 +114,70 @@ def flash_attention_reference(
     *,
     causal: bool = False,
     sm_scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain PyTorch K4: dense f32 softmax attention over (B, T, H, D).
 
     Scores ``(q . k) * scale`` in f32, masked entries set to -1e30, the row
     max subtracted, masked p set to exactly 0, and the output divided by
     ``max(l, 1e-30)``, so a row with no visible key is zero (the
-    blockwise path's rule). Output in ``q``'s dtype.
+    blockwise path's rule). Output in ``q``'s dtype; with ``return_lse``
+    also the (B, H, T) f32 row statistic ``m + log(l)`` (-inf for a row
+    with no visible key).
     """
     _check(q, k, v)
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    h = q.shape[2]
-    kf, vf = repeat_kv(k, h).float(), repeat_kv(v, h).float()
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
-    mask = None
-    if causal:
-        mask = causal_mask(q.shape[1], k.shape[1], 0, 0, q.device)
-        scores = torch.where(mask[None, None], scores, _MASK_VALUE)
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    scale = _scale(q, sm_scale)
+    scores, mask = _scores(q, k, causal, scale)
+    m = scores.amax(dim=-1)  # (B, H, T)
+    p = torch.exp(scores - m[..., None])
     if mask is not None:
         p = torch.where(mask[None, None], p, 0.0)
-    l = p.sum(dim=-1)  # (B, H, T)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
-    out = out / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]
-    return out.to(q.dtype)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, repeat_kv(v, q.shape[2]).float())
+    out = (out / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K4 backward: ``(dq, dk, dv)``, dk and dv in the compact
+    (B, T, H_kv, D) shape, each in its input's dtype.
+
+    The equations of the library's ``mha_reference_bwd``, in f32:
+    ``p = exp(s * scale - lse)`` (masked p exactly 0), ``dv = p^T do``,
+    ``dp = do v^T``, ``di = sum(o * do, -1)``, ``ds = p (dp - di)``,
+    ``dq = ds k * scale``, ``dk = ds^T q * scale``; dk and dv summed over
+    each KV head's group of query heads. A row with no visible key has
+    every p masked, so its gradients are zero (no NaN).
+    """
+    _check(q, k, v)
+    scale = _scale(q, sm_scale)
+    b, t, h, d = q.shape
+    h_kv = k.shape[2]
+    scores, mask = _scores(q, k, causal, scale)
+    p = torch.exp(scores - lse.float()[..., None])
+    if mask is not None:
+        p = torch.where(mask[None, None], p, 0.0)
+    dof = do.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, repeat_kv(v, h).float())
+    di = (o.float() * dof).sum(dim=-1).transpose(1, 2)  # (B, H, T)
+    ds = p * (dp - di[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, repeat_kv(k, h).float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    if h_kv != h:  # query head i belongs to kv head i // (H / H_kv)
+        dk = dk.reshape(b, t, h_kv, h // h_kv, d).sum(dim=3)
+        dv = dv.reshape(b, t, h_kv, h // h_kv, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _strides(t: torch.Tensor, what: str) -> tuple[int, int]:
@@ -121,6 +190,132 @@ def _strides(t: torch.Tensor, what: str) -> tuple[int, int]:
     return t.stride(0), t.stride(1)
 
 
+def _check_kernel_shape(q: torch.Tensor, *others: torch.Tensor) -> None:
+    """What both kernels cover; raises on the rest."""
+    t, d = q.shape[1], q.shape[3]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
+    if d % 32 or not 32 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernel covers D in 32..{MAX_HEAD_DIM} "
+                         f"step 32, got D={d}")
+    if t % 64 or t == 0:
+        raise ValueError(f"the flash kernel needs T a multiple of 64, got T={t}")
+    if not all(x.is_cuda and x.device == q.device for x in others):
+        raise ValueError("q, k and v must lie on one CUDA device")
+
+
+def _entry(lib_name: str, fn_name: str, argtypes: list):
+    lib = _build.load(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _forward(q, k, v, causal: bool, scale: float):
+    """K4's forward on the card: ``(out, lse)``."""
+    _check_kernel_shape(q, k, v)
+    b, t, h, d = q.shape
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    (qb, qt), (kb, kt), (vb, vt), (ob, ot) = (
+        _strides(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
+    )
+    lib, fn = _entry("flash_attention", "akka_flash_attention_fwd", _FWD_ARGTYPES)
+    rc = fn(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, t, h, k.shape[2], d,
+        qb, kb, vb, ob, qt, kt, vt, ot,
+        float(scale), int(bool(causal)), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash attention kernel launch")
+    LAUNCHES["flash_attention"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's backward: ``(dq, dk, dv)`` from the forward's inputs, its output
+    ``o`` and row statistic ``lse`` (B, H, T) f32, and the output gradient
+    ``do``; dk and dv in the compact (B, T, H_kv, D) shape, all in the input
+    dtype.
+
+    On a CUDA tensor it launches the two backward kernels or raises (the
+    forward's coverage); ``do`` is made dense in heads and D first, since
+    autograd may hand over any layout. On a CPU tensor it runs the plain
+    version.
+    """
+    _check(q, k, v)
+    scale = _scale(q, sm_scale)
+    if not use_kernel(q):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                             sm_scale=scale)
+    _check_kernel_shape(q, k, v, o, lse, do)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must be {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)} and {tuple(do.shape)}")
+    b, t, h, d = q.shape
+    if lse.shape != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {t}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    do = do.to(q.dtype).contiguous()
+    lse = lse.contiguous()
+    di = (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    (qb, qt), (kb, kt), (vb, vt), (db, dt) = (
+        _strides(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do"))
+    )
+    lib, fn = _entry("flash_attention_bwd", "akka_flash_attention_bwd", _BWD_ARGTYPES)
+    rc = fn(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, t, h, k.shape[2], d,
+        qb, kb, vb, db, qt, kt, vt, dt,
+        float(scale), int(bool(causal)), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash attention backward kernel launch")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 as a differentiable op: the forward saves q, k, v, o and lse, the
+    backward calls :func:`flash_attention_bwd`. On the CPU both directions
+    take the plain versions; on the card both take the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if use_kernel(q):
+            out, lse = _forward(q, k, v, causal, scale)
+        else:
+            out, lse = flash_attention_reference(q, k, v, causal=causal,
+                                                 sm_scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, causal=ctx.causal,
+                                         sm_scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -129,43 +324,14 @@ def flash_attention(
     causal: bool = False,
     sm_scale: float | None = None,
 ) -> torch.Tensor:
-    """Flash-attention forward over (B, T, H, D) ``q`` and (B, T, H_kv, D)
-    ``k``/``v`` (H_kv dividing H); returns (B, T, H, D) in ``q``'s dtype.
+    """Flash attention over (B, T, H, D) ``q`` and (B, T, H_kv, D) ``k``/``v``
+    (H_kv dividing H); returns (B, T, H, D) in ``q``'s dtype, differentiable
+    through :class:`FlashAttention`.
 
-    On a CUDA tensor it launches K4 or raises: dtypes other than f32 and
-    bf16, D not a multiple of 32 or above 256, and T not a multiple of 64
-    are not covered. On a CPU tensor it runs the plain version.
+    On a CUDA tensor it launches K4 (and K4's backward when differentiated)
+    or raises: dtypes other than f32 and bf16, D not a multiple of 32 or
+    above 256, and T not a multiple of 64 are not covered. On a CPU tensor
+    it runs the plain versions.
     """
     _check(q, k, v)
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if not use_kernel(q):
-        return flash_attention_reference(q, k, v, causal=causal, sm_scale=scale)
-    b, t, h, d = q.shape
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
-    if d % 32 or not 32 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernel covers D in 32..{MAX_HEAD_DIM} "
-                         f"step 32, got D={d}")
-    if t % 64 or t == 0:
-        raise ValueError(f"the flash kernel needs T a multiple of 64, got T={t}")
-    if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
-        raise ValueError("q, k and v must lie on one CUDA device")
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    (qb, qt), (kb, kt), (vb, vt), (ob, ot) = (
-        _strides(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
-    )
-    lib = _build.load(_LIB)
-    fn = lib.akka_flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    rc = fn(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, t, h, k.shape[2], d,
-        qb, kb, vb, ob, qt, kt, vt, ot,
-        float(scale), int(bool(causal)), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, rc, "flash attention kernel launch")
-    LAUNCHES["flash_attention"] += 1
-    return out
+    return FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale))

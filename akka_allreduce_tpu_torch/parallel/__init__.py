@@ -1,14 +1,17 @@
 """Mesh helpers: n virtual ranks on one device, named like the JAX package's
-``parallel`` axes (a 1D ``line`` mesh, a 2D ``rows`` x ``cols`` grid).
+``parallel`` axes (a 1D ``line`` mesh, a 2D ``rows`` x ``cols`` grid, the
+``data`` x ``seq`` mesh of long-context training).
 
 Process groups over several cards (``parallel/multihost.py`` in the JAX
 package) wait for a machine with several cards.
 """
 
 from akka_allreduce_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_SEQ_AXES,
     GRID_AXES,
     LINE_AXIS,
     RankMesh,
+    data_seq_mesh,
     grid_factors,
     grid_mesh,
     line_mesh,

@@ -11,13 +11,15 @@ sits at ``(r // cols, r % cols)``.
 - ``line_mesh(n)``    — one line of n ranks; allreduce rides the ``line`` axis.
 - ``grid_mesh(r, c)`` — the 2D butterfly grid; a round reduces along ``rows``
   then ``cols``.
+- ``data_seq_mesh(dp, sp)`` — the (data, seq) mesh of long-context training:
+  DP replicas along ``data``, each replica's sequence sharded along ``seq``
+  (``train.long_context.LongContextTrainer``, which takes 1 x 1 for now).
 
 Where the signatures differ from JAX's: the JAX helpers take a device list
 and default to every device; a virtual mesh has no device list, so the rank
 count is given (``n``) and ``device`` names the one device all ranks share
 (the card unless ``"cpu"`` is asked for, see ``_device.resolve_device``).
-``data_seq_mesh`` and ``data_seq_model_mesh`` arrive with the transformer
-families.
+``data_seq_model_mesh`` arrives with tensor parallelism.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from akka_allreduce_tpu_torch._device import resolve_device
 
 LINE_AXIS = "line"
 GRID_AXES = ("rows", "cols")
+DATA_SEQ_AXES = ("data", "seq")
 
 
 @dataclass(frozen=True)
@@ -110,3 +113,19 @@ def grid_mesh(
     if rows * cols != given_n:
         raise ValueError(f"grid {rows}x{cols} != {given_n} devices")
     return RankMesh(tuple(axes), (rows, cols), resolve_device(device))
+
+
+def data_seq_mesh(
+    dp: int | None = None,
+    sp: int | None = None,
+    *,
+    n: int | None = None,
+    device: str | torch.device | None = None,
+    axes: tuple[str, str] = DATA_SEQ_AXES,
+) -> RankMesh:
+    """A 2D (data, seq) mesh for long-context training: DP replicas along
+    ``data``, each replica's sequence sharded along ``seq``. With no shape
+    given, factors ``n`` into the most-square grid with ``sp`` the larger
+    side (sequence parallelism is the scarcer resource). Same shape logic
+    and errors as :func:`grid_mesh`, only the axis roles differ."""
+    return grid_mesh(dp, sp, n=n, device=device, axes=axes)

@@ -6,6 +6,7 @@ from akka_allreduce_tpu_torch.utils.benchmarking import (  # noqa: F401
     cuda_event_ms,
     device_peak_flops,
     median_slope,
+    mfu,
     transformer_forward_flops,
     transformer_train_flops,
 )

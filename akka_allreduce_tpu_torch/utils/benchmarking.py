@@ -10,8 +10,9 @@
   ``nvidia-smi`` reports them; every number measured on a card is written
   down beside them.
 - FLOP accounting: the port's copy of ``transformer_train_flops``, a
-  forward-only form for serving (:func:`transformer_forward_flops`), and
-  :func:`device_peak_flops`, the card's dense bf16 peak.
+  forward-only form for serving (:func:`transformer_forward_flops`),
+  :func:`device_peak_flops`, the card's dense bf16 peak, and the port's copy
+  of :func:`mfu`.
 """
 
 from __future__ import annotations
@@ -45,6 +46,26 @@ def device_peak_flops(device: torch.device | int | None = None) -> float | None:
     else:
         index = device or 0
     return PEAK_BF16_FLOPS.get(torch.cuda.get_device_name(index))
+
+
+def mfu(
+    flops_per_step: float,
+    seconds_per_step: float,
+    peak_flops: float | None = None,
+    *,
+    n_devices: int = 1,
+) -> float | None:
+    """Model-FLOPs utilization in [0, 1]; None when no peak applies (the
+    CPU, or a card without a ``PEAK_BF16_FLOPS`` entry).
+
+    ``flops_per_step`` is the whole batch's model work, so the denominator
+    is ``n_devices`` x the per-card peak.
+    """
+    if peak_flops is None:
+        peak_flops = device_peak_flops()
+    if peak_flops is None or seconds_per_step <= 0:
+        return None
+    return flops_per_step / seconds_per_step / (peak_flops * n_devices)
 
 
 def transformer_train_flops(

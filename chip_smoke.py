@@ -10,7 +10,8 @@ Phases, each printed as it ends:
 
 1. card: name, power limit and count (``nvidia-smi``);
 2. build: ``nvcc`` compiles every kernel source of the paths
-   (``local_reduce``, ``ring`` and ``flash_attention``), all in parallel;
+   (``local_reduce``, ``ring``, ``flash_attention`` and
+   ``flash_attention_bwd``), all in parallel;
 3. kernel vs plain: K1 ``masked_average`` and K2 ``elastic_average_step``
    against their plain versions on the card, at the main path's shapes
    (K = 16 workers x 64M floats with a 12-of-16 threshold mask, and the
@@ -25,7 +26,12 @@ Phases, each printed as it ends:
    flash-attention forward, against its plain version: the flagship shape
    (B 8, T 2048, H 16, D 128) in bf16, causal; the same in f32 at B 2;
    non-causal; D in {32, 64, 96, 128, 256}; T in {1024, 1536, 4096};
-   grouped-query K/V (4 and 1 KV heads);
+   grouped-query K/V (4 and 1 KV heads); then K4's backward (dq, dk, dv)
+   and the forward's lse against the plain versions: the flagship in bf16,
+   f32 at B 2, non-causal, D in {32, 64, 128, 256}, T in {1024, 4096}, H 16
+   over 4 and 1 KV heads, every shape launched twice and held to bit
+   equality; and the gradients through ``local_attention`` at a gated
+   shape (the autograd path) against the plain version's;
 4. main paths, each with its launch counters set to 0 just before it and
    read just after: (a) threshold rounds at K = 16 x 64M (each round's
    result from ``masked_average``, the fold from ``elastic_average_step`` on
@@ -45,13 +51,26 @@ Phases, each printed as it ends:
    2048-token prompt and 32 greedy steps in f32 (K4 at prefill), its first
    8 tokens against a naive re-forward; then ``lm-generate`` at that width
    in bf16, whose prefill ms and decode ms per token are printed on their
-   own line;
+   own line; (e) the LM's training path: the flagship in bf16 through
+   ``LongContextTrainer.train_step`` on copy-task batches (K4's forward and
+   backward 8 times a step each, finite losses, contributors 1), then a
+   ``valid=[0]`` step (loss 0, contributors 0); the whole model's f32
+   gradient (2 layers, B 2, T 2048) with the kernels against the same
+   model's with the plain attention; ``lm-generate --train-steps`` at a
+   small gated width (d 128, 4 heads, 2 layers, T 1024), whose last loss
+   must be below its first, with the copy accuracy printed;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
    call (``scaled_dot_product_attention`` for K4, timed only) and the bound;
-   one flagship bf16 forward, for K4's share of it; and one prefill and 8
-   decode steps under ``torch.profiler`` (device busy share, top kernels);
+   K4's backward at the same shapes, beside the plain backward, SDPA's
+   backward (its forward + backward minus its forward) and the bound of its
+   five products; one flagship bf16 forward, for K4's share of it; one
+   prefill and 8 decode steps under ``torch.profiler`` (device busy share,
+   top kernels); the flagship bf16 training step (median of 5, host clock
+   ended by a synchronize; K4's forward + backward share of it) and two
+   steps under ``torch.profiler``; and ``bench-mfu``'s record (slope-timed
+   MFU of the same step);
 6. one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -60,14 +79,21 @@ package's tolerance); the kernels avoid FMA contraction, so the error is
 expected to be exactly 0, and K1, K2 and K3 in f32 and bf16 are held to bit
 equality. K4 sums in another order than its plain version (dense products)
 and in bf16 rounds P to bf16 for the PV product: f32 is held to
-rtol = atol = 1e-4, bf16 to rtol = atol = 2e-2. The LM's f32 forward and
-its decode-path oracle must agree within 1e-4 x max|logit|.
+rtol = atol = 1e-4, bf16 to rtol = atol = 2e-2. K4's backward (which in
+bf16 also rounds P and dS to bf16 before their products) is held to 1e-4
+(f32) and 2e-2 (bf16) of the plain version's max|grad|, its lse within 1e-4,
+and the whole model's f32 gradient to 1e-4 of each tensor's max|grad|. The
+LM's f32 forward and its decode-path oracle must agree within 1e-4 x
+max|logit|.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import sys
 import time
 
@@ -88,6 +114,13 @@ LM = dict(vocab=256, d_model=2048, n_heads=16, n_layers=8)
 LM_BATCH, LM_SEQ, LM_GEN, LM_GREEDY_CHECK = 8, 2048, 32, 8
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LOGIT_TOL = 1e-4  # relative to max|logit|
+# K4's backward, relative to max|grad|; the whole model's f32 gradient with
+# the kernels against the plain attention, relative to each tensor's max|grad|
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MODEL_GRAD_TOL = 1e-4
+TRAIN_STEPS = 3  # flagship training steps on the main path
+TRAIN_LM = dict(vocab=64, d_model=128, n_heads=4, n_layers=2)  # lm-generate --train-steps
+TRAIN_LM_SEQ, TRAIN_LM_STEPS = 1024, 40
 
 
 def ring_name(mode: str | None) -> str:
@@ -101,6 +134,8 @@ SOURCE = {
     **{ring_name(m): "akka_allreduce_tpu_torch/ops/csrc/ring.cu" for m in RING_MODES},
     "flash_attention_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
     "flash_attention_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention_bwd_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "masked_average": "akka_allreduce_tpu/ops/local_reduce.py:79",
@@ -109,6 +144,10 @@ REPLACES = {
     # the flash branch of local_attention (the library Pallas kernel)
     "flash_attention_bf16": "akka_allreduce_tpu/ops/local_attention.py:378",
     "flash_attention_f32": "akka_allreduce_tpu/ops/local_attention.py:378",
+    # the library kernel's custom VJP, run through the call at :395
+    # (_flash_attention_bwd_dkv and _flash_attention_bwd_dq)
+    "flash_attention_bwd_bf16": "akka_allreduce_tpu/ops/local_attention.py:395",
+    "flash_attention_bwd_f32": "akka_allreduce_tpu/ops/local_attention.py:395",
 }
 
 
@@ -165,6 +204,82 @@ def check_flash(dev, gen) -> tuple[dict, float]:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err, other
+
+
+def check_flash_bwd(dev, gen) -> dict:
+    """K4's backward (dq, dk, dv) and the forward's lse against the plain
+    versions at every listed shape, each backward launched twice and held to
+    bit equality; then the autograd path through ``local_attention`` at a
+    gated shape. Returns the errors (relative to max|grad|) at each dtype's
+    flagship shape and the largest elsewhere."""
+    import torch
+
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops import local_attention as la
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, t, h, d = LM_BATCH, LM_SEQ, LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    flagship = {bf16: (b, t, h, h, d, True), f32: (2, t, h, h, d, True)}
+    shapes = [(dt, shape) for dt, shape in flagship.items()]
+    shapes += [(bf16, (2, t, h, h, d, False)), (f32, (2, 1024, 4, 4, d, False))]
+    for dt in (bf16, f32):
+        shapes += [(dt, (2, 1024, 4, 4, hd, True)) for hd in (32, 64, 128, 256)]
+        shapes += [(dt, (1, tt, 4, 4, 128, True)) for tt in (1024, 4096)]
+        shapes += [(dt, (2, t, h, 4, d, True)), (dt, (1, 1024, h, 1, 64, True))]
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1e-30)
+
+    err, other, lse_err = {}, 0.0, 0.0
+    for dt, (bb, tt, hh, hkv, hd, causal) in shapes:
+        q = torch.randn((bb, tt, hh, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((bb, tt, hkv, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((bb, tt, hkv, hd), generator=gen, device=dev).to(dt)
+        do = torch.randn((bb, tt, hh, hd), generator=gen, device=dev).to(dt)
+        tol = BWD_TOL[str(dt).split(".")[-1]]
+        what = f"flash bwd {dt} B{bb} T{tt} H{hh}/{hkv} D{hd} causal={causal}"
+        o, lse = fa._forward(q, k, v, causal, hd ** -0.5)
+        _, want_lse = fa.flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+        e_lse = float((lse - want_lse).abs().max())
+        require(e_lse <= 1e-4, f"{what}: lse max abs err {e_lse}")
+        lse_err = max(lse_err, e_lse)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+        e = 0.0
+        for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+            require(g.shape == w.shape and g.dtype == dt, f"{what}: {name} shape/dtype")
+            require(bool(torch.isfinite(g).all()), f"{what}: {name} non-finite")
+            require(torch.equal(g, g2), f"{what}: {name} differs between two launches")
+            e = max(e, rel(g, w))
+        require(e <= tol, f"{what}: max err {e} of max|grad|")
+        if (bb, tt, hh, hkv, hd, causal) == flagship[dt]:
+            err["flash_attention_bwd_" + ("bf16" if dt == bf16 else "f32")] = e
+        else:
+            other = max(other, e)
+        del q, k, v, do, o, lse, want_lse, got, again, want
+        torch.cuda.empty_cache()
+
+    # fault 1's repair: gradients through local_attention at a gated shape
+    autograd_err = {}
+    for dt in (bf16, f32):
+        q, k, v, do = (torch.randn((2, 1024, 4, 64), generator=gen, device=dev).to(dt)
+                       for _ in range(4))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = dict(fa.LAUNCHES)
+        la.local_attention(*leaves, causal=True).backward(do)
+        require(fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1,
+                "local_attention's backward launched K4's backward")
+        plain = [x.clone().requires_grad_() for x in (q, k, v)]
+        fa.flash_attention_reference(*plain, causal=True).backward(do)
+        e = max(rel(a.grad, b_.grad) for a, b_ in zip(leaves, plain))
+        require(e <= BWD_TOL[str(dt).split(".")[-1]], f"autograd {dt}: err {e}")
+        autograd_err[str(dt).split(".")[-1]] = e
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"err": err, "other": other, "lse_max_abs_err": lse_err,
+            "autograd_err": autograd_err}
 
 
 def lm_main_path(dev) -> dict:
@@ -270,6 +385,189 @@ def lm_main_path(dev) -> dict:
     }
 
 
+def lm_train_path(dev) -> dict:
+    """The LM's training path: (a) the flagship in bf16 through
+    ``LongContextTrainer.train_step`` (K4 forward and backward once a layer
+    each step), then a ``valid=[0]`` step; (b) the whole model's f32
+    gradient with the kernels against the plain attention (2 layers, B 2,
+    T 2048); (c) ``lm-generate --train-steps`` at a small gated width.
+    Returns the launches per dtype and the figures of each part."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from akka_allreduce_tpu_torch.__main__ import main as cli_main
+    from akka_allreduce_tpu_torch.models import SyntheticCopyLM, TransformerLM
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops import local_attention as la
+    from akka_allreduce_tpu_torch.train import LongContextTrainer
+
+    count = fa.LAUNCHES
+    n_layers = LM["n_layers"]
+
+    # (a) the flagship in bf16
+    trainer = LongContextTrainer(**LM, seq_len=LM_SEQ, compute_dtype=torch.bfloat16,
+                                 learning_rate=1e-3, seed=SEED, device=dev)
+    batches = list(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED).batches(
+        LM_BATCH, TRAIN_STEPS + 1))
+    count["flash_attention"] = count["flash_attention_bwd"] = 0
+    losses = []
+    for x, y in batches[:TRAIN_STEPS]:
+        m = trainer.train_step(x, y)
+        require(math.isfinite(m.loss) and m.contributors == 1.0, f"flagship step {m}")
+        losses.append(m.loss)
+    torch.cuda.synchronize()
+    launches_a = dict(count)
+    require(launches_a == {"flash_attention": n_layers * TRAIN_STEPS,
+                           "flash_attention_bwd": n_layers * TRAIN_STEPS},
+            f"flagship steps: launches {launches_a}")
+    dropped = trainer.train_step(*batches[TRAIN_STEPS], valid=[0.0])
+    require(dropped.loss == 0.0 and dropped.contributors == 0.0,
+            f"valid=[0] step {dropped}")
+    launches_a = dict(count)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) the f32 gradient of 2 layers at B 2 x T 2048, kernels vs plain
+    model = TransformerLM(**{**LM, "n_layers": 2}, seed=SEED, device=dev)
+    x, y = (torch.from_numpy(a).to(dev).long() for a in batches[0])
+    x, y = x[:2], y[:2]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        F.cross_entropy(model(x).reshape(-1, LM["vocab"]), y.reshape(-1)).backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    count["flash_attention"] = count["flash_attention_bwd"] = 0
+    got = grads()
+    torch.cuda.synchronize()
+    launches_b = dict(count)
+    require(launches_b == {"flash_attention": 2, "flash_attention_bwd": 2},
+            f"f32 gradient: launches {launches_b}")
+    with mock.patch.object(la, "flash_attention", lambda q, k, v, causal, sm_scale:
+                           fa.flash_attention_reference(q, k, v, causal=causal,
+                                                        sm_scale=sm_scale)):
+        want = grads()
+    require(dict(count) == launches_b, "the plain-attention gradient launched a kernel")
+    grad_err = 0.0
+    for name in want:
+        e = float((got[name] - want[name]).abs().max()) / max(
+            float(want[name].abs().max()), 1e-30)
+        require(e <= MODEL_GRAD_TOL, f"f32 model gradient {name}: err {e} of max|grad|")
+        grad_err = max(grad_err, e)
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    # (c) lm-generate --train-steps at a small gated width (f32)
+    count["flash_attention"] = count["flash_attention_bwd"] = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([
+            "lm-generate", "--vocab", str(TRAIN_LM["vocab"]),
+            "--d-model", str(TRAIN_LM["d_model"]), "--heads", str(TRAIN_LM["n_heads"]),
+            "--layers", str(TRAIN_LM["n_layers"]), "--batch", "8",
+            "--train-steps", str(TRAIN_LM_STEPS), "--seq-len", str(TRAIN_LM_SEQ),
+            "--prompt-len", str(TRAIN_LM_SEQ // 2 + 1), "--gen", "16",
+        ])
+    torch.cuda.synchronize()
+    launches_c = dict(count)
+    lines = buf.getvalue().strip().splitlines()
+    trained = next(ln for ln in lines if ln.startswith("trained "))
+    first, last = (float(s) for s in trained.split("loss ")[1].split(" -> "))
+    accuracy = next(ln for ln in lines if ln.startswith("copy accuracy"))
+    print(trained + "; " + accuracy, flush=True)
+    require(rc == 0 and last < first, f"lm-generate --train-steps: rc {rc}, {trained}")
+    want_c = TRAIN_LM["n_layers"] * TRAIN_LM_STEPS
+    require(launches_c["flash_attention"] >= want_c
+            and launches_c["flash_attention_bwd"] == want_c,
+            f"lm-generate --train-steps: launches {launches_c}")
+    torch.cuda.empty_cache()
+    return {
+        "launches": {
+            "flash_attention_bf16": launches_a["flash_attention"],
+            "flash_attention_f32": launches_b["flash_attention"] + launches_c["flash_attention"],
+            "flash_attention_bwd_bf16": launches_a["flash_attention_bwd"],
+            "flash_attention_bwd_f32": (launches_b["flash_attention_bwd"]
+                                        + launches_c["flash_attention_bwd"]),
+        },
+        "per_part": {"a_flagship_bf16": launches_a, "b_model_grad_f32": launches_b,
+                     "c_lm_generate_train_f32": launches_c},
+        "losses": losses,
+        "model_grad_err": grad_err,
+        "copy": {"loss_first": first, "loss_last": last, "line": accuracy},
+    }
+
+
+def time_train_step(dev, steps: int = 5) -> dict:
+    """The flagship bf16 training step: median host-clock ms over ``steps``
+    steps (each ends in its loss's host read), after one warm-up step; then
+    two steps under ``torch.profiler``; and the peak memory of them all."""
+    import statistics
+
+    import torch
+
+    from akka_allreduce_tpu_torch.models import SyntheticCopyLM
+    from akka_allreduce_tpu_torch.train import LongContextTrainer
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = LongContextTrainer(**LM, seq_len=LM_SEQ, compute_dtype=torch.bfloat16,
+                                 learning_rate=1e-3, seed=SEED, device=dev)
+    batches = list(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED + 1).batches(
+        LM_BATCH, steps + 3))
+    trainer.train_step(*batches[0])
+    times = []
+    for x, y in batches[1:steps + 1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    def two_steps():
+        for x, y in batches[steps + 1:steps + 3]:
+            trainer.train_step(x, y)
+
+    profiled = profile_window(two_steps, top=12)
+    profiled["steps"] = 2
+    out = {
+        "param_count": trainer.param_count,
+        "step_ms": statistics.median(times),
+        "step_ms_all": times,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": profiled,
+    }
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_window(fn, top: int = 6) -> dict:
+    """``fn()`` under ``torch.profiler``: the host-clock wall time, the
+    summed device time of its kernels (user annotations such as
+    ``Optimizer.step#Adam.step`` left out: they would count their kernels
+    twice; kernel names may hold ``#`` too, as in ``{lambda(float)#1}``),
+    the device's busy share and the ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)
+               and not re.fullmatch(r"[\w.]+#[\w.]+", e.key)]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in ranked]}
+
 
 def profile_lm(model, tokens, steps: int = 8) -> dict:
     """One prefill and ``steps`` greedy decode steps of ``model`` under
@@ -277,30 +575,15 @@ def profile_lm(model, tokens, steps: int = 8) -> dict:
     device time of its kernels, the device's busy share and the kernels
     that took the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from akka_allreduce_tpu_torch.models import LMGenerator
 
     gen = LMGenerator(model, max_len=tokens.shape[1] + steps + 1)
     cache = gen.init_cache(tokens.shape[0])
 
-    def traced(fn) -> dict:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        return {"wall_ms": wall_ms, "device_ms": device_ms,
-                "busy_share": device_ms / wall_ms,
-                "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
-
     out = {}
     with torch.no_grad():
-        out["prefill"] = traced(lambda: model(tokens, cache))
+        out["prefill"] = profile_window(lambda: model(tokens, cache))
         tok = tokens[:, -1:]
 
         def decode():
@@ -308,7 +591,7 @@ def profile_lm(model, tokens, steps: int = 8) -> dict:
             for _ in range(steps):
                 tok = torch.argmax(model(tok, cache)[:, -1], dim=-1)[:, None]
 
-        out["decode"] = traced(decode)
+        out["decode"] = profile_window(decode)
     out["decode"]["steps"] = steps
     return out
 
@@ -340,7 +623,7 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    paths = _build.build("local_reduce", "ring", "flash_attention")
+    paths = _build.build("local_reduce", "ring", "flash_attention", "flash_attention_bwd")
     for path in paths.values():
         ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -491,6 +774,18 @@ def main() -> int:
                      "bf16": {"rtol": FLASH_TOL["bfloat16"],
                               "atol": FLASH_TOL["bfloat16"]}})
 
+    # -- 3d. K4's backward vs plain ------------------------------------------------
+    t0 = time.perf_counter()
+    bwd = check_flash_bwd(dev, gen)
+    err.update(bwd["err"])
+    phase("flash_bwd_vs_plain", t0, max_err_of_max_grad=bwd["err"],
+          other_shapes_max_err_of_max_grad=bwd["other"],
+          lse_max_abs_err=bwd["lse_max_abs_err"],
+          local_attention_autograd_err=bwd["autograd_err"],
+          repeat="bit-identical (every shape launched twice)",
+          tolerance={"f32": BWD_TOL["float32"], "bf16": BWD_TOL["bfloat16"],
+                     "of": "max|grad| of the plain version", "lse_abs": 1e-4})
+
     # -- 4. main path -------------------------------------------------------------
     t0 = time.perf_counter()
     x0 = x.clone()
@@ -607,6 +902,14 @@ def main() -> int:
           greedy_row0=lm["greedy"], prefill_ms=rec["prefill_ms"],
           ms_per_token=rec["ms_per_token"])
 
+    # -- 4e. main path: the Transformer LM's training path ------------------------
+    t0 = time.perf_counter()
+    train = lm_train_path(dev)
+    phase("lm_train_path", t0, launches=train["launches"],
+          launches_by_part=train["per_part"], flagship_losses=train["losses"],
+          model_grad_f32_max_err_of_max_grad=train["model_grad_err"],
+          model_grad_tolerance=MODEL_GRAD_TOL, copy_task=train["copy"])
+
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
     k = K_WORKERS
@@ -682,6 +985,37 @@ def main() -> int:
             "ops_per_s": BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S,
         }
         del q, k, v, qt, kt, vt
+    # K4's backward at the same shapes: the wrapper (di, then both kernels)
+    # beside the plain version and SDPA's backward (forward + backward minus
+    # forward); the bound is its five products
+    for dt, bb in ((torch.bfloat16, LM_BATCH), (torch.float32, 2)):
+        q, k, v, do = (torch.randn((bb, LM_SEQ, heads, hd), generator=gen,
+                                   device=dev).to(dt) for _ in range(4))
+        o, lse = fa._forward(q, k, v, True, hd ** -0.5)
+        ql, kl, vl = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
+        dol = do.transpose(1, 2)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+        def sdpa_both():
+            return torch.autograd.grad(sdpa(), (ql, kl, vl), dol)
+
+        sdpa_ms = cuda_event_ms(sdpa, 20)
+        name = "flash_attention_bwd_" + ("bf16" if dt == torch.bfloat16 else "f32")
+        timing[name] = {
+            "ms": cuda_event_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True), 10),
+            "plain_ms": cuda_event_ms(
+                lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True),
+                3),
+            "library_ms": cuda_event_ms(sdpa_both, 10) - sdpa_ms,
+            "bytes": 8 * q.numel() * q.element_size() + lse.numel() * 4,
+            "ops": 5 * bb * heads * LM_SEQ * LM_SEQ * hd,
+            "ops_per_s": BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S,
+        }
+        del q, k, v, do, o, lse, ql, kl, vl, dol
+        torch.cuda.empty_cache()
     model, tokens = lm.pop("model"), lm.pop("tokens")
     with torch.no_grad():
         forward_ms = cuda_event_ms(lambda: model(tokens), 5, warmup=1)
@@ -691,6 +1025,30 @@ def main() -> int:
     del model, tokens
     torch.cuda.empty_cache()
 
+    # the flagship training step, its profile, and bench-mfu's slope-timed MFU
+    from akka_allreduce_tpu_torch.__main__ import main as cli_main
+    from akka_allreduce_tpu_torch.utils import transformer_train_flops
+
+    step = time_train_step(dev)
+    print(json.dumps({"train_profile": step["profile"]}), flush=True)
+    floor_ms = transformer_train_flops(
+        n_params=step["param_count"], batch=LM_BATCH, seq=LM_SEQ,
+        d_model=LM["d_model"], n_layers=LM["n_layers"]) / BF16_OPS_PER_S * 1e3
+    k4_train_share = LM["n_layers"] * (timing["flash_attention_bf16"]["ms"] + timing[
+        "flash_attention_bwd_bf16"]["ms"]) / step["step_ms"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        require(cli_main(["bench-mfu"]) == 0, "bench-mfu")
+    mfu_rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(json.dumps(mfu_rec), flush=True)
+    require(mfu_rec["value"] is not None and 0 < mfu_rec["value"] < 1
+            and mfu_rec["device"] == card["name"], f"bench-mfu record {mfu_rec}")
+    torch.cuda.empty_cache()
+
+    path_launches = {**launches, **ring_launches}
+    for part in (lm["launches"], train["launches"]):
+        for name, n in part.items():
+            path_launches[name] = path_launches.get(name, 0) + n
     kernels = []
     for name, t in timing.items():
         bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -701,7 +1059,7 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": {**launches, **ring_launches, **lm["launches"]}[name],
+            "launches": path_launches[name],
             "max_abs_err": err[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -717,16 +1075,30 @@ def main() -> int:
               f"{t['plain_ms']:.4f} ms; library {library}", flush=True)
     print(f"flagship bf16 forward (B {LM_BATCH} x T {LM_SEQ}): {forward_ms:.3f} ms; "
           f"K4 x {LM['n_layers']} = {flash_share * 100:.1f}% of it", flush=True)
+    print(f"flagship bf16 train step (B {LM_BATCH} x T {LM_SEQ}, {card['name']}, "
+          f"{card['power_limit']}): {step['step_ms']:.3f} ms (floor {floor_ms:.1f} ms "
+          f"at {BF16_OPS_PER_S / 1e12:.1f} TFLOP/s); K4 forward + backward x "
+          f"{LM['n_layers']} = {k4_train_share * 100:.1f}% of it; device busy "
+          f"{step['profile']['busy_share'] * 100:.1f}%; bench-mfu "
+          f"{mfu_rec['ms_per_step']} ms/step, MFU {mfu_rec['value']}", flush=True)
     phase("timings", t0, library_note="masked_average: torch.mv + sum + clamp + "
           "div; elastic_average_step: the same plus Tensor.addr_; "
           "ring_allreduce_f32: xs.sum(0, keepdim=True).expand_as(xs).contiguous(); "
           "bf16 and int8 rings: none; flash_attention: "
-          "F.scaled_dot_product_attention(is_causal=True) on (B, H, T, D) views",
+          "F.scaled_dot_product_attention(is_causal=True) on (B, H, T, D) views; "
+          "flash_attention_bwd: the same call's forward + backward "
+          "(torch.autograd.grad) minus its forward",
           ring_shape=[n, padded], flash_shape={"bf16": [LM_BATCH, LM_SEQ, heads, hd],
                                                "f32": [2, LM_SEQ, heads, hd]},
           forward_ms=forward_ms, flash_share_of_forward=flash_share,
+          train_step_ms=step["step_ms"], train_step_ms_all=step["step_ms_all"],
+          train_floor_ms=floor_ms, train_peak_memory_gb=step["peak_memory_gb"],
+          k4_share_of_train_step=k4_train_share,
+          bench_mfu={"mfu": mfu_rec["value"], "ms_per_step": mfu_rec["ms_per_step"],
+                     "spread_pct": mfu_rec["spread_pct"]},
           busy_share={"prefill": prof["prefill"]["busy_share"],
-                      "decode": prof["decode"]["busy_share"]})
+                      "decode": prof["decode"]["busy_share"],
+                      "train": step["profile"]["busy_share"]})
 
     # -- 6. result lines ----------------------------------------------------------
     phase("total", t_start)

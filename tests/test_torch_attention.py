@@ -10,6 +10,10 @@ and ``akka_allreduce_tpu_torch.ops``:
 - K4's plain version against JAX ``local_attention`` at B 1, H 2,
   T 1024, D 32, causal and not: f32 within 2e-5, bf16 within 2e-2 (the two
   sides round the bf16 output of f32 sums taken in another order);
+- K4's plain backward, through ``FlashAttention``, against ``jax.grad`` of
+  JAX ``local_attention`` at that shape, causal and not, and with compact
+  GQA K/V (H 4 over 2): f32 within 2e-5; and against torch autograd of the
+  plain forward, with ``lse`` against ``torch.logsumexp``;
 - which path ``local_attention`` takes for each shape and offset;
 - the guards of the K4 wrapper that hold on every device.
 """
@@ -198,3 +202,53 @@ def test_flash_wrapper_guards_on_every_device():
     before = dict(fa.LAUNCHES)
     fa.flash_attention(q, k, v, causal=True)  # the CPU takes the plain version
     assert fa.LAUNCHES == before
+
+
+# -- K4's backward ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal,h,h_kv", [(True, 2, 2), (False, 2, 2), (True, 4, 2)])
+def test_flash_plain_backward_matches_jax_grad(causal, h, h_kv):
+    """The gradients through the port's ``local_attention`` at a gated shape
+    (K4's plain forward and backward, through ``FlashAttention``) against
+    ``jax.grad`` of JAX ``local_attention`` (the blockwise path on the CPU),
+    with compact GQA K/V on both sides: f32 within 2e-5."""
+    q, k, v = _qkv(b=1, tq=1024, tk=1024, h=h, d=32, seed=21, h_kv=h_kv)
+    w = np.random.default_rng(22).standard_normal(q.shape).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(j_local_attention(q_, k_, v_, causal=causal) * jnp.asarray(w))
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(*_jax(q, k, v))
+    leaves = [x.requires_grad_() for x in _torch(q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = la.local_attention(*leaves, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    (out * torch.from_numpy(w)).sum().backward()
+    assert fa.LAUNCHES == before  # the CPU launches nothing
+    for name, got, ref in zip("qkv", leaves, want):
+        assert got.grad.shape == ref.shape, name
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), atol=ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_backward_matches_autograd_and_lse(causal):
+    """``flash_attention_bwd_reference`` against torch autograd through the
+    plain forward, compact GQA dk/dv included; ``lse`` against
+    ``torch.logsumexp`` of the masked scaled scores."""
+    q, k, v = _torch(*_qkv(b=2, tq=128, tk=128, h=4, d=16, seed=23, h_kv=2))
+    do = torch.from_numpy(np.random.default_rng(24).standard_normal(q.shape).astype(np.float32))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention_reference(*leaves, causal=causal).backward(do)
+    out, lse = fa.flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+    got = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal)
+    for name, g, leaf in zip("qkv", got, leaves):
+        assert g.shape == leaf.shape, name
+        torch.testing.assert_close(g, leaf.grad, rtol=1e-5, atol=1e-5)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, ra.repeat_kv(k, 4)) * 0.25
+    if causal:
+        scores = scores.masked_fill(~torch.ones(128, 128, dtype=torch.bool).tril(),
+                                    float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1), rtol=1e-6, atol=1e-6)
+

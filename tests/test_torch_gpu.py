@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 masked_average, K2 elastic_average_step, K3
-the ring allreduce, K4 the flash-attention forward) against their plain
-PyTorch versions on the card.
+the ring allreduce, K4 the flash-attention forward and backward) against
+their plain PyTorch versions on the card, and the LM's training path
+through them.
 
 Marked ``gpu``; without a card every test skips (decided in the ``card``
 fixture, never at import). Run on the card with
@@ -11,7 +12,9 @@ plain versions (which run as separate mul and add kernels on the card); K3
 under int8 is held to rtol = atol = 1e-6, and equality is expected there too.
 K4 sums in another order than the plain version's dense products and, in
 bf16, rounds P to bf16 for the PV product: f32 is held to rtol = atol =
-1e-4, bf16 to rtol = atol = 2e-2.
+1e-4, bf16 to rtol = atol = 2e-2. K4's backward (which also rounds P and dS
+to bf16 in bf16) is held to the same numbers relative to max|grad|, and two
+of its launches on the same inputs to bit equality.
 """
 
 from __future__ import annotations
@@ -21,12 +24,13 @@ import pytest
 import torch
 
 from akka_allreduce_tpu_torch.comm import allreduce as ar
-from akka_allreduce_tpu_torch.models import LMGenerator, TransformerLM
+from akka_allreduce_tpu_torch.models import LMGenerator, SyntheticCopyLM, TransformerLM
 from akka_allreduce_tpu_torch.ops import flash_attention as fa
 from akka_allreduce_tpu_torch.ops import local_attention as la
 from akka_allreduce_tpu_torch.ops import local_reduce as lr
 from akka_allreduce_tpu_torch.ops import ring as rk
 from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
+from akka_allreduce_tpu_torch.train import LongContextTrainer
 
 pytestmark = pytest.mark.gpu
 
@@ -359,3 +363,139 @@ def test_lm_forward_and_prefill_launch_the_kernel(card):
     out = gen.generate(tokens, 4)
     assert fa.LAUNCHES["flash_attention"] == before + 4
     assert out.shape == (2, 4) and out.dtype == torch.int32
+
+
+# -- K4's backward ------------------------------------------------------------
+
+BWD_SHAPES = [(1, 128, 2, 2, 32), (2, 192, 4, 2, 64), (1, 256, 2, 1, 96),
+              (1, 1024, 2, 2, 128), (1, 320, 3, 3, 160), (2, 128, 2, 2, 192),
+              (1, 128, 1, 1, 224), (1, 192, 4, 1, 256)]
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|: the backward's tolerance scale."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,t,h,h_kv,d", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain(card, b, t, h, h_kv, d, dtype, causal):
+    """dq, dk, dv (compact GQA shape) and the forward's lse against the plain
+    versions, relative to max|grad|: f32 within 1e-4, bf16 within 2e-2."""
+    q, k, v = _qkv(b, t, h, h_kv, d, dtype, card, seed=7)
+    do = _qkv(b, t, h, h, d, dtype, card, seed=8)[0]
+    o, lse = fa._forward(q, k, v, causal, d ** -0.5)
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal,
+                                                  return_lse=True)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel_err(g, w) <= FLASH_TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_repeats_bit_identical(card, dtype):
+    q, k, v = _qkv(2, 256, 4, 2, 64, dtype, card, seed=9)
+    do = _qkv(2, 256, 4, 4, 64, dtype, card, seed=10)[0]
+    o, lse = fa._forward(q, k, v, True, 0.125)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
+    for bad_d in (16, 48, 288):
+        q, k, v = _qkv(1, 128, 2, 2, bad_d, torch.float32, card)
+        lse = torch.zeros((1, 2, 128), device=card)
+        with pytest.raises(ValueError, match="covers D"):
+            fa.flash_attention_bwd(q, k, v, q, lse, q, causal=True)
+    q, k, v = _qkv(1, 128, 2, 2, 32, torch.float32, card)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd(q, k, v, q, torch.zeros((1, 128, 2), device=card), q)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(q.half(), k.half(), v.half(), q.half(),
+                               torch.zeros((1, 2, 128), device=card), q.half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h_kv", [2, 1])
+def test_local_attention_gradients_go_through_the_kernels(card, dtype, h_kv):
+    """The flash branch is differentiable on the card: q.grad, k.grad and
+    v.grad through local_attention at a gated shape equal the plain
+    version's autograd gradients, and the forward and backward kernels
+    each launched once."""
+    q, k, v = _qkv(1, 1024, 2, h_kv, 64, dtype, card, seed=11)
+    do = _qkv(1, 1024, 2, 2, 64, dtype, card, seed=12)[0]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = la.local_attention(*leaves, causal=True)
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention_reference(*plain, causal=True).backward(do)
+    for name, got, want in zip("qkv", leaves, plain):
+        assert got.grad is not None and got.grad.dtype == dtype, name
+        assert _rel_err(got.grad, want.grad) <= FLASH_TOL[dtype], (name, _rel_err(got.grad, want.grad))
+
+
+# -- the LM's training path ---------------------------------------------------
+
+
+def test_training_step_launches_both_kernels_once_a_layer(card):
+    """One bf16 step at a gated length: K4's forward and backward each launch
+    once a layer (twice the forward under remat), the loss is finite, and a
+    ``valid=[0]`` step gives loss 0 and contributors 0."""
+    for remat, fwd in ((False, 2), (True, 4)):
+        trainer = LongContextTrainer(vocab=32, d_model=128, n_heads=2, n_layers=2,
+                                     seq_len=1024, compute_dtype=torch.bfloat16,
+                                     remat=remat, learning_rate=1e-3, device=card)
+        x, y = next(SyntheticCopyLM(1024, vocab=32).batches(2, 1))
+        before = dict(fa.LAUNCHES)
+        m = trainer.train_step(x, y)
+        assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + fwd
+        assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+        assert np.isfinite(m.loss) and m.contributors == 1.0
+        m = trainer.train_step(x, y, valid=[0.0])
+        assert m.loss == 0.0 and m.contributors == 0.0
+    hist = trainer.train_chain(SyntheticCopyLM(1024, vocab=32).device_sampler(), 3, 2)
+    assert [h.step for h in hist] == [3, 4, 5] and all(np.isfinite(h.loss) for h in hist)
+
+
+def test_model_gradient_with_kernels_matches_plain_attention(card, monkeypatch):
+    """The whole model's f32 gradient through the kernels against the same
+    model's gradient with the plain attention on the card, per parameter,
+    within 1e-4 of that parameter's max|grad|."""
+    model = TransformerLM(vocab=32, d_model=128, n_heads=2, n_kv_heads=1, n_layers=2,
+                          seed=2, device=card)
+    x, y = (torch.from_numpy(a).to(card).long()
+            for a in next(SyntheticCopyLM(1024, vocab=32).batches(2, 1)))
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        torch.nn.functional.cross_entropy(model(x).reshape(-1, 32), y.reshape(-1)).backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    before = dict(fa.LAUNCHES)
+    got = grads()
+    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    monkeypatch.setattr(la, "flash_attention", lambda q, k, v, causal, sm_scale:
+                        fa.flash_attention_reference(q, k, v, causal=causal,
+                                                     sm_scale=sm_scale))
+    want = grads()
+    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    for name in want:
+        scale = float(want[name].abs().max())
+        err = float((got[name] - want[name]).abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)

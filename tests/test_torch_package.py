@@ -5,7 +5,7 @@
 - Its entry points run on the card unless asked for the CPU: with no CUDA
   they raise instead of running on the CPU.
 - The CPU path launches no kernel (the threshold reduce, the ring, and a
-  gated attention forward alike).
+  gated attention forward and backward alike).
 - The ``bench-suite`` and ``bench`` commands print parseable records at a
   tiny size.
 - Its copies of the configs and of the per-round metrics behave as the JAX
@@ -38,7 +38,8 @@ from akka_allreduce_tpu_torch.models import TransformerLM
 from akka_allreduce_tpu_torch.ops import flash_attention as tflash
 from akka_allreduce_tpu_torch.ops import local_reduce as tlr
 from akka_allreduce_tpu_torch.ops import ring as tring
-from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
+from akka_allreduce_tpu_torch.parallel import data_seq_mesh, grid_mesh, line_mesh
+from akka_allreduce_tpu_torch.train import LongContextTrainer
 from akka_allreduce_tpu_torch.utils import metrics
 
 REPO = Path(__file__).resolve().parents[1]
@@ -83,7 +84,8 @@ def test_source_names_no_jax_package():
                 "comm.bandwidth", "parallel.mesh", "utils.metrics",
                 "ops.ring_attention", "ops.local_attention", "ops.flash_attention",
                 "models.transformer", "models.generate", "models.convert",
-                "models.data"):
+                "models.data", "train", "train.trainer", "train.long_context",
+                "binder", "binder.api", "bench_mfu"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
@@ -123,6 +125,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, capsys):
         TransformerLM(vocab=16, d_model=32, n_heads=4, n_layers=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["lm-generate", "--vocab", "16", "--d-model", "32", "--layers", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        data_seq_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LongContextTrainer(vocab=16, d_model=32, n_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["train-lm", "--vocab", "16", "--d-model", "32", "--layers", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["lm-generate", "--train-steps", "2", "--layers", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["bench-mfu", "--d-model", "32", "--layers", "1"])
     assert capsys.readouterr().out == ""  # nothing was measured or printed
 
 
@@ -148,12 +160,14 @@ def test_cpu_ring_path_counts_no_launches():
 
 
 def test_cpu_attention_path_counts_no_launches():
-    """A gated forward on the CPU takes K4's plain version: no launch."""
+    """A gated forward and backward on the CPU take K4's plain versions: no
+    launch of either kernel."""
     before = dict(tflash.LAUNCHES)
     model = TransformerLM(vocab=16, d_model=64, n_heads=2, n_layers=1, device="cpu")
-    with torch.no_grad():
-        model(torch.zeros((1, 1024), dtype=torch.int64))
-    assert tflash.LAUNCHES == before == {"flash_attention": before["flash_attention"]}
+    model(torch.zeros((1, 1024), dtype=torch.int64)).sum().backward()
+    assert model.blocks[0].attn.q_kernel.grad.abs().sum() > 0
+    assert tflash.LAUNCHES == before
+    assert set(before) == {"flash_attention", "flash_attention_bwd"}
 
 
 @pytest.fixture

@@ -296,8 +296,7 @@ def test_lm_generate_cli_on_the_cpu(capsys):
     assert (rec["batch"], rec["prompt_len"], rec["gen"], rec["kv_heads"]) == (2, 5, 4, 2)
 
 
-@pytest.mark.parametrize("flag", [["--train-steps", "5"], ["--sp", "2"], ["--tp", "2"],
-                                  ["--cache-quant", "int8"]])
+@pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"], ["--cache-quant", "int8"]])
 def test_lm_generate_refuses_what_is_not_ported(capsys, flag):
     with pytest.raises(SystemExit):
         cli_main(["lm-generate", "--device", "cpu", *flag])
