@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): K4.
+// Flash-attention forward for Hopper (sm_90a) in f32: K4's forward when the
+// compute dtype is float32 (bf16 runs flash_attention_wgmma.cu: wgmma takes
+// f32 only as TF32, which would break the f32 parity held at 1e-4).
 //
 // Replaces the flash branch of akka_allreduce_tpu/ops/local_attention.py
 // local_attention, which calls the library Pallas TPU kernel
@@ -18,16 +20,16 @@
 // strides passed in, so a slice of a longer KV cache needs no copy.
 //
 // Bound: operations. 4 * B * H * T^2 * D FLOP (halved under causal masking)
-// against (3 + 1) * B * T * H * D elements moved: at the flagship shape
-// (8, 2048, 16, 128) bf16 that is 1.37e11 FLOP over 268 MB, far above the
-// card's ridge, so the products must run on the tensor cores.
+// against (3 + 1) * B * T * H * D elements moved: at (2, 2048, 16, 128) f32
+// that is 3.4e10 FLOP over 134 MB, above the ridge of the card's 67 TFLOP/s
+// of f32 FMAs.
 //
 // Design, a simple flash-attention-2 forward:
 // - one CTA per (query block of 64 rows, head, batch), 4 warps, each warp
 //   owning 16 query rows; under causal masking the CTAs with the most key
 //   blocks (the last query blocks) are launched first;
-// - Q, then each K and V tile of kBlockN keys, staged in shared memory by
-//   16-byte cp.async copies (rows padded so that fragment reads hit 32
+// - Q, then each K and V tile of kBlockN (32) keys, staged in shared memory
+//   by 16-byte cp.async copies (rows padded so that fragment reads hit 32
 //   distinct banks), the next K tile in flight during this block's softmax
 //   and PV product, the next V tile during the next block's QK product;
 //   key blocks wholly above the diagonal are skipped, the diagonal block is
@@ -37,16 +39,11 @@
 //   warp's 16 (g = lane / 4), columns 8j + 2t and 8j + 2t + 1 (t = lane % 4);
 //   the row max and sum need only the 4 threads of a group (two shuffles);
 //   blocks that every row of a warp sees whole skip the element mask;
-// - bf16: both products on the tensor cores, mma.sync.m16n8k16 with f32
-//   accumulators, the fragments of Q, K and V (transposed) read from shared
-//   memory by ldmatrix; P is rounded to bf16 in registers and fed straight
-//   back as the A operand of the PV product;
-// - f32: the same layout, both products as f32 FMAs (not TF32); P goes
-//   through a per-warp strip of shared memory for the PV product.
+// - both products as f32 FMAs (not TF32) in that layout; P goes through a
+//   per-warp strip of shared memory for the PV product.
 // The scale multiplies the f32 scores (as the dense oracle does), the
 // exponentials are expf (no fast math), and the output divides by
-// max(l, 1e-30). wgmma, TMA and warp specialisation are for later. The
-// copies, fragment loads and warp products are in flash_common.cuh.
+// max(l, 1e-30). The copies and warp products are in flash_common.cuh.
 //
 // The C entry launches on the caller's stream, does not synchronise, and
 // returns a CUDA error code (cudaErrorInvalidValue for a shape it does not
@@ -62,54 +59,17 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockM = kWarps * 16;  // query rows per CTA
 
-// f32: 32 keys a tile (shared memory: Q + K + V + P strips); bf16: 64 keys
-template <typename T>
-struct Tile {
-  static constexpr int kBlockN = sizeof(T) == 2 ? 64 : 32;
-};
-
-template <typename T, int D>
+template <int D>
 struct Smem {
-  static constexpr int kBlockN = Tile<T>::kBlockN;
-  static constexpr int kLd = D + Pad<T>::value;  // row pitch, elements
+  static constexpr int kBlockN = 32;  // keys a tile: Q + K + V + P strips fit
+  static constexpr int kLd = D + Pad<float>::value;  // row pitch, elements
   static constexpr int kLdP = kBlockN + 4;       // f32 P strip row pitch
   static constexpr size_t kQKV =
-      static_cast<size_t>(kBlockM + 2 * kBlockN) * kLd * sizeof(T);
+      static_cast<size_t>(kBlockM + 2 * kBlockN) * kLd * sizeof(float);
   static constexpr size_t kP =
-      sizeof(T) == 4 ? static_cast<size_t>(kWarps) * 16 * kLdP * 4 : 0;
+      static_cast<size_t>(kWarps) * 16 * kLdP * sizeof(float);
   static constexpr size_t kBytes = kQKV + kP;
 };
-
-// O (16 x D) += P V, bf16 tensor cores. P comes from the score registers:
-// for the 16 keys of step kk, a0/a1 are tile 2kk's (c0, c1)/(c2, c3) and
-// a2/a3 tile 2kk + 1's. B (V, "col"): b0 (k = keys 2t, 2t + 1; n = g) and
-// b1 (keys 8 on) of an 8-wide D tile; one transposed ldmatrix.x4 over
-// [keys 16kk.. | 16kk + 8..] x [D tiles jd | jd + 1] gives both tiles'.
-template <int D, int NB>
-__device__ __forceinline__ void pv_bf16(float (&o)[D / 8][4],
-                                        const float (&p)[NB][4],
-                                        const bf16* __restrict__ sv,
-                                        int lane) {
-  constexpr int kLd = Smem<bf16, D>::kLd;
-  const int m = lane / 8;
-  const int r = lane % 8;
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_f32_as_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_f32_as_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_f32_as_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_f32_as_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* vp = sv + (16 * kk + (m % 2) * 8 + r) * kLd + (m / 2) * 8;
-#pragma unroll
-    for (int jd = 0; jd < D / 8; jd += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, vp + 8 * jd);
-      mma_bf16(o[jd], a, b[0], b[1]);
-      mma_bf16(o[jd + 1], a, b[2], b[3]);
-    }
-  }
-}
 
 // O += P V in f32 FMAs; P goes through this warp's strip of shared memory
 template <int D, int NB>
@@ -118,30 +78,30 @@ __device__ __forceinline__ void pv_f32(float (&o)[D / 8][4],
                                        float* __restrict__ sp,
                                        const float* __restrict__ sv,
                                        int lane) {
-  constexpr int kLdP = Smem<float, D>::kLdP;
+  constexpr int kLdP = Smem<D>::kLdP;
   store_acc<float, NB>(sp, kLdP, p, 1.f, lane);
   __syncwarp();
-  warp_mma<true, D / 8, 8 * NB>(o, sp, kLdP, sv, Smem<float, D>::kLd, lane);
+  warp_mma<true, D / 8, 8 * NB>(o, sp, kLdP, sv, Smem<D>::kLd, lane);
   __syncwarp();  // the strip is rewritten by the next key block
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int t_len, int group,
                      int64_t q_sb, int64_t k_sb,
                      int64_t v_sb, int64_t o_sb, int64_t q_st, int64_t k_st,
                      int64_t v_st, int64_t o_st, float scale, int causal) {
-  using S = Smem<T, D>;
+  using S = Smem<D>;
   constexpr int kBlockN = S::kBlockN;
   constexpr int NB = kBlockN / 8;  // 8-key accumulator tiles per key block
   constexpr int kLd = S::kLd;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sk = sq + kBlockM * kLd;
-  T* sv = sk + kBlockN * kLd;
+  float* sq = reinterpret_cast<float*>(smem_raw);
+  float* sk = sq + kBlockM * kLd;
+  float* sv = sk + kBlockN * kLd;
   float* sp = reinterpret_cast<float*>(smem_raw + S::kQKV);
 
   const int n_mblocks = gridDim.x;
@@ -151,9 +111,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / group;
-  const T* qg = q + b * q_sb + static_cast<int64_t>(h) * D;
-  const T* kg = k + b * k_sb + static_cast<int64_t>(kvh) * D;
-  const T* vg = v + b * v_sb + static_cast<int64_t>(kvh) * D;
+  const float* qg = q + b * q_sb + static_cast<int64_t>(h) * D;
+  const float* kg = k + b * k_sb + static_cast<int64_t>(kvh) * D;
+  const float* vg = v + b * v_sb + static_cast<int64_t>(kvh) * D;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -176,10 +136,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // {V_n+1} (empty past the last block), so "all but the newest group
   // landed" is the wait before each use.
   const int kv_end = causal ? min(t_len, m0 + kBlockM) : t_len;
-  load_tile_async<T, D, kBlockM, kLd, kThreads>(sq, qg, q_st, m0, t_len);
-  load_tile_async<T, D, kBlockN, kLd, kThreads>(sk, kg, k_st, 0, t_len);
+  load_tile_async<float, D, kBlockM, kLd, kThreads>(sq, qg, q_st, m0, t_len);
+  load_tile_async<float, D, kBlockN, kLd, kThreads>(sk, kg, k_st, 0, t_len);
   cp_async_commit();
-  load_tile_async<T, D, kBlockN, kLd, kThreads>(sv, vg, v_st, 0, t_len);
+  load_tile_async<float, D, kBlockN, kLd, kThreads>(sv, vg, v_st, 0, t_len);
   cp_async_commit();
   for (int n0 = 0; n0 < kv_end; n0 += kBlockN) {
     const bool more = n0 + kBlockN < kv_end;
@@ -191,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     warp_mma<false, NB, D>(s, sq + warp * 16 * kLd, kLd, sk, kLd, lane);
     __syncthreads();  // every warp is done with K_n
     if (more) {
-      load_tile_async<T, D, kBlockN, kLd, kThreads>(sk, kg, k_st,
+      load_tile_async<float, D, kBlockN, kLd, kThreads>(sk, kg, k_st,
                                                     n0 + kBlockN, t_len);
     }
     cp_async_commit();
@@ -248,14 +208,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     cp_async_wait<1>();  // V_n landed
     __syncthreads();
-    if constexpr (sizeof(T) == 2) {
-      pv_bf16<D, NB>(o_acc, s, sv, lane);
-    } else {
-      pv_f32<D, NB>(o_acc, s, sp + warp * 16 * S::kLdP, sv, lane);
-    }
+    pv_f32<D, NB>(o_acc, s, sp + warp * 16 * S::kLdP, sv, lane);
     __syncthreads();  // every warp is done with V_n
     if (more) {
-      load_tile_async<T, D, kBlockN, kLd, kThreads>(sv, vg, v_st,
+      load_tile_async<float, D, kBlockN, kLd, kThreads>(sv, vg, v_st,
                                                     n0 + kBlockN, t_len);
     }
     cp_async_commit();
@@ -278,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           m_run[r] + logf(l);
     }
   }
-  T* og = o + b * o_sb + static_cast<int64_t>(h) * D + 2 * t;
+  float* og = o + b * o_sb + static_cast<int64_t>(h) * D + 2 * t;
 #pragma unroll
   for (int jd = 0; jd < D / 8; ++jd) {
     if (row_lo < t_len) {
@@ -305,37 +261,36 @@ struct FwdArgs {
   int causal;
 };
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = Smem<T, D>::kBytes;
+  constexpr size_t smem = Smem<D>::kBytes;
   static_assert(smem <= kMaxSmem, "tile set exceeds shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((a.t_len + kBlockM - 1) / kBlockM),
                   static_cast<unsigned>(a.heads),
                   static_cast<unsigned>(a.batch));
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse,
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
       static_cast<int>(a.t_len), static_cast<int>(a.group), a.sb[0], a.sb[1],
       a.sb[2], a.sb[3], a.st[0], a.st[1], a.st[2], a.st[3], a.scale,
       a.causal);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_d(int64_t d, const FwdArgs& a, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<T, 32>(a, s);
-    case 64: return launch<T, 64>(a, s);
-    case 96: return launch<T, 96>(a, s);
-    case 128: return launch<T, 128>(a, s);
-    case 160: return launch<T, 160>(a, s);
-    case 192: return launch<T, 192>(a, s);
-    case 224: return launch<T, 224>(a, s);
-    case 256: return launch<T, 256>(a, s);
+    case 32: return launch<32>(a, s);
+    case 64: return launch<64>(a, s);
+    case 96: return launch<96>(a, s);
+    case 128: return launch<128>(a, s);
+    case 160: return launch<160>(a, s);
+    case 192: return launch<192>(a, s);
+    case 224: return launch<224>(a, s);
+    case 256: return launch<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -348,11 +303,12 @@ const char* akka_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 float32, 1 bfloat16. Strides are in elements: batch strides
+// float32 only (bf16 has its own entry, with the same arguments, in
+// flash_attention_wgmma.cu). Strides are in elements: batch strides
 // (q, k, v, o) then row strides (q, k, v, o). lse, when not null, receives
 // the (B, H, T) f32 row statistics m + log(l).
-int akka_flash_attention_fwd(int dtype, const void* q, const void* k,
-                             const void* v, void* o, float* lse,
+int akka_flash_attention_fwd(const void* q, const void* k, const void* v,
+                             void* o, float* lse,
                              int64_t batch, int64_t t_len, int64_t heads,
                              int64_t kv_heads, int64_t d, int64_t q_sb,
                              int64_t k_sb, int64_t v_sb, int64_t o_sb,
@@ -368,15 +324,8 @@ int akka_flash_attention_fwd(int dtype, const void* q, const void* k,
   const FwdArgs a{q, k, v, o, lse, batch, t_len, heads, heads / kv_heads,
                   {q_sb, k_sb, v_sb, o_sb}, {q_st, k_st, v_st, o_st}, scale,
                   causal};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = dispatch_d<float>(d, a, s);
-  } else if (dtype == 1) {
-    err = dispatch_d<bf16>(d, a, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      dispatch_d(d, a, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,7 +1,10 @@
-// Device helpers shared by the flash-attention forward (flash_attention.cu)
-// and backward (flash_attention_bwd.cu) kernels: cp.async tile copies,
-// ldmatrix fragment loads, the bf16 m16n8k16 mma, and warp-level products
-// in the register layout of an m16n8 mma accumulator.
+// Device helpers shared by the flash-attention kernels, the f32 forward
+// (flash_attention.cu) and the backward (flash_attention_bwd.cu): cp.async
+// tile copies, ldmatrix fragment loads, the bf16 m16n8k16 mma, and
+// warp-level products in the register layout of an m16n8 mma accumulator.
+// The bf16 forward (flash_attention_wgmma.cu) takes the constants, the bf16
+// packing and the stores from here and its Hopper machinery from
+// hopper.cuh.
 //
 // That layout: a warp owns 16 rows; each thread holds, for each 8-column
 // tile j, c[j][0..3] = rows g and g + 8 (g = lane / 4), columns 8j + 2t and

@@ -6,13 +6,17 @@ Counterpart of the flash branch of ``akka_allreduce_tpu/ops/local_attention.py``
 differentiates it through the kernel's custom VJP). The kernels are CUDA C++
 for ``sm_90a``:
 
-- **Forward**, ``csrc/flash_attention.cu``: ``softmax(Q K^T * scale, causal
-  or not) V`` per (batch, head), with the scores, the running max and sum
-  and the output accumulator in f32, the output in the input dtype (f32 or
-  bf16), and on request the row statistic ``lse = m + log(l)`` (B, H, T)
-  f32 from the same launch. One CTA per (b, h, block of 64 query rows), four
-  warps of 16 rows; K and V tiles through shared memory; the online softmax
-  over key blocks, causal blocks above the diagonal skipped.
+- **Forward**: ``softmax(Q K^T * scale, causal or not) V`` per (batch,
+  head), with the scores, the running max and sum and the output
+  accumulator in f32, the output in the input dtype, and the row statistic
+  ``lse = m + log(l)`` (B, H, T) f32 from the same launch. A fixed dispatch
+  by dtype (:func:`forward_kernel`), the same for every D the gate admits:
+  bf16 goes to ``csrc/flash_attention_wgmma.cu``, designed for Hopper (one
+  CTA per 128 query rows, a TMA producer warpgroup and two ``wgmma``
+  consumer warpgroups, K/V through a ring of ``mbarrier`` stages, exp2
+  softmax); f32 goes to ``csrc/flash_attention.cu`` (one CTA per 64 query
+  rows, four warps, ``cp.async`` tiles, f32 FMAs: ``wgmma`` offers f32 only
+  as TF32). Both skip causal blocks above the diagonal.
 - **Backward**, ``csrc/flash_attention_bwd.cu``: dQ, dK, dV from Q, K, V,
   dO, ``lse`` and ``di = sum(o * do, -1)`` (one PyTorch reduction before the
   launch, as ``jnp.sum`` is in the Pallas VJP), in two deterministic kernels
@@ -24,8 +28,8 @@ for ``sm_90a``:
   D 128, causal) the forward's two products are 1.37e11 FLOP and the
   backward's five 3.44e11 FLOP, against 268 MB and 403 MB moved: far above
   the card's ridge in bf16. bf16 runs every product on the tensor cores
-  (``mma.sync`` m16n8k16; P, and dS in the backward, rounded to bf16); f32
-  runs them as f32 FMAs, never TF32.
+  (forward ``wgmma``, backward ``mma.sync`` m16n8k16; P, and dS in the
+  backward, rounded to bf16); f32 runs them as f32 FMAs, never TF32.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` that joins them,
 and :func:`flash_attention` goes through it on every device: on the CPU both
@@ -35,8 +39,11 @@ raise. The kernels read the (B, T, H, D) layout in place (row strides passed
 in, so a slice of a longer KV cache needs no copy) and grouped-query K/V in
 their compact (B, T, H_kv, D) form. They cover every shape the flash gate
 admits (``local_attention.flash_shapes_ok``: D a multiple of 32 up to 256,
-T a multiple of 512; the kernels need T a multiple of 64); other shapes
-raise. ``LAUNCHES`` counts one per wrapper call that launches a kernel.
+T a multiple of 512; the kernels need T a multiple of 64, and rows
+16-byte aligned, which TMA needs too); other shapes raise.
+``LAUNCHES["flash_attention"]`` counts every forward launch,
+``["flash_attention_wgmma"]`` those of the bf16 Hopper kernel among them,
+``["flash_attention_bwd"]`` every backward launch.
 """
 
 from __future__ import annotations
@@ -54,18 +61,23 @@ from akka_allreduce_tpu_torch.ops.ring_attention import (
     repeat_kv,
 )
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_bwd": 0}
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_int64
 _PTR = ctypes.c_void_p
-# dtype, q, k, v, o, lse, B, T, H, H_kv, D,
+# both forward entries: q, k, v, o, lse, B, T, H, H_kv, D,
 # q/k/v/o batch strides, q/k/v/o row strides, scale, causal, device, stream
 _FWD_ARGTYPES = [
-    ctypes.c_int, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64,
+    _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64,
     *[_I64] * 8, ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR,
 ]
+# the forward's entry in each source
+_FWD_ENTRIES = {
+    "flash_attention_wgmma": "akka_flash_attention_fwd_wgmma",
+    "flash_attention": "akka_flash_attention_fwd",
+}
 # dtype, q, k, v, do, lse, di, dq, dk, dv, B, T, H, H_kv, D,
 # q/k/v/do batch strides, q/k/v/do row strides, scale, causal, device, stream
 _BWD_ARGTYPES = [
@@ -180,14 +192,30 @@ def flash_attention_bwd_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def forward_kernel(dtype: torch.dtype) -> str:
+    """The source (``csrc/<name>.cu``) whose kernel runs K4's forward for
+    this dtype: a fixed dispatch, not a fallback, the same at every D the
+    gate admits (32 to 256, step 32). bf16 takes the Hopper kernel
+    (``flash_attention_wgmma``: key tiles of 128 up to D 128, of 64 above);
+    f32 takes ``flash_attention``, since ``wgmma`` has f32 only as TF32."""
+    return "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention"
+
+
 def _strides(t: torch.Tensor, what: str) -> tuple[int, int]:
-    """(batch, row) strides in elements; heads and D must be dense."""
-    d = t.shape[3]
+    """(batch, row) strides in elements, as the kernels and their TMA maps
+    take them: heads and D dense; row and batch strides multiples of 8
+    elements and the base 16-byte aligned (TMA's rule: every row 16-byte
+    aligned). A batch of one passes its rows' span as its stride, since
+    PyTorch may give a size-1 dim any stride and TMA wants a multiple of
+    16 bytes."""
+    b, t_len, _, d = t.shape
     if t.stride(3) != 1 or t.stride(2) != d:
         raise ValueError(f"{what}: heads and D must be contiguous, strides {t.stride()}")
-    if t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
+    row = t.stride(1)
+    batch = t.stride(0) if b > 1 else t_len * row
+    if row % 8 or batch % 8 or t.data_ptr() % 16:
         raise ValueError(f"{what}: rows must be 16-byte aligned, strides {t.stride()}")
-    return t.stride(0), t.stride(1)
+    return batch, row
 
 
 def _check_kernel_shape(q: torch.Tensor, *others: torch.Tensor) -> None:
@@ -214,7 +242,8 @@ def _entry(lib_name: str, fn_name: str, argtypes: list):
 
 
 def _forward(q, k, v, causal: bool, scale: float):
-    """K4's forward on the card: ``(out, lse)``."""
+    """K4's forward on the card: ``(out, lse)``, from the kernel
+    :func:`forward_kernel` names."""
     _check_kernel_shape(q, k, v)
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -222,16 +251,18 @@ def _forward(q, k, v, causal: bool, scale: float):
     (qb, qt), (kb, kt), (vb, vt), (ob, ot) = (
         _strides(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
     )
-    lib, fn = _entry("flash_attention", "akka_flash_attention_fwd", _FWD_ARGTYPES)
-    rc = fn(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, t, h, k.shape[2], d,
-        qb, kb, vb, ob, qt, kt, vt, ot,
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, t, h, k.shape[2], d, qb, kb, vb, ob, qt, kt, vt, ot,
         float(scale), int(bool(causal)), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(lib, rc, "flash attention kernel launch")
+    name = forward_kernel(q.dtype)
+    lib, fn = _entry(name, _FWD_ENTRIES[name], _FWD_ARGTYPES)
+    _build.check(lib, fn(*args), "flash attention kernel launch")
     LAUNCHES["flash_attention"] += 1
+    if name == "flash_attention_wgmma":
+        LAUNCHES["flash_attention_wgmma"] += 1
     return out, lse
 
 
@@ -330,8 +361,10 @@ def flash_attention(
 
     On a CUDA tensor it launches K4 (and K4's backward when differentiated)
     or raises: dtypes other than f32 and bf16, D not a multiple of 32 or
-    above 256, and T not a multiple of 64 are not covered. On a CPU tensor
-    it runs the plain versions.
+    above 256, T not a multiple of 64 and rows not 16-byte aligned are not
+    covered. bf16 runs the Hopper kernel (``wgmma``, TMA, warp
+    specialisation) at every covered D, f32 the f32-FMA kernel
+    (:func:`forward_kernel`). On a CPU tensor it runs the plain versions.
     """
     _check(q, k, v)
     return FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale))

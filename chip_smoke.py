@@ -10,8 +10,9 @@ Phases, each printed as it ends:
 
 1. card: name, power limit and count (``nvidia-smi``);
 2. build: ``nvcc`` compiles every kernel source of the paths
-   (``local_reduce``, ``ring``, ``flash_attention`` and
-   ``flash_attention_bwd``), all in parallel;
+   (``local_reduce``, ``ring``, ``flash_attention`` (f32),
+   ``flash_attention_wgmma`` (bf16) and ``flash_attention_bwd``), all in
+   parallel, and ptxas's register and spill lines go to stderr;
 3. kernel vs plain: K1 ``masked_average`` and K2 ``elastic_average_step``
    against their plain versions on the card, at the main path's shapes
    (K = 16 workers x 64M floats with a 12-of-16 threshold mask, and the
@@ -24,9 +25,12 @@ Phases, each printed as it ends:
    (BASELINE config 4's ResNet-50 buffer; 48 buckets) under a 6-of-8 mask,
    with every rank's row checked against rank 0's; then K4, the
    flash-attention forward, against its plain version: the flagship shape
-   (B 8, T 2048, H 16, D 128) in bf16, causal; the same in f32 at B 2;
-   non-causal; D in {32, 64, 96, 128, 256}; T in {1024, 1536, 4096};
-   grouped-query K/V (4 and 1 KV heads); then K4's backward (dq, dk, dv)
+   (B 8, T 2048, H 16, D 128) in bf16, causal, through the Hopper kernel
+   (``flash_attention_wgmma``: its launch counter moves, a repeat is bit
+   identical); the same in f32 at B 2; non-causal; D in {32, 64, 96, 128,
+   256}; T in {1024, 1536, 4096}; grouped-query K/V (4 and 1 KV heads); in
+   bf16 also T 576 and 1088 (ragged 128-row blocks) with 4 and 1 KV heads,
+   and the lse within 1e-4; then K4's backward (dq, dk, dv)
    and the forward's lse against the plain versions: the flagship in bf16,
    f32 at B 2, non-causal, D in {32, 64, 128, 256}, T in {1024, 4096}, H 16
    over 4 and 1 KV heads, every shape launched twice and held to bit
@@ -45,7 +49,8 @@ Phases, each printed as it ends:
    shape) against a float64 sum; (d) the Transformer LM's serving path at
    the flagship width (vocab 256, d_model 2048, 16 heads, 8 layers, seeded
    random weights): the bf16 forward on B 8 x T 2048 copy-task tokens
-   (K4 once a layer, finite logits); the f32 forward against
+   (K4 once a layer through the Hopper kernel, finite logits); the f32
+   forward against
    ``LMGenerator.decode_logits(chunk=256)``, whose nonzero offsets take the
    dense or blockwise path (no K4); ``LMGenerator.generate`` with the
    2048-token prompt and 32 greedy steps in f32 (K4 at prefill), its first
@@ -132,7 +137,7 @@ SOURCE = {
     "masked_average": "akka_allreduce_tpu_torch/ops/csrc/local_reduce.cu",
     "elastic_average_step": "akka_allreduce_tpu_torch/ops/csrc/local_reduce.cu",
     **{ring_name(m): "akka_allreduce_tpu_torch/ops/csrc/ring.cu" for m in RING_MODES},
-    "flash_attention_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_wgmma.cu",
     "flash_attention_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
     "flash_attention_bwd_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd.cu",
@@ -156,6 +161,12 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def zero(counts: dict) -> None:
+    """Set every launch counter of a kernel module to 0."""
+    for key in counts:
+        counts[key] = 0
+
+
 def phase(label: str, t0: float, **fields) -> None:
     print(json.dumps({"phase": label, "s": round(time.perf_counter() - t0, 3), **fields}),
           flush=True)
@@ -166,9 +177,12 @@ def flash_name(dtype) -> str:
     return "flash_attention_" + ("bf16" if str(dtype).endswith("bfloat16") else "f32")
 
 
-def check_flash(dev, gen) -> tuple[dict, float]:
+def check_flash(dev, gen) -> tuple[dict, float, float]:
     """K4 against its plain version at every listed shape; returns the error
-    at each dtype's flagship shape and the largest error elsewhere."""
+    at each dtype's flagship shape, the largest error elsewhere and the
+    largest bf16 lse error. The bf16 flagship must go through the Hopper
+    kernel and repeat bit for bit; every bf16 shape's lse must be within
+    1e-4 of the plain version's."""
     import torch
 
     from akka_allreduce_tpu_torch.ops import flash_attention as fa
@@ -182,28 +196,43 @@ def check_flash(dev, gen) -> tuple[dict, float]:
         shapes += [(dt, (2, 1024, 4, 4, hd, True)) for hd in (32, 64, 96, 128, 256)]
         shapes += [(dt, (1, tt, 4, 4, 128, True)) for tt in (1024, 1536, 4096)]
         shapes += [(dt, (2, t, h, 4, d, True)), (dt, (1, 1024, 8, 1, 64, True))]
-    err, other = {}, 0.0
+    # T a multiple of 64 but not of 128: the Hopper kernel's ragged blocks
+    shapes += [(bf16, (1, tt, 8, hkv, hd, causal)) for tt in (576, 1088)
+               for hkv, hd in ((4, 128), (1, 64), (1, 256)) for causal in (True, False)]
+    err, other, lse_err = {}, 0.0, 0.0
     for dt, (bb, tt, hh, hkv, hd, causal) in shapes:
         q = torch.randn((bb, tt, hh, hd), generator=gen, device=dev).to(dt)
         k = torch.randn((bb, tt, hkv, hd), generator=gen, device=dev).to(dt)
         v = torch.randn((bb, tt, hkv, hd), generator=gen, device=dev).to(dt)
+        before = fa.LAUNCHES["flash_attention_wgmma"]
         got = fa.flash_attention(q, k, v, causal=causal)
-        want = fa.flash_attention_reference(q, k, v, causal=causal)
+        want, want_lse = fa.flash_attention_reference(q, k, v, causal=causal,
+                                                      return_lse=True)
         tol = FLASH_TOL[str(dt).split(".")[-1]]
         what = f"flash {dt} B{bb} T{tt} H{hh}/{hkv} D{hd} causal={causal}"
+        require(fa.LAUNCHES["flash_attention_wgmma"] == before + (dt == bf16),
+                f"{what}: the kernel forward_kernel names was launched")
         require(got.shape == want.shape and got.dtype == dt, f"{what}: shape/dtype")
         require(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
         e = float((got.float() - want.float()).abs().max())
         require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
                 f"{what}: max abs err {e}")
+        if dt == bf16:
+            _, lse = fa._forward(q, k, v, causal, hd ** -0.5)
+            e_lse = float((lse - want_lse).abs().max())
+            require(e_lse <= 1e-4, f"{what}: lse max abs err {e_lse}")
+            lse_err = max(lse_err, e_lse)
         if (bb, tt, hh, hkv, hd, causal) == flagship[dt]:
             err[flash_name(dt)] = e
+            again = fa.flash_attention(q, k, v, causal=causal)
+            require(torch.equal(got, again), f"{what}: a repeat differs")
+            del again
         else:
             other = max(other, e)
-        del q, k, v, got, want
+        del q, k, v, got, want, want_lse
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return err, other
+    return err, other, lse_err
 
 
 def check_flash_bwd(dev, gen) -> dict:
@@ -302,24 +331,26 @@ def lm_main_path(dev) -> dict:
 
     # (a) the flagship forward in bf16: K4 once a layer
     model = TransformerLM(**LM, compute_dtype=torch.bfloat16, seed=SEED, device=dev)
-    count["flash_attention"] = 0
+    zero(count)
     with torch.no_grad():
         logits16 = model(tokens)
     torch.cuda.synchronize()
-    launches_a = count["flash_attention"]
-    require(launches_a == n_layers, f"bf16 forward: K4 launched {launches_a} times")
+    launches_a = count["flash_attention_wgmma"]
+    require(launches_a == count["flash_attention"] == n_layers,
+            f"bf16 forward: K4 launches {count}")
     require(logits16.shape == (LM_BATCH, LM_SEQ, LM["vocab"])
             and logits16.dtype == torch.float32, "bf16 logits shape")
     require(bool(torch.isfinite(logits16).all()), "bf16 logits finite")
 
     # (b) f32: the forward (K4) against the decode path in 256-token chunks
     model32 = TransformerLM(**LM, compute_dtype=torch.float32, seed=SEED, device=dev)
-    count["flash_attention"] = 0
+    zero(count)
     with torch.no_grad():
         logits32 = model32(tokens)
     torch.cuda.synchronize()
     launches_b = count["flash_attention"]
-    require(launches_b == n_layers, f"f32 forward: K4 launched {launches_b} times")
+    require(launches_b == n_layers and count["flash_attention_wgmma"] == 0,
+            f"f32 forward: K4 launches {count}")
     gen = LMGenerator(model32, max_len=LM_SEQ + LM_GEN)
     oracle = gen.decode_logits(tokens, chunk=256)
     torch.cuda.synchronize()
@@ -332,11 +363,12 @@ def lm_main_path(dev) -> dict:
     del oracle, logits16
 
     # (c) generation in f32: K4 at prefill; greedy tokens vs a naive re-forward
-    count["flash_attention"] = 0
+    zero(count)
     out = gen.generate(tokens, LM_GEN)
     torch.cuda.synchronize()
     launches_c = count["flash_attention"]
-    require(launches_c == n_layers, f"generate: prefill launched K4 {launches_c} times")
+    require(launches_c == n_layers and count["flash_attention_wgmma"] == 0,
+            f"generate: prefill K4 launches {count}")
     require(out.shape == (LM_BATCH, LM_GEN), "generated tokens shape")
     seq = tokens
     with torch.no_grad():
@@ -351,7 +383,7 @@ def lm_main_path(dev) -> dict:
     torch.cuda.empty_cache()
 
     # (d) the lm-generate command at the flagship width in bf16
-    count["flash_attention"] = 0
+    zero(count)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli_main([
@@ -361,12 +393,13 @@ def lm_main_path(dev) -> dict:
             "--gen", str(LM_GEN), "--bf16",
         ])
     torch.cuda.synchronize()
-    launches_d = count["flash_attention"]
+    launches_d = count["flash_attention_wgmma"]
     lines = buf.getvalue().strip().splitlines()
     print("\n".join(ln for ln in lines if not ln.startswith(("prompt", "decoded"))),
           flush=True)
     record = json.loads(lines[-1])
-    require(rc == 0 and launches_d > 0, f"lm-generate: rc {rc}, K4 launches {launches_d}")
+    require(rc == 0 and launches_d > 0 and launches_d == count["flash_attention"],
+            f"lm-generate: rc {rc}, K4 launches {count}")
     require(record["prefill_ms"] > 0 and record["ms_per_token"] > 0,
             f"lm-generate record {record}")
     torch.cuda.empty_cache()
@@ -413,7 +446,7 @@ def lm_train_path(dev) -> dict:
                                  learning_rate=1e-3, seed=SEED, device=dev)
     batches = list(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED).batches(
         LM_BATCH, TRAIN_STEPS + 1))
-    count["flash_attention"] = count["flash_attention_bwd"] = 0
+    zero(count)
     losses = []
     for x, y in batches[:TRAIN_STEPS]:
         m = trainer.train_step(x, y)
@@ -422,6 +455,7 @@ def lm_train_path(dev) -> dict:
     torch.cuda.synchronize()
     launches_a = dict(count)
     require(launches_a == {"flash_attention": n_layers * TRAIN_STEPS,
+                           "flash_attention_wgmma": n_layers * TRAIN_STEPS,
                            "flash_attention_bwd": n_layers * TRAIN_STEPS},
             f"flagship steps: launches {launches_a}")
     dropped = trainer.train_step(*batches[TRAIN_STEPS], valid=[0.0])
@@ -441,11 +475,12 @@ def lm_train_path(dev) -> dict:
         F.cross_entropy(model(x).reshape(-1, LM["vocab"]), y.reshape(-1)).backward()
         return {n: p.grad.clone() for n, p in model.named_parameters()}
 
-    count["flash_attention"] = count["flash_attention_bwd"] = 0
+    zero(count)
     got = grads()
     torch.cuda.synchronize()
     launches_b = dict(count)
-    require(launches_b == {"flash_attention": 2, "flash_attention_bwd": 2},
+    require(launches_b == {"flash_attention": 2, "flash_attention_wgmma": 0,
+                           "flash_attention_bwd": 2},
             f"f32 gradient: launches {launches_b}")
     with mock.patch.object(la, "flash_attention", lambda q, k, v, causal, sm_scale:
                            fa.flash_attention_reference(q, k, v, causal=causal,
@@ -462,7 +497,7 @@ def lm_train_path(dev) -> dict:
     torch.cuda.empty_cache()
 
     # (c) lm-generate --train-steps at a small gated width (f32)
-    count["flash_attention"] = count["flash_attention_bwd"] = 0
+    zero(count)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli_main([
@@ -482,12 +517,13 @@ def lm_train_path(dev) -> dict:
     require(rc == 0 and last < first, f"lm-generate --train-steps: rc {rc}, {trained}")
     want_c = TRAIN_LM["n_layers"] * TRAIN_LM_STEPS
     require(launches_c["flash_attention"] >= want_c
-            and launches_c["flash_attention_bwd"] == want_c,
+            and launches_c["flash_attention_bwd"] == want_c
+            and launches_c["flash_attention_wgmma"] == 0,
             f"lm-generate --train-steps: launches {launches_c}")
     torch.cuda.empty_cache()
     return {
         "launches": {
-            "flash_attention_bf16": launches_a["flash_attention"],
+            "flash_attention_bf16": launches_a["flash_attention_wgmma"],
             "flash_attention_f32": launches_b["flash_attention"] + launches_c["flash_attention"],
             "flash_attention_bwd_bf16": launches_a["flash_attention_bwd"],
             "flash_attention_bwd_f32": (launches_b["flash_attention_bwd"]
@@ -623,7 +659,8 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    paths = _build.build("local_reduce", "ring", "flash_attention", "flash_attention_bwd")
+    paths = _build.build("local_reduce", "ring", "flash_attention", "flash_attention_wgmma",
+                         "flash_attention_bwd")
     for path in paths.values():
         ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -766,13 +803,13 @@ def main() -> int:
 
     # -- 3c. K4 vs plain ---------------------------------------------------------
     t0 = time.perf_counter()
-    flash_err, flash_other = check_flash(dev, gen)
+    flash_err, flash_other, flash_lse = check_flash(dev, gen)
     err.update(flash_err)
     phase("flash_vs_plain", t0, max_abs_err=flash_err,
-          other_shapes_max_abs_err=flash_other,
+          other_shapes_max_abs_err=flash_other, bf16_lse_max_abs_err=flash_lse,
           tolerance={"f32": {"rtol": FLASH_TOL["float32"], "atol": FLASH_TOL["float32"]},
                      "bf16": {"rtol": FLASH_TOL["bfloat16"],
-                              "atol": FLASH_TOL["bfloat16"]}})
+                              "atol": FLASH_TOL["bfloat16"]}, "lse_abs": 1e-4})
 
     # -- 3d. K4's backward vs plain ------------------------------------------------
     t0 = time.perf_counter()
@@ -984,6 +1021,11 @@ def main() -> int:
             "ops": 4 * bb * heads * LM_SEQ * LM_SEQ * hd / 2,
             "ops_per_s": BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S,
         }
+        tk = timing[flash_name(dt)]
+        print(f"K4 forward {flash_name(dt)} (B {bb}, T {LM_SEQ}, H {heads}, D {hd}, "
+              f"causal; {fa.forward_kernel(dt)}): {tk['ms']:.4f} ms, "
+              f"{tk['ops'] / tk['ms'] / 1e9:.1f} TFLOP/s; SDPA {tk['library_ms']:.4f} ms, "
+              f"{tk['ops'] / tk['library_ms'] / 1e9:.1f} TFLOP/s", flush=True)
         del q, k, v, qt, kt, vt
     # K4's backward at the same shapes: the wrapper (di, then both kernels)
     # beside the plain version and SDPA's backward (forward + backward minus
@@ -1069,7 +1111,7 @@ def main() -> int:
         })
         library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         print(f"{name}: {t['ms']:.4f} ms, {t['bytes'] / t['ms'] / 1e6:.1f} GB/s, "
-              f"{t['ops'] / t['ms'] / 1e9:.1f} GFLOP/s "
+              f"{t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s "
               f"({max(bytes_ms, ops_ms) / t['ms'] * 100:.1f}% of the bound "
               f"{max(bytes_ms, ops_ms):.4f} ms, by {bound_by}); plain "
               f"{t['plain_ms']:.4f} ms; library {library}", flush=True)

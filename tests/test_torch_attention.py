@@ -15,7 +15,9 @@ and ``akka_allreduce_tpu_torch.ops``:
   GQA K/V (H 4 over 2): f32 within 2e-5; and against torch autograd of the
   plain forward, with ``lse`` against ``torch.logsumexp``;
 - which path ``local_attention`` takes for each shape and offset;
-- the guards of the K4 wrapper that hold on every device.
+- the guards of the K4 wrapper that hold on every device, the forward's
+  fixed dispatch by dtype and the stride rules of the kernels' TMA maps;
+- the API at a negative or zero scale, against softmax written out densely.
 """
 
 from __future__ import annotations
@@ -202,6 +204,62 @@ def test_flash_wrapper_guards_on_every_device():
     before = dict(fa.LAUNCHES)
     fa.flash_attention(q, k, v, causal=True)  # the CPU takes the plain version
     assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d", range(32, 257, 32))
+def test_forward_kernel_dispatch_by_dtype(d):
+    """The fixed dispatch of K4's forward: bf16 to the Hopper kernel and f32
+    to the f32 one, each naming a source that exists; the kernels' shape
+    check passes D and raises on the D between and beyond."""
+    assert fa.forward_kernel(torch.bfloat16) == "flash_attention_wgmma"
+    assert fa.forward_kernel(torch.float32) == "flash_attention"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert (fa._build.CSRC / f"{fa.forward_kernel(dtype)}.cu").is_file()
+    with pytest.raises(ValueError, match="lie on one CUDA device"):  # D passed
+        fa._check_kernel_shape(torch.zeros((1, 64, 1, d)), torch.zeros(1))
+    for bad in (d - 16, d + 8, 0, 288):
+        with pytest.raises(ValueError, match="covers D"):
+            fa._check_kernel_shape(torch.zeros((1, 64, 1, max(bad, 0))))
+
+
+def test_kernel_strides_meet_the_tensor_map_rules():
+    """(batch, row) strides as the kernels' TMA maps take them: a dense
+    tensor, a KV-cache slice read in place, a batch of one with an odd
+    batch stride (passed as its rows' span); rows not 16-byte aligned and
+    heads or D not dense raise."""
+    x = torch.zeros((2, 128, 4, 64), dtype=torch.bfloat16)
+    assert fa._strides(x, "q") == (128 * 256, 256)
+    cache = torch.zeros((2, 320, 2, 64), dtype=torch.bfloat16)
+    assert fa._strides(cache[:, :256], "k") == (320 * 128, 128)
+    one = torch.zeros((1, 64, 2, 32)).as_strided((1, 64, 2, 32), (12, 64, 32, 1))
+    assert fa._strides(one, "q") == (64 * 64, 64)
+    flat = torch.zeros(2 * 128 * 260 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # row stride 260 elements
+        fa._strides(flat[: 2 * 128 * 260].view(2, 128, 260)[..., :256].unflatten(2, (4, 64)), "q")
+    with pytest.raises(ValueError, match="16-byte aligned"):  # base 8 bytes off
+        fa._strides(flat[4: 4 + 2 * 128 * 256].view(2, 128, 4, 64), "q")
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._strides(x.transpose(2, 3).contiguous().transpose(2, 3), "q")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("scale", [-0.25, 0.0])
+def test_flash_attention_takes_any_scale(scale, causal):
+    """A negative or zero scale is a softmax like any other: the output
+    equals softmax((q . k) * scale) v written out densely (within 1e-6),
+    lse its log-sum-exp, and ``flash_attention`` the plain version, at GQA
+    (H 4 over 2)."""
+    q, k, v = _torch(*_qkv(b=1, tq=128, tk=128, h=4, d=32, seed=37, h_kv=2))
+    out, lse = fa.flash_attention_reference(q, k, v, causal=causal, sm_scale=scale,
+                                            return_lse=True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(2, dim=2)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(128, 128, dtype=torch.bool).triu(1), float("-inf"))
+    want = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v.repeat_interleave(2, dim=2))
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(fa.flash_attention(q, k, v, causal=causal, sm_scale=scale),
+                               out, rtol=0, atol=0)
 
 
 # -- K4's backward ------------------------------------------------------------

@@ -12,9 +12,11 @@ plain versions (which run as separate mul and add kernels on the card); K3
 under int8 is held to rtol = atol = 1e-6, and equality is expected there too.
 K4 sums in another order than the plain version's dense products and, in
 bf16, rounds P to bf16 for the PV product: f32 is held to rtol = atol =
-1e-4, bf16 to rtol = atol = 2e-2. K4's backward (which also rounds P and dS
-to bf16 in bf16) is held to the same numbers relative to max|grad|, and two
-of its launches on the same inputs to bit equality.
+1e-4, bf16 to rtol = atol = 2e-2, the forward's lse to 1e-4 (absolute),
+and two launches of the bf16 forward on the same inputs to bit equality.
+K4's backward (which also rounds P and dS to bf16 in bf16) is held to the
+same numbers relative to max|grad|, and two of its launches on the same
+inputs to bit equality.
 """
 
 from __future__ import annotations
@@ -289,17 +291,61 @@ def test_flash_kernel_matches_plain(card, b, t, h, h_kv, d, dtype, causal):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_reads_a_cache_slice_in_place(card, dtype):
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+def test_flash_kernel_reads_a_cache_slice_in_place(card, dtype, d):
     """K/V as the live slots of a longer cache (batch stride > T * H * D)."""
-    q, k, v = _qkv(2, 256, 4, 2, 64, dtype, card, seed=5)
-    ck = torch.zeros((2, 320, 2, 64), dtype=dtype, device=card)
+    q, k, v = _qkv(2, 256, 4, 2, d, dtype, card, seed=5)
+    ck = torch.zeros((2, 320, 2, d), dtype=dtype, device=card)
     cv = torch.zeros_like(ck)
     ck[:, :256], cv[:, :256] = k, v
     out = fa.flash_attention(q, ck[:, :256], cv[:, :256], causal=True)
     ref = fa.flash_attention_reference(q, k, v, causal=True)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,h_kv", [(2, 2), (8, 4), (4, 1)])
+@pytest.mark.parametrize("t", [576, 1088])
+@pytest.mark.parametrize("d", range(32, 257, 32))
+def test_wgmma_forward_matches_plain(card, d, t, h, h_kv, causal):
+    """The bf16 Hopper forward at every D it covers, at T a multiple of 64
+    but not of 128 (a ragged last query and key block), with compact GQA
+    K/V: the output within 2e-2 and lse within 1e-4 of the plain version,
+    one launch of that kernel, and a repeat bit-identical."""
+    q, k, v = _qkv(1, t, h, h_kv, d, torch.bfloat16, card, seed=d + t + h_kv)
+    assert fa.forward_kernel(q.dtype) == "flash_attention_wgmma"
+    before = dict(fa.LAUNCHES)
+    out, lse = fa._forward(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 1
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, t, h, d)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    again, again_lse = fa._forward(q, k, v, causal, d ** -0.5)
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(lse, again_lse)
+
+
+@pytest.mark.parametrize("d", range(32, 257, 32))
+def test_forward_dispatch_sends_each_dtype_where_the_source_says(card, d):
+    """bf16 launches the Hopper kernel and f32 the f32 kernel, at every D,
+    and both take any scale: a negative and a zero one match the plain
+    version as the default does."""
+    for dtype, wgmma in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q, k, v = _qkv(1, 128, 2, 2, d, dtype, card, seed=d)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        for scale in (None, -d ** -0.5, 0.0):
+            before = dict(fa.LAUNCHES)
+            out = fa.flash_attention(q, k, v, causal=True, sm_scale=scale)
+            assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+            assert (fa.LAUNCHES["flash_attention_wgmma"]
+                    == before["flash_attention_wgmma"] + wgmma)
+            ref = fa.flash_attention_reference(q, k, v, causal=True, sm_scale=scale)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
 def test_flash_kernel_runs_on_the_callers_stream(card):
