@@ -30,7 +30,8 @@ Schedules (``build_threshold_allreduce`` / ``threshold_allreduce``):
   forwards the quantized pair unchanged, so ranks agree bit for bit.
 - ``"pallas_ring"`` — the same schedule through K3, the ring kernel
   (``ops.ring``), in buckets; on the card it runs the hand-written CUDA
-  kernel, on the CPU its plain version.
+  kernel (one launch, a whole-payload mask applied inside it), on the CPU
+  its plain version.
 
 The backward-sync and training family of the JAX module (``localize_tree``,
 ``grouped_tree_psum``, ``backward_*_sync``, ``overlap_value_and_grad``,
@@ -512,26 +513,33 @@ def build_threshold_allreduce(
             v = v[:, None].expand(n_devices, _num_buckets(data_size, bucket_size))
         if bucket_size is None and v.ndim != 1:
             raise ValueError("per-bucket valid mask requires bucket_size")
-        masked = _apply_mask(xs, v, bucket_size)
-        if schedule in ("ring", "pallas_ring"):
-            if schedule == "pallas_ring":
-                # max_chunk_size doubles as the kernel's staging size: one
-                # ring step moves bucket_size / n elements per neighbour
-                seg_rows = (
-                    max(1, bucket_size // (n_devices * LANE))
-                    if bucket_size is not None
-                    else _DEF_SEG_ROWS
-                )
-                total = ring_kernel_allreduce_sum(
-                    masked, seg_rows=seg_rows, compress=compress
-                )[0]
+        if schedule == "pallas_ring":
+            # max_chunk_size doubles as the kernel's staging size: one ring
+            # step moves bucket_size / n elements per neighbour
+            seg_rows = (
+                max(1, bucket_size // (n_devices * LANE))
+                if bucket_size is not None
+                else _DEF_SEG_ROWS
+            )
+            if v.ndim == 1:
+                # K3 masks each row as it first reads it: no masked copy
+                stack, mask = xs.contiguous(), v.contiguous()
             else:
-                total = ring_allreduce_sum(masked, compress=compress)[0]
+                stack, mask = _apply_mask(xs, v, bucket_size), None
+            total = ring_kernel_allreduce_sum(
+                stack, seg_rows=seg_rows, compress=compress, valid=mask
+            )[0]
+            count = _rank0(_psum_grid(_grid(v, mesh), mesh, axis_names), mesh)
+        elif schedule == "ring":
+            total = ring_allreduce_sum(_apply_mask(xs, v, bucket_size),
+                                       compress=compress)[0]
             count = _rank0(_psum_grid(_grid(v, mesh), mesh, axis_names), mesh)
         elif schedule == "butterfly":
+            masked = _apply_mask(xs, v, bucket_size)
             t, c = _staged_grid(mesh, masked, v, axis_names, wire)
             total, count = _rank0(t, mesh), _rank0(c, mesh)
         else:
+            masked = _apply_mask(xs, v, bucket_size)
             g = _psum_grid(_grid(masked, mesh), mesh, axis_names, wire)
             total = _rank0(g, mesh)
             count = _rank0(_psum_grid(_grid(v, mesh), mesh, axis_names), mesh)

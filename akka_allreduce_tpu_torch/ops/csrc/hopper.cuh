@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks for the flash-attention kernels, in
-// inline PTX: TMA tensor maps (built on the host) and tile loads, mbarrier
-// pipelines with bounded waits, wgmma shared-memory descriptors and
-// products, and setmaxnreg. The forward (flash_attention_wgmma.cu) uses
-// them; the backward can take them in its own redesign.
+// Hopper (sm_90a) building blocks, in inline PTX: TMA tensor maps (built on
+// the host) and tile loads, mbarrier pipelines with bounded waits, wgmma
+// shared-memory descriptors and products, and setmaxnreg, for the
+// flash-attention forward (flash_attention_wgmma.cu); and thread-block
+// cluster helpers (cluster rank and id, mapa, barrier.cluster, remote
+// mbarrier arrivals, st.async into a neighbour's shared memory) for the
+// ring allreduce (ring.cu).
 //
 // Shared-memory tiles follow the TMA swizzle: a tile of R rows x D bf16 is
 // stored as D / 64 column blocks of R rows x 128 bytes (128-byte swizzle)
@@ -161,6 +163,86 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// -- device: thread-block clusters and distributed shared memory ------------
+
+// this CTA's rank inside its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster's index in the grid, and the grid's cluster count (1-D grids)
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of the same shared variable in CTA `cta` of
+// this cluster (`addr` is a shared::cta address, as smem_addr gives)
+__device__ __forceinline__ uint32_t map_cta(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(cta));
+  return r;
+}
+
+// every thread of every CTA of the cluster: release, then acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one arrival on an mbarrier of another CTA of the cluster (a map_cta
+// address), releasing this thread's earlier accesses at cluster scope
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t cluster_addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(cluster_addr) : "memory");
+}
+
+// try_wait with acquire at cluster scope: the phase was completed by another
+// CTA's arrivals or st.async bytes
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t bar,
+                                                      uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// stores into another CTA's shared memory (map_cta addresses) whose bytes
+// complete the transaction count of that CTA's mbarrier `bar`
+__device__ __forceinline__ void st_async(uint32_t addr, uint4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+      "[%0], %1, [%2];\n"
+      :: "r"(addr), "r"(v), "r"(bar)
       : "memory");
 }
 

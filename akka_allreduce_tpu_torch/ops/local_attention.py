@@ -8,7 +8,10 @@ Counterpart of ``akka_allreduce_tpu/ops/local_attention.py``.
 - K4, the flash-attention kernel (:mod:`.flash_attention`), when the flash
   gate holds: zero offsets, Tq == Tk and :func:`flash_shapes_ok`;
 - :func:`blockwise_attention` otherwise: an online-softmax loop over K/V
-  blocks, O(T * block) live memory instead of O(T^2).
+  blocks, O(T * block) live memory instead of O(T^2). Each block's fold
+  is checkpointed, as the JAX ``lax.scan`` step is under ``jax.checkpoint``:
+  the backward recomputes the block's scores, so autograd keeps one
+  ``(o, l, m)`` carry per block, O((T / block) * T * D), not the scores.
 
 The JAX gate also refused interpret mode, because the Pallas kernel cannot
 run compiled off the TPU. Here the K4 wrapper makes that choice from the
@@ -23,9 +26,11 @@ helpers wait for the int8 cache and the sequence-sharded decode.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from akka_allreduce_tpu_torch.ops.flash_attention import flash_attention
 from akka_allreduce_tpu_torch.ops.ring_attention import (
@@ -53,7 +58,9 @@ def _blockwise_olm(
     """Blockwise online-softmax partials ``(o, l, m)`` over a local K/V
     slice: ``o`` (B, H, Tq, D), ``l`` and ``m`` (B, H, Tq), all f32. The
     un-normalized core of :func:`blockwise_attention`; a Python loop over
-    the K/V blocks takes the place of the JAX ``lax.scan``."""
+    the K/V blocks takes the place of the JAX ``lax.scan``, and each fold is
+    checkpointed when a gradient will be taken, as JAX's ``jax.checkpoint``
+    step is."""
     h = q.shape[2]
     if k.shape[2] != h:  # grouped-query K/V expand at compute
         k, v = repeat_kv(k, h), repeat_kv(v, h)
@@ -64,6 +71,9 @@ def _blockwise_olm(
     o = torch.zeros((b, h, tq, d), dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
     m = torch.full((b, h, tq), _MASK_VALUE, dtype=torch.float32, device=q.device)
+    fold = online_softmax_update
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        fold = functools.partial(checkpoint, online_softmax_update, use_reentrant=False)
     for start in range(0, tk, block_k):
         # the last block is short where JAX zero-pads it and masks the tail:
         # the padded keys contribute exactly zero either way
@@ -71,7 +81,7 @@ def _blockwise_olm(
         vv = v[:, start:start + block_k]
         k_pos = k_offset + start + torch.arange(kk.shape[1], device=q.device)
         mask = q_pos[:, None] >= k_pos[None, :] if causal else None
-        o, l, m = online_softmax_update((o, l, m), qf, kk, vv, scale, mask)
+        o, l, m = fold((o, l, m), qf, kk, vv, scale, mask)
     return o, l, m
 
 

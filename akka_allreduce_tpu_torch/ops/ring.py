@@ -10,29 +10,33 @@ schedule (``csrc/ring.cu``, hand-written CUDA C++ for ``sm_90a``):
   TPU kernel's reduce-scatter then all-gather, 2(n-1) steps, two receive
   slots per rank with back-pressure, optional bf16 or int8 hops (int8 with
   one f32 scale per segment; the owner requantizes its reduced segment at the
-  turn and every gather hop requantizes what it forwards).
-- **What bounds it**: HBM bytes (the stack read once, the result written
-  once: ``2 * n * padded * 4`` bytes). A bucket's working set stays in L2, so
-  the schedule's extra passes cost hand-shakes more than bytes.
-- **Design**: each rank is a group of CTAs, CTA c owning one column slice
-  of every segment; a hop is a push into the right neighbour's receive slot
-  followed by a release-store of a step-tagged "ready" flag, and consumed
-  slots are handed back with a "free" flag (the capacity semaphore). The
-  grid is launched cooperatively so every CTA is resident, and every spin is
-  bounded (a hung protocol traps instead of hanging). See ``csrc/ring.cu``.
+  turn and every gather hop requantizes what it forwards). An optional
+  per-rank ``valid`` mask multiplies each row as it is first read.
+- **What bounds it**: HBM bytes, the stack read once and the result written
+  once: ``2 * n * data * 4`` bytes.
+- **Design**: the TPU kernel's shape on a thread-block cluster. A cluster is
+  the n ranks of one column slice (one CTA a rank up to 16 ranks, several
+  above); a hop is ``st.async`` into the right neighbour's receive slot in
+  its shared memory, completing its "full" mbarrier, and the receiver hands
+  the slot back by a remote arrive on the sender's "empty" one. Partial sums
+  stay in registers and shared memory, so x is read once and the result
+  written once. Persistent clusters walk (bucket, column slice) items in one
+  launch; the ragged tail is read as zeros and never written, so nothing is
+  padded. An int8 segment wider than one item is shared by a team of
+  co-resident clusters that agree on its scale through a global word. Every
+  wait is bounded (a hung protocol traps instead of hanging).
 
-The padding to whole buckets and the one-launch-per-bucket split follow the
-TPU wrapper. ``interpret``, ``detect_races`` and ``collective_id`` have no
-counterpart and are dropped: there is no interpreter (the CPU takes the plain
-version), no race detector (the protocol's waits are bounded instead), and
-no other collective kernel shares flag words with this one.
+``interpret``, ``detect_races`` and ``collective_id`` have no counterpart and
+are dropped: there is no interpreter (the CPU takes the plain version), no
+race detector (the protocol's waits are bounded instead), and no other
+collective kernel shares its barriers.
 
 Beside the kernel is its plain PyTorch version,
-``ring_kernel_allreduce_sum_reference``: it emulates ``_ring_kernel`` step by
-step over the stack, vectorised over buckets and ranks, in the same
-arithmetic order. A CUDA tensor takes the kernel or raises; a CPU tensor
-takes the plain version. ``LAUNCHES["ring_allreduce"]`` counts kernel
-launches (one per bucket).
+``ring_kernel_allreduce_sum_reference``: it masks the stack, pads it to whole
+buckets and emulates ``_ring_kernel`` step by step, vectorised over buckets
+and ranks, in the same arithmetic order. A CUDA tensor takes the kernel or
+raises; a CPU tensor takes the plain version. ``LAUNCHES["ring_allreduce"]``
+counts kernel launches (one a call).
 """
 
 from __future__ import annotations
@@ -53,23 +57,23 @@ LAUNCHES = {"ring_allreduce": 0}
 
 _LIB = "ring"
 _MODE = {None: 0, "bf16": 1, "int8": 2}
-_WIRE = {None: torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 _ARGTYPES = {
-    # mode, n, seg, device, *ctas, *width
+    # mode, n, seg, buckets, device, *out (7 int64)
     "akka_ring_plan": [
-        ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
     ],
-    # mode, x, out, slots, scales, flags, amax, arrive, error,
-    # n, buckets, seg, stride, ctas, width, device, stream
+    # mode, x, out, valid, words, error, n, data, buckets, seg, vec, device,
+    # stream
     "akka_ring_allreduce": [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ],
 }
+PLAN_KEYS = ("ranks_per_cta", "cluster", "clusters", "width", "chunks", "team",
+             "smem_bytes")
 
 
 def _kernel(fn: str):
@@ -142,6 +146,21 @@ def _check_ring(xs: torch.Tensor, seg_rows: int, compress: str | None) -> int:
     return xs.shape[0]
 
 
+def _check_valid(valid: torch.Tensor | None, xs: torch.Tensor) -> None:
+    """``valid`` is None or an ``(n,)`` float32 mask on xs's device."""
+    if valid is None:
+        return
+    if not isinstance(valid, torch.Tensor):
+        raise TypeError("valid must be a torch tensor or None")
+    if valid.shape != (xs.shape[0],) or valid.dtype != torch.float32:
+        raise ValueError(
+            f"valid must be ({xs.shape[0]},) float32, got {tuple(valid.shape)} "
+            f"{valid.dtype}"
+        )
+    if valid.device != xs.device:
+        raise ValueError(f"valid is on {valid.device}, xs on {xs.device}")
+
+
 def _buckets(n: int, data: int, seg_rows: int) -> tuple[int, int]:
     """``(bucket floats, bucket count)``: whole buckets of ``n`` segments."""
     bucket = n * seg_rows * LANE
@@ -149,12 +168,20 @@ def _buckets(n: int, data: int, seg_rows: int) -> tuple[int, int]:
 
 
 def ring_kernel_allreduce_sum_reference(
-    xs: torch.Tensor, *, seg_rows: int = _DEF_SEG_ROWS, compress: str | None = None
+    xs: torch.Tensor,
+    *,
+    seg_rows: int = _DEF_SEG_ROWS,
+    compress: str | None = None,
+    valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch K3: the TPU kernel's schedule, step by step, over the
-    ``(n, data)`` stack, all buckets and ranks at once. Returns the
-    ``(n, data)`` per-rank results (a new tensor)."""
+    """Plain PyTorch K3: ``xs * valid[:, None]`` (when a mask is given), then
+    the TPU kernel's schedule, step by step, over the stack zero-padded to
+    whole buckets, all buckets and ranks at once. Returns the ``(n, data)``
+    per-rank results (a new tensor)."""
     n = _check_ring(xs, seg_rows, compress)
+    _check_valid(valid, xs)
+    if valid is not None:
+        xs = xs * valid[:, None]
     if n == 1:
         return xs.clone()
     data = xs.shape[1]
@@ -183,65 +210,77 @@ def ring_kernel_allreduce_sum_reference(
     return out.reshape(n, -1)[:, :data]
 
 
+def ring_plan(
+    n: int, *, data: int, seg_rows: int = _DEF_SEG_ROWS,
+    compress: str | None = None, device: torch.device | int = 0,
+) -> dict:
+    """How the kernel would launch for an ``(n, data)`` stack on a CUDA
+    device: ranks per CTA, CTAs per cluster, clusters in the grid, columns
+    per work item, work items per bucket, the int8 team size (clusters that
+    agree on one segment's scale; 1 when a CTA holds the whole segment or
+    there is no int8) and dynamic shared memory bytes. Needs the card."""
+    if compress not in COMPRESS_MODES:
+        raise ValueError(f"unknown compress mode {compress!r}")
+    if n < 2:
+        raise ValueError(f"the kernel runs for n >= 2 ranks, got {n}")
+    dev = torch.device("cuda", device) if isinstance(device, int) else device
+    _, n_buckets = _buckets(n, data, seg_rows)
+    lib, plan = _kernel("akka_ring_plan")
+    out = (ctypes.c_int64 * len(PLAN_KEYS))()
+    _build.check(lib, plan(_MODE[compress], n, seg_rows * LANE, n_buckets,
+                           dev.index or 0, out), "ring kernel plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
 def ring_kernel_allreduce_sum(
-    xs: torch.Tensor, *, seg_rows: int = _DEF_SEG_ROWS, compress: str | None = None
+    xs: torch.Tensor,
+    *,
+    seg_rows: int = _DEF_SEG_ROWS,
+    compress: str | None = None,
+    valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Ring-allreduce ``sum`` over the ranks (rows) of ``xs``.
 
     Args:
       xs: ``(n, data)`` float32, one row per virtual rank; never written.
       seg_rows: segment height in 128-float rows; a bucket is
-        ``n * seg_rows * 128`` floats per rank, and data is zero-padded to
-        whole buckets, one kernel launch each.
+        ``n * seg_rows * 128`` floats per rank, the ragged last one read as
+        if zero-padded. The whole stack is one kernel launch.
       compress: None, ``"bf16"`` or ``"int8"``: the wire format of every hop.
+      valid: optional ``(n,)`` float32 per-rank mask; row r enters the sum
+        as ``xs[r] * valid[r]``.
     Returns:
       ``(n, data)``: row r is rank r's result, the sum over ranks (under
       int8 the rows agree to about 1 ulp, as on the TPU).
     """
     n = _check_ring(xs, seg_rows, compress)
-    if n == 1:
-        return xs.clone()
-    if not use_kernel(xs):
+    _check_valid(valid, xs)
+    if n == 1 or not use_kernel(xs):
         return ring_kernel_allreduce_sum_reference(
-            xs, seg_rows=seg_rows, compress=compress
+            xs, seg_rows=seg_rows, compress=compress, valid=valid
         )
     if xs.dtype != torch.float32:
         raise TypeError(f"the ring kernel takes float32 only, got {xs.dtype}")
     if not xs.is_contiguous():
         raise ValueError("xs must be contiguous")
     data = xs.shape[1]
-    bucket, n_buckets = _buckets(n, data, seg_rows)
-    padded = n_buckets * bucket
-    seg = seg_rows * LANE
+    _, n_buckets = _buckets(n, data, seg_rows)
     dev = xs.device
-    if padded != data:
-        src = out = F.pad(xs, (0, padded - data))  # a new tensor: run in place
-    else:
-        src, out = xs, torch.empty_like(xs)  # the kernel copies xs into out
-    mode = _MODE[compress]
-    lib, plan = _kernel("akka_ring_plan")
-    ctas, width = ctypes.c_int(), ctypes.c_int64()
-    _build.check(lib, plan(mode, n, seg, dev.index, ctypes.byref(ctas),
-                           ctypes.byref(width)), "ring kernel plan")
-    c = ctas.value
-    slots = torch.empty((n, 2, seg), dtype=_WIRE[compress], device=dev)
-    # ready and free flags, then one error word
-    flags = torch.zeros(2 * n * c * 2 + 1, dtype=torch.int32, device=dev)
-    scales = amax = arrive = 0  # null: only the int8 kernel reads them
-    if compress == "int8":
-        int8_scales = torch.empty(n * c * 2, dtype=torch.float32, device=dev)
-        phases = n_buckets * n * (2 * (n - 1) + 1)
-        stats = torch.zeros(2 * phases, dtype=torch.int32, device=dev)
-        scales = int8_scales.data_ptr()
-        amax, arrive = stats.data_ptr(), stats.data_ptr() + 4 * phases
-    _, launch = _kernel("akka_ring_allreduce")
+    out = torch.empty_like(xs)
+    # the int8 team's (max, count) words, then one error word
+    words = n_buckets * n * (2 * n - 1) * 4 if compress == "int8" else 0
+    sync_words = torch.zeros(words + 1, dtype=torch.int32, device=dev)
+    if valid is not None:
+        valid = valid.contiguous()
+    vec = data % 4 == 0 and xs.data_ptr() % 16 == 0
+    lib, launch = _kernel("akka_ring_allreduce")
     rc = launch(
-        mode, src.data_ptr(), out.data_ptr(), slots.data_ptr(),
-        scales, flags.data_ptr(), amax, arrive,
-        flags.data_ptr() + 4 * (flags.numel() - 1),
-        n, n_buckets, seg, padded, c, width.value, dev.index,
+        _MODE[compress], xs.data_ptr(), out.data_ptr(),
+        0 if valid is None else valid.data_ptr(),
+        sync_words.data_ptr(), sync_words.data_ptr() + 4 * words,
+        n, data, n_buckets, seg_rows * LANE, int(vec), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "ring allreduce kernel launch")
-    LAUNCHES["ring_allreduce"] += n_buckets
-    return out if padded == data else out[:, :data]
+    LAUNCHES["ring_allreduce"] += 1
+    return out

@@ -19,11 +19,17 @@ Phases, each printed as it ends:
    bench's packed K = 8 stacks), plus the zero mask (K2 leaves X
    bit-identical, K1 gives zeros and count 0), ragged widths (17, 1000,
    65537) and K above the register-resident bound (40); then K3, the ring
-   allreduce, against its plain version: n in {2, 3, 4, 8, 16} ranks,
-   ``seg_rows`` in {1, 4, 512}, every compress mode, ragged data, an int8
-   all-zero segment, and the full shape, n = 8 ranks x 25,000,000 floats
-   (BASELINE config 4's ResNet-50 buffer; 48 buckets) under a 6-of-8 mask,
-   with every rank's row checked against rank 0's; then K4, the
+   allreduce (one cluster launch a call), against its plain version, bit
+   for bit in every mode: n in {2, 3, 4, 8, 16, 24} ranks (24: two ranks a
+   CTA), ``seg_rows`` in {1, 4, 512}, ragged data, a per-rank mask applied
+   inside the kernel at n in {3, 8, 16, 24}, int8 segments wider than one
+   cluster's item (a team of clusters agreeing on each scale: n 8 at
+   ``seg_rows`` 2048), an int8 all-zero segment, and the full shape, n = 8
+   ranks x 25,000,000 floats (BASELINE config 4's ResNet-50 buffer; 48
+   buckets) under a 6-of-8 mask passed to the kernel, with every rank's
+   row checked against rank 0's; its ptxas report (registers, spills) and
+   launch plan (ranks per CTA, cluster, clusters, item width, int8 team,
+   shared memory) are printed; then K4, the
    flash-attention forward, against its plain version: the flagship shape
    (B 8, T 2048, H 16, D 128) in bf16, causal, through the Hopper kernel
    (``flash_attention_wgmma``: its launch counter moves, a repeat is bit
@@ -43,8 +49,9 @@ Phases, each printed as it ends:
    versions, then the bench (the ``local_threshold_reduce_bw`` metric) and
    ``bench_suite.run_suite`` for configs 2 and 4; (b) for each compress
    mode, ``threshold_allreduce(line_mesh(8), ..., schedule="pallas_ring")``
-   at 8 x 25M against the same round through the plain K3, and one
-   ``measure_allreduce`` record, printed on its own line; (c) the butterfly
+   at 8 x 25M (the mask rides into K3: one launch a round, checked) against
+   the same round through the plain K3, and one ``measure_allreduce``
+   record, printed on its own line; (c) the butterfly
    ``threshold_allreduce(grid_mesh(4, 4), ...)`` at 16 x 64M (config 2's
    shape) against a float64 sum; (d) the Transformer LM's serving path at
    the flagship width (vocab 256, d_model 2048, 16 heads, 8 layers, seeded
@@ -81,8 +88,8 @@ Phases, each printed as it ends:
 
 Kernel and plain version are compared with rtol = atol = 1e-6 (the JAX
 package's tolerance); the kernels avoid FMA contraction, so the error is
-expected to be exactly 0, and K1, K2 and K3 in f32 and bf16 are held to bit
-equality. K4 sums in another order than its plain version (dense products)
+expected to be exactly 0, and K1, K2 and K3 (f32, bf16 and int8) are held to
+bit equality. K4 sums in another order than its plain version (dense products)
 and in bf16 rounds P to bf16 for the PV product: f32 is held to
 rtol = atol = 1e-4, bf16 to rtol = atol = 2e-2. K4's backward (which in
 bf16 also rounds P and dS to bf16 before their products) is held to 1e-4
@@ -747,12 +754,12 @@ def main() -> int:
     t0 = time.perf_counter()
 
     def check_ring(got: torch.Tensor, want: torch.Tensor, mode, what: str) -> float:
-        """K3 against its plain version: f32 and bf16 bit for bit, int8 within
-        rtol = atol = 1e-6; every rank's row against rank 0's. Returns the
-        largest absolute difference."""
+        """K3 against its plain version, bit for bit in every mode; every
+        rank's row against rank 0's (int8 within rtol 2e-6, atol 1e-6: each
+        gather hop requantizes, as on the TPU). Returns the largest absolute
+        difference."""
         err_ = compare(got, want, what)
-        if mode != "int8":
-            require(torch.equal(got, want), f"{what}: not bit-identical")
+        require(torch.equal(got, want), f"{what}: not bit-identical")
         for d in range(1, got.shape[0]):
             if mode == "int8":
                 require(torch.allclose(got[d], got[0], rtol=2e-6, atol=1e-6),
@@ -762,17 +769,47 @@ def main() -> int:
                         f"{what}: rank {d} differs from rank 0")
         return err_
 
+    # per kernel (ring_kernel<0|1|2>: f32, bf16, int8): registers and spills
+    ring_ptxas = [ln.strip() for ln in paths["ring"].with_suffix(".log").read_text()
+                  .splitlines()
+                  if "registers" in ln or "spill" in ln or "entry function" in ln]
+    print("ring ptxas:\n" + "\n".join(ring_ptxas), flush=True)
     ring_small = 0.0
-    for n in (2, 3, 4, 8, 16):
+    for n in (2, 3, 4, 8, 16, 24):
         for seg_rows in (1, 4, 512):
             xs = torch.randn((n, 2 * n * seg_rows * 128 + 37), generator=gen,
                              device=dev)
+            keep = xs.clone()
             for mode in RING_MODES:
+                before = rk.LAUNCHES["ring_allreduce"]
                 got = rk.ring_kernel_allreduce_sum(xs, seg_rows=seg_rows, compress=mode)
+                require(rk.LAUNCHES["ring_allreduce"] == before + 1,
+                        "one ring launch a call")
                 want = rk.ring_kernel_allreduce_sum_reference(
                     xs, seg_rows=seg_rows, compress=mode)
                 ring_small = max(ring_small, check_ring(
                     got, want, mode, f"ring n={n} seg_rows={seg_rows} {mode}"))
+            require(torch.equal(xs, keep), f"ring n={n}: the stack is never written")
+            del xs, keep, got, want
+    for n in (3, 8, 16, 24):  # a per-rank mask applied inside the kernel
+        xs = torch.randn((n, 3 * n * 4 * 128 + 53), generator=gen, device=dev)
+        vm = (torch.arange(n, device=dev) % 3 != 1).float()
+        for mode in RING_MODES:
+            ring_small = max(ring_small, check_ring(
+                rk.ring_kernel_allreduce_sum(xs, seg_rows=4, compress=mode, valid=vm),
+                rk.ring_kernel_allreduce_sum_reference(xs, seg_rows=4, compress=mode,
+                                                       valid=vm),
+                mode, f"ring n={n} masked {mode}"))
+    # int8 segments wider than one cluster's item: a team of clusters agrees
+    wide_data = 2 * 8 * 2048 * 128 + 37
+    wide = rk.ring_plan(8, data=wide_data, seg_rows=2048, compress="int8")
+    require(wide["team"] > 1, f"int8 team across clusters: {wide}")
+    xs = torch.randn((8, wide_data), generator=gen, device=dev)
+    ring_small = max(ring_small, check_ring(
+        rk.ring_kernel_allreduce_sum(xs, seg_rows=2048, compress="int8"),
+        rk.ring_kernel_allreduce_sum_reference(xs, seg_rows=2048, compress="int8"),
+        "int8", "ring n=8 seg_rows=2048 int8 (team)"))
+    del xs
     xz = torch.randn((4, 4 * 4 * 128), generator=gen, device=dev)
     xz[:, :4 * 128] = 0.0  # an all-zero int8 segment on every rank
     zr = rk.ring_kernel_allreduce_sum(xz, seg_rows=4, compress="int8")
@@ -784,22 +821,23 @@ def main() -> int:
     xr = torch.randn((RING_RANKS, RING_FLOATS), generator=gen, device=dev)
     ring_valid = threshold_mask(RING_RANKS, mask_gen)
     require(int(ring_valid.sum()) == 6, "6-of-8 threshold mask")
-    vx = xr * ring_valid[:, None]  # masking happens before the kernel
     ring_ref = {}  # rank 0's plain-K3 result per mode, for the main path
+    ring_plans = {}
     for mode in RING_MODES:
-        got = rk.ring_kernel_allreduce_sum(vx, compress=mode)
-        want = rk.ring_kernel_allreduce_sum_reference(vx, compress=mode)
+        got = rk.ring_kernel_allreduce_sum(xr, compress=mode, valid=ring_valid)
+        want = rk.ring_kernel_allreduce_sum_reference(xr, compress=mode, valid=ring_valid)
         err[ring_name(mode)] = check_ring(
             got, want, mode, f"ring {RING_RANKS} x {RING_FLOATS} {mode}")
         ring_ref[mode] = want[0].clone()
+        ring_plans[ring_name(mode)] = rk.ring_plan(RING_RANKS, data=RING_FLOATS,
+                                                   compress=mode)
         del got, want
-    del vx
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     phase("ring_vs_plain", t0, small_max_abs_err=ring_small,
           max_abs_err={ring_name(m): err[ring_name(m)] for m in RING_MODES},
-          tolerance={"f32": "bit-exact", "bf16": "bit-exact",
-                     "int8": {"rtol": RTOL, "atol": ATOL}})
+          int8_team_plan=wide, plans=ring_plans, ptxas=ring_ptxas,
+          tolerance={"f32": "bit-exact", "bf16": "bit-exact", "int8": "bit-exact"})
 
     # -- 3c. K4 vs plain ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -869,6 +907,7 @@ def main() -> int:
     oracle = (xr.double() * ring_valid.double()[:, None]).sum(0)
     scale = float(oracle.abs().max())
     ring_launches, ring_records, ring_round_ms = {}, {}, {}
+    ring_calls = 1 + 2 + 10  # the round, then measure_allreduce's warmup and iters
     for mode in RING_MODES:
         rk.LAUNCHES["ring_allreduce"] = 0
         res = threshold_allreduce(line8, xr, ring_valid, schedule="pallas_ring",
@@ -878,7 +917,8 @@ def main() -> int:
                                 compress=mode, iters=10, warmup=2, logger=rounds)
         torch.cuda.synchronize()
         ring_launches[ring_name(mode)] = rk.LAUNCHES["ring_allreduce"]
-        require(rk.LAUNCHES["ring_allreduce"] > 0, f"ring kernel launched ({mode})")
+        require(rk.LAUNCHES["ring_allreduce"] == ring_calls,
+                f"one ring launch a round ({mode}): {rk.LAUNCHES['ring_allreduce']}")
         print(json.dumps(rec.to_dict()), flush=True)
         ring_records[mode] = rec.to_dict()
         ring_round_ms[ring_name(mode)] = [m.latency_s * 1e3 for m in rounds.records]
@@ -886,8 +926,7 @@ def main() -> int:
                 and rec.bus_gbps_median > 0, f"bandwidth record {rec}")
         # the same round through the plain versions: mask, plain K3, count
         compare(res.sum, ring_ref[mode], f"pallas_ring {mode} round")
-        if mode != "int8":
-            require(torch.equal(res.sum, ring_ref[mode]), f"{mode} round bit-exact")
+        require(torch.equal(res.sum, ring_ref[mode]), f"{mode} round bit-exact")
         require(bool((res.count == 6.0).all()), f"pallas_ring {mode} count")
         tol = {None: 1e-5, "bf16": 2e-2, "int8": 8e-2}[mode]
         rel = float((res.sum.double() - oracle).abs().max()) / scale
@@ -895,7 +934,7 @@ def main() -> int:
         del res
     del oracle, ring_ref
     torch.cuda.empty_cache()
-    phase("ring_main_path", t0, launches=ring_launches,
+    phase("ring_main_path", t0, launches=ring_launches, calls=ring_calls,
           bus_gbps_median={ring_name(m): r["bus_gbps_median"]
                            for m, r in ring_records.items()},
           round_ms=ring_round_ms,
@@ -980,7 +1019,7 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
-    # K3 at 8 x 25M, padded to whole buckets so the call is the kernel's alone
+    # K3 at 8 x 25M padded to whole buckets (the shape every earlier timing used)
     n = RING_RANKS
     padded = -(-RING_FLOATS // (n * 512 * 128)) * n * 512 * 128
     xp = torch.nn.functional.pad(xr, (0, padded - RING_FLOATS))
@@ -1130,7 +1169,7 @@ def main() -> int:
           "F.scaled_dot_product_attention(is_causal=True) on (B, H, T, D) views; "
           "flash_attention_bwd: the same call's forward + backward "
           "(torch.autograd.grad) minus its forward",
-          ring_shape=[n, padded], flash_shape={"bf16": [LM_BATCH, LM_SEQ, heads, hd],
+          ring_shape=[RING_RANKS, padded], flash_shape={"bf16": [LM_BATCH, LM_SEQ, heads, hd],
                                                "f32": [2, LM_SEQ, heads, hd]},
           forward_ms=forward_ms, flash_share_of_forward=flash_share,
           train_step_ms=step["step_ms"], train_step_ms_all=step["step_ms_all"],

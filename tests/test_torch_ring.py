@@ -10,6 +10,9 @@ The Pallas interpreter is slow, so the JAX side runs four calls, once per
 module, on ``line_mesh(4)`` with ``seg_rows`` 2 and one bucket each (no race
 detector): f32 on a ragged payload, bf16, int8, and the host-facing
 ``threshold_allreduce(schedule="pallas_ring")`` with a per-bucket mask.
+The plain version's ``valid`` mask and ragged tail are held to masking the
+stack first, bit for bit, and so is the ``pallas_ring`` round with a
+whole-payload mask, which passes the mask into K3.
 Tolerances: f32 rtol = atol = 1e-6; bf16 and int8 within 1e-6 relative to
 ``max|oracle|`` (the same order, round-to-nearest-even casts and true
 division are used, so equality is expected). Replication across ranks is
@@ -171,6 +174,56 @@ def test_plain_k3_int8_all_zero_and_single_rank():
     one = torch.from_numpy(_xs(300, seed=4, n=1))
     same = ring.ring_kernel_allreduce_sum(one, compress="int8")
     assert torch.equal(same, one) and same.data_ptr() != one.data_ptr()
+
+
+@pytest.mark.parametrize("compress", [None, "bf16", "int8"])
+@pytest.mark.parametrize("n,data", [(3, 3 * 2 * ring.LANE * 2 + 37), (5, 1000), (1, 300)])
+def test_plain_k3_valid_equals_masking_first(compress, n, data):
+    """The per-rank ``valid`` mask and the ragged tail: the plain version with
+    ``valid`` equals ``xs * valid[:, None]`` through the unmasked plain
+    version, bit for bit, and the wrapper on a CPU tensor takes that path."""
+    xs = torch.from_numpy(_xs(data, seed=30 + n, n=n))
+    valid = torch.tensor([float(r % 3 != 1) for r in range(n)])
+    keep = xs.clone()
+    got = ring.ring_kernel_allreduce_sum_reference(
+        xs, seg_rows=2, compress=compress, valid=valid
+    )
+    want = ring.ring_kernel_allreduce_sum_reference(
+        xs * valid[:, None], seg_rows=2, compress=compress
+    )
+    assert got.shape == (n, data) and torch.equal(got, want)
+    assert torch.equal(xs, keep)
+    before = dict(ring.LAUNCHES)
+    via = ring.ring_kernel_allreduce_sum(xs, seg_rows=2, compress=compress, valid=valid)
+    assert torch.equal(via, want) and ring.LAUNCHES == before
+
+
+def test_ring_rejects_a_bad_valid_mask():
+    xs = torch.zeros((4, 512))
+    with pytest.raises(ValueError, match="valid must be"):
+        ring.ring_kernel_allreduce_sum(xs, valid=torch.ones(3))
+    with pytest.raises(ValueError, match="valid must be"):
+        ring.ring_kernel_allreduce_sum(xs, valid=torch.ones(4, dtype=torch.float64))
+    with pytest.raises(TypeError, match="valid"):
+        ring.ring_kernel_allreduce_sum(xs, valid=[1.0, 1.0, 1.0, 1.0])
+
+
+@pytest.mark.parametrize("compress", [None, "bf16", "int8"])
+@pytest.mark.parametrize("valid", [[1, 0, 1, 1], 1.0])
+def test_pallas_ring_round_with_a_rank_mask_equals_masking_first(compress, valid):
+    """A whole-payload mask rides into K3; the round's sum and count equal,
+    bit for bit, masking the stack first and running the plain K3 on it (the
+    round as it ran before the mask moved into the kernel)."""
+    xs = _xs(3000, seed=40)
+    res = threshold_allreduce(
+        line_mesh(N, device="cpu"), xs, valid, schedule="pallas_ring",
+        compress=compress,
+    )
+    v = torch.as_tensor(valid, dtype=torch.float32).expand(N)
+    masked = torch.from_numpy(xs) * v[:, None]
+    want = ring.ring_kernel_allreduce_sum_reference(masked, compress=compress)[0]
+    assert torch.equal(res.sum, want)
+    assert torch.equal(res.count, torch.full((3000,), float(v.sum())))
 
 
 def test_ring_rejects_bad_arguments():
