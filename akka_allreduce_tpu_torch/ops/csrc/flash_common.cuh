@@ -1,10 +1,10 @@
-// Device helpers shared by the flash-attention kernels, the f32 forward
-// (flash_attention.cu) and the backward (flash_attention_bwd.cu): cp.async
-// tile copies, ldmatrix fragment loads, the bf16 m16n8k16 mma, and
-// warp-level products in the register layout of an m16n8 mma accumulator.
-// The bf16 forward (flash_attention_wgmma.cu) takes the constants, the bf16
-// packing and the stores from here and its Hopper machinery from
-// hopper.cuh.
+// Device helpers shared by the flash-attention kernels. The f32 forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu) take cp.async
+// tile copies and warp-level f32 products in the register layout of an
+// m16n8 mma accumulator; the bf16 forward and backward
+// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu) take the
+// constants, the bf16 packing and the stores from here and their Hopper
+// machinery from hopper.cuh.
 //
 // That layout: a warp owns 16 rows; each thread holds, for each 8-column
 // tile j, c[j][0..3] = rows g and g + 8 (g = lane / 4), columns 8j + 2t and
@@ -27,7 +27,7 @@ constexpr float kMaskValue = -1e30f;
 constexpr size_t kMaxSmem = 232448;
 
 // row padding of shared-memory tiles: 16 bytes (bf16) or 4 floats (f32),
-// so that the 8 row addresses of an ldmatrix hit 32 distinct banks
+// so that the rows of a fragment read hit distinct banks
 template <typename T>
 struct Pad {
   static constexpr int value = sizeof(T) == 2 ? 8 : 4;
@@ -84,38 +84,6 @@ __device__ __forceinline__ uint32_t pack_f32_as_bf16(float lo, float hi) {
   return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
 }
 
-// four 8x8 b16 matrices from shared memory: lanes 8m..8m+7 give the row
-// addresses of matrix m, and each lane receives, from matrix m into r[m],
-// the two elements at (row lane / 4, columns 2 (lane % 4), + 1)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the same, each matrix transposed: (rows 2 (lane % 4), + 1, column lane / 4)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a * b: one m16n8k16 tile, bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int NT>
 __device__ __forceinline__ void zero_acc(float (&c)[NT][4]) {
 #pragma unroll
@@ -124,41 +92,10 @@ __device__ __forceinline__ void zero_acc(float (&c)[NT][4]) {
   }
 }
 
-// c (16 x 8 NT) += A (16 x K) B (K x 8 NT) for one warp, bf16 on the tensor
-// cores. A is row-major in shared memory (a + m * lda + k). B is "NK",
+// c (16 x 8 NT) += A (16 x K) B (K x 8 NT) for one warp in f32 FMAs (not
+// TF32). A is row-major in shared memory (a + m * lda + k). B is "NK",
 // stored n-major (b + n * ldb + k, as K is for Q K^T), or "KN", stored
 // k-major (b + k * ldb + n, as V is for P V).
-// A: one ldmatrix.x4 over [rows 0-7 | 8-15] x [k 16kk.. | 16kk + 8..] gives
-// a0..a3. B: one ldmatrix.x4 gives b0, b1 (k 2t, 2t + 1 and 8 on; n = g) of
-// two 8-wide n tiles, transposed for "KN".
-template <bool KN, int NT, int K>
-__device__ __forceinline__ void warp_mma(float (&c)[NT][4],
-                                         const bf16* __restrict__ a, int lda,
-                                         const bf16* __restrict__ b, int ldb,
-                                         int lane) {
-  static_assert(NT % 2 == 0 && K % 16 == 0, "whole mma tiles");
-  const int m = lane / 8;  // the matrix this lane addresses
-  const int r = lane % 8;  // and its row there
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + ((m % 2) * 8 + r) * lda + kk * 16 + (m / 2) * 8);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t bf[4];
-      if constexpr (KN) {
-        ldmatrix_x4_trans(
-            bf, b + (kk * 16 + (m % 2) * 8 + r) * ldb + (j + m / 2) * 8);
-      } else {
-        ldmatrix_x4(bf, b + ((j + m / 2) * 8 + r) * ldb + kk * 16 + (m % 2) * 8);
-      }
-      mma_bf16(c[j], af, bf[0], bf[1]);
-      mma_bf16(c[j + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// the same product in f32 FMAs (not TF32), in the same register layout
 template <bool KN, int NT, int K>
 __device__ __forceinline__ void warp_mma(float (&c)[NT][4],
                                          const float* __restrict__ a, int lda,

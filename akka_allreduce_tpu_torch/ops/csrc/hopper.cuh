@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks, in inline PTX: TMA tensor maps (built on
 // the host) and tile loads, mbarrier pipelines with bounded waits, wgmma
-// shared-memory descriptors and products, and setmaxnreg, for the
-// flash-attention forward (flash_attention_wgmma.cu); and thread-block
+// shared-memory descriptors and products, and setmaxnreg, for the bf16
+// flash-attention forward (flash_attention_wgmma.cu) and backward
+// (flash_attention_bwd_wgmma.cu); and thread-block
 // cluster helpers (cluster rank and id, mapa, barrier.cluster, remote
 // mbarrier arrivals, st.async into a neighbour's shared memory) for the
 // ring allreduce (ring.cu).
@@ -166,6 +167,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared memory; they complete the transaction count
+// `bar` expects
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // -- device: thread-block clusters and distributed shared memory ------------
 
 // this CTA's rank inside its cluster
@@ -314,6 +328,22 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b,

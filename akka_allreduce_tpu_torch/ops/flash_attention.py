@@ -17,19 +17,25 @@ for ``sm_90a``:
   softmax); f32 goes to ``csrc/flash_attention.cu`` (one CTA per 64 query
   rows, four warps, ``cp.async`` tiles, f32 FMAs: ``wgmma`` offers f32 only
   as TF32). Both skip causal blocks above the diagonal.
-- **Backward**, ``csrc/flash_attention_bwd.cu``: dQ, dK, dV from Q, K, V,
-  dO, ``lse`` and ``di = sum(o * do, -1)`` (one PyTorch reduction before the
-  launch, as ``jnp.sum`` is in the Pallas VJP), in two deterministic kernels
-  (no atomics): dK/dV, one CTA per block of keys looping over the query
-  blocks and the query heads of its GQA group, and dQ, one CTA per block of
-  queries looping over the key blocks. dK and dV come back in the compact
-  (B, T, H_kv, D) shape.
+- **Backward**: dQ, dK, dV from Q, K, V, O, dO and ``lse``, with
+  ``di = sum(o * do, -1)``, in two deterministic kernels (no atomics): dQ,
+  one CTA per block of queries looping over the key blocks, and dK/dV, one
+  CTA per block of keys looping over the query blocks and the query heads
+  of its GQA group. dK and dV come back in the compact (B, T, H_kv, D)
+  shape. A fixed dispatch by dtype (:func:`backward_kernel`): bf16 goes to
+  ``csrc/flash_attention_bwd_wgmma.cu``, designed for Hopper (two ``wgmma``
+  consumer warpgroups a CTA, TMA tiles through a ring of ``mbarrier``
+  stages, P and dS kept in registers as the A operand, and ``di`` taken
+  from O and dO by the dQ kernel, which runs first); f32 goes to
+  ``csrc/flash_attention_bwd.cu`` (four warps, ``cp.async`` tiles, f32
+  FMAs, ``di`` by one PyTorch reduction before the launch, as ``jnp.sum``
+  is in the Pallas VJP).
 - **What bounds them**: operations. At the flagship shape (B 8, H 16, T 2048,
   D 128, causal) the forward's two products are 1.37e11 FLOP and the
   backward's five 3.44e11 FLOP, against 268 MB and 403 MB moved: far above
   the card's ridge in bf16. bf16 runs every product on the tensor cores
-  (forward ``wgmma``, backward ``mma.sync`` m16n8k16; P, and dS in the
-  backward, rounded to bf16); f32 runs them as f32 FMAs, never TF32.
+  through ``wgmma`` (P, and dS in the backward, rounded to bf16); f32 runs
+  them as f32 FMAs, never TF32.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` that joins them,
 and :func:`flash_attention` goes through it on every device: on the CPU both
@@ -43,7 +49,9 @@ T a multiple of 512; the kernels need T a multiple of 64, and rows
 16-byte aligned, which TMA needs too); other shapes raise.
 ``LAUNCHES["flash_attention"]`` counts every forward launch,
 ``["flash_attention_wgmma"]`` those of the bf16 Hopper kernel among them,
-``["flash_attention_bwd"]`` every backward launch.
+``["flash_attention_bwd"]`` every backward launch and
+``["flash_attention_bwd_wgmma"]`` those of the bf16 Hopper kernels among
+them.
 """
 
 from __future__ import annotations
@@ -61,7 +69,8 @@ from akka_allreduce_tpu_torch.ops.ring_attention import (
     repeat_kv,
 )
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_bwd": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_wgmma": 0}
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -78,11 +87,18 @@ _FWD_ENTRIES = {
     "flash_attention_wgmma": "akka_flash_attention_fwd_wgmma",
     "flash_attention": "akka_flash_attention_fwd",
 }
-# dtype, q, k, v, do, lse, di, dq, dk, dv, B, T, H, H_kv, D,
+# the f32 backward: q, k, v, do, lse, di, dq, dk, dv, B, T, H, H_kv, D,
 # q/k/v/do batch strides, q/k/v/do row strides, scale, causal, device, stream
 _BWD_ARGTYPES = [
-    ctypes.c_int, *[_PTR] * 9, _I64, _I64, _I64, _I64, _I64,
+    *[_PTR] * 9, _I64, _I64, _I64, _I64, _I64,
     *[_I64] * 8, ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR,
+]
+# the bf16 backward: q, k, v, o, do, lse, di, dq, dk, dv, B, T, H, H_kv, D,
+# q/k/v/o/do batch strides, q/k/v/o/do row strides, scale, causal, device,
+# stream
+_BWD_WGMMA_ARGTYPES = [
+    *[_PTR] * 10, _I64, _I64, _I64, _I64, _I64,
+    *[_I64] * 10, ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR,
 ]
 
 
@@ -201,6 +217,15 @@ def forward_kernel(dtype: torch.dtype) -> str:
     return "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention"
 
 
+def backward_kernel(dtype: torch.dtype) -> str:
+    """The source (``csrc/<name>.cu``) whose kernels run K4's backward for
+    this dtype: a fixed dispatch, not a fallback, the same at every D the
+    gate admits. bf16 takes the Hopper kernels (``flash_attention_bwd_wgmma``:
+    a dQ kernel that also writes ``di``, then a dK/dV kernel); f32 takes
+    ``flash_attention_bwd``, since ``wgmma`` has f32 only as TF32."""
+    return "flash_attention_bwd_wgmma" if dtype == torch.bfloat16 else "flash_attention_bwd"
+
+
 def _strides(t: torch.Tensor, what: str) -> tuple[int, int]:
     """(batch, row) strides in elements, as the kernels and their TMA maps
     take them: heads and D dense; row and batch strides multiples of 8
@@ -266,6 +291,57 @@ def _forward(q, k, v, causal: bool, scale: float):
     return out, lse
 
 
+def _backward(q, k, v, o, lse, do, causal: bool, scale: float):
+    """K4's backward on the card: ``(dq, dk, dv, di)`` from the kernels
+    :func:`backward_kernel` names, ``di = sum(o * do, -1)`` (B, H, T) f32 as
+    the bf16 dQ kernel wrote it or, in f32, as the PyTorch reduction before
+    the launch gave it."""
+    _check_kernel_shape(q, k, v, o, lse, do)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must be {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)} and {tuple(do.shape)}")
+    b, t, h, d = q.shape
+    if lse.shape != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {t}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    o = o.to(q.dtype).contiguous()
+    do = do.to(q.dtype).contiguous()
+    lse = lse.contiguous()
+    if lse.data_ptr() % 16:
+        raise ValueError("lse must be 16-byte aligned")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    (qb, qt), (kb, kt), (vb, vt), (ob, ot), (db, dt) = (
+        _strides(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"))
+    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    name = backward_kernel(q.dtype)
+    if name == "flash_attention_bwd_wgmma":
+        di = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        lib, fn = _entry(name, "akka_flash_attention_bwd_wgmma", _BWD_WGMMA_ARGTYPES)
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, h, k.shape[2], d, qb, kb, vb, ob, db, qt, kt, vt, ot, dt,
+            float(scale), int(bool(causal)), q.device.index, stream,
+        )
+    else:
+        di = (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        lib, fn = _entry(name, "akka_flash_attention_bwd", _BWD_ARGTYPES)
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, h, k.shape[2], d, qb, kb, vb, db, qt, kt, vt, dt,
+            float(scale), int(bool(causal)), q.device.index, stream,
+        )
+    _build.check(lib, rc, "flash attention backward kernel launch")
+    LAUNCHES["flash_attention_bwd"] += 1
+    if name == "flash_attention_bwd_wgmma":
+        LAUNCHES["flash_attention_bwd_wgmma"] += 1
+    return dq, dk, dv, di
+
+
 def flash_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -282,45 +358,17 @@ def flash_attention_bwd(
     ``do``; dk and dv in the compact (B, T, H_kv, D) shape, all in the input
     dtype.
 
-    On a CUDA tensor it launches the two backward kernels or raises (the
-    forward's coverage); ``do`` is made dense in heads and D first, since
-    autograd may hand over any layout. On a CPU tensor it runs the plain
-    version.
+    On a CUDA tensor it launches the backward kernels :func:`backward_kernel`
+    names or raises (the forward's coverage); ``o`` and ``do`` are made dense
+    in heads and D first, since autograd may hand over any layout. On a CPU
+    tensor it runs the plain version.
     """
     _check(q, k, v)
     scale = _scale(q, sm_scale)
     if not use_kernel(q):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
                                              sm_scale=scale)
-    _check_kernel_shape(q, k, v, o, lse, do)
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"o and do must be {tuple(q.shape)}, got "
-                         f"{tuple(o.shape)} and {tuple(do.shape)}")
-    b, t, h, d = q.shape
-    if lse.shape != (b, h, t) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be ({b}, {h}, {t}) float32, got "
-                         f"{tuple(lse.shape)} {lse.dtype}")
-    do = do.to(q.dtype).contiguous()
-    lse = lse.contiguous()
-    di = (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    (qb, qt), (kb, kt), (vb, vt), (db, dt) = (
-        _strides(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do"))
-    )
-    lib, fn = _entry("flash_attention_bwd", "akka_flash_attention_bwd", _BWD_ARGTYPES)
-    rc = fn(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, t, h, k.shape[2], d,
-        qb, kb, vb, db, qt, kt, vt, dt,
-        float(scale), int(bool(causal)), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, rc, "flash attention backward kernel launch")
-    LAUNCHES["flash_attention_bwd"] += 1
-    return dq, dk, dv
+    return _backward(q, k, v, o, lse, do, causal, scale)[:3]
 
 
 class FlashAttention(torch.autograd.Function):
@@ -362,9 +410,10 @@ def flash_attention(
     On a CUDA tensor it launches K4 (and K4's backward when differentiated)
     or raises: dtypes other than f32 and bf16, D not a multiple of 32 or
     above 256, T not a multiple of 64 and rows not 16-byte aligned are not
-    covered. bf16 runs the Hopper kernel (``wgmma``, TMA, warp
-    specialisation) at every covered D, f32 the f32-FMA kernel
-    (:func:`forward_kernel`). On a CPU tensor it runs the plain versions.
+    covered. bf16 runs the Hopper kernels (``wgmma``, TMA, ``mbarrier``
+    pipelines) in both directions at every covered D, f32 the f32-FMA
+    kernels (:func:`forward_kernel`, :func:`backward_kernel`). On a CPU
+    tensor it runs the plain versions.
     """
     _check(q, k, v)
     return FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale))

@@ -11,8 +11,9 @@ Phases, each printed as it ends:
 1. card: name, power limit and count (``nvidia-smi``);
 2. build: ``nvcc`` compiles every kernel source of the paths
    (``local_reduce``, ``ring``, ``flash_attention`` (f32),
-   ``flash_attention_wgmma`` (bf16) and ``flash_attention_bwd``), all in
-   parallel, and ptxas's register and spill lines go to stderr;
+   ``flash_attention_wgmma`` (bf16), ``flash_attention_bwd`` (f32) and
+   ``flash_attention_bwd_wgmma`` (bf16)), all in parallel, and ptxas's
+   register and spill lines go to stderr;
 3. kernel vs plain: K1 ``masked_average`` and K2 ``elastic_average_step``
    against their plain versions on the card, at the main path's shapes
    (K = 16 workers x 64M floats with a 12-of-16 threshold mask, and the
@@ -37,11 +38,15 @@ Phases, each printed as it ends:
    256}; T in {1024, 1536, 4096}; grouped-query K/V (4 and 1 KV heads); in
    bf16 also T 576 and 1088 (ragged 128-row blocks) with 4 and 1 KV heads,
    and the lse within 1e-4; then K4's backward (dq, dk, dv)
-   and the forward's lse against the plain versions: the flagship in bf16,
-   f32 at B 2, non-causal, D in {32, 64, 128, 256}, T in {1024, 4096}, H 16
-   over 4 and 1 KV heads, every shape launched twice and held to bit
-   equality; and the gradients through ``local_attention`` at a gated
-   shape (the autograd path) against the plain version's;
+   and the forward's lse against the plain versions: the flagship in bf16
+   through the Hopper kernels (``flash_attention_bwd_wgmma``: its counter
+   moves for every bf16 shape and for no f32 one; its ptxas registers and
+   spills and each kernel's shared memory are printed), f32 at B 2,
+   non-causal, D in {32, 64, 128, 256}, T in {1024, 4096}, H 16 over 4 and
+   1 KV heads, in bf16 also T 576 and 1088 (ragged 128-key blocks) with 4
+   and 1 KV heads, every shape launched twice and held to bit equality; and
+   the gradients through ``local_attention`` at a gated shape (the autograd
+   path) against the plain version's;
 4. main paths, each with its launch counters set to 0 just before it and
    read just after: (a) threshold rounds at K = 16 x 64M (each round's
    result from ``masked_average``, the fold from ``elastic_average_step`` on
@@ -65,7 +70,8 @@ Phases, each printed as it ends:
    in bf16, whose prefill ms and decode ms per token are printed on their
    own line; (e) the LM's training path: the flagship in bf16 through
    ``LongContextTrainer.train_step`` on copy-task batches (K4's forward and
-   backward 8 times a step each, finite losses, contributors 1), then a
+   backward 8 times a step each, both through the Hopper kernels, finite
+   losses, contributors 1), then a
    ``valid=[0]`` step (loss 0, contributors 0); the whole model's f32
    gradient (2 layers, B 2, T 2048) with the kernels against the same
    model's with the plain attention; ``lm-generate --train-steps`` at a
@@ -146,7 +152,7 @@ SOURCE = {
     **{ring_name(m): "akka_allreduce_tpu_torch/ops/csrc/ring.cu" for m in RING_MODES},
     "flash_attention_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_wgmma.cu",
     "flash_attention_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
-    "flash_attention_bwd_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd_wgmma.cu",
     "flash_attention_bwd_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
@@ -262,6 +268,9 @@ def check_flash_bwd(dev, gen) -> dict:
         shapes += [(dt, (2, 1024, 4, 4, hd, True)) for hd in (32, 64, 128, 256)]
         shapes += [(dt, (1, tt, 4, 4, 128, True)) for tt in (1024, 4096)]
         shapes += [(dt, (2, t, h, 4, d, True)), (dt, (1, 1024, h, 1, 64, True))]
+    # T a multiple of 64 but not of 128: the Hopper kernels' ragged key blocks
+    shapes += [(bf16, (1, tt, 8, hkv, hd, causal)) for tt in (576, 1088)
+               for hkv, hd in ((4, 128), (1, 64), (1, 256)) for causal in (True, False)]
 
     def rel(got, want) -> float:
         return float((got.float() - want.float()).abs().max()) / max(
@@ -280,8 +289,11 @@ def check_flash_bwd(dev, gen) -> dict:
         e_lse = float((lse - want_lse).abs().max())
         require(e_lse <= 1e-4, f"{what}: lse max abs err {e_lse}")
         lse_err = max(lse_err, e_lse)
+        before = fa.LAUNCHES["flash_attention_bwd_wgmma"]
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        require(fa.LAUNCHES["flash_attention_bwd_wgmma"] == before + 2 * (dt == bf16),
+                f"{what}: the kernels backward_kernel names were launched")
         want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
         e = 0.0
         for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
@@ -305,7 +317,9 @@ def check_flash_bwd(dev, gen) -> dict:
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         before = dict(fa.LAUNCHES)
         la.local_attention(*leaves, causal=True).backward(do)
-        require(fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1,
+        require(fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+                and fa.LAUNCHES["flash_attention_bwd_wgmma"]
+                == before["flash_attention_bwd_wgmma"] + (dt == bf16),
                 "local_attention's backward launched K4's backward")
         plain = [x.clone().requires_grad_() for x in (q, k, v)]
         fa.flash_attention_reference(*plain, causal=True).backward(do)
@@ -316,6 +330,30 @@ def check_flash_bwd(dev, gen) -> dict:
     torch.cuda.empty_cache()
     return {"err": err, "other": other, "lse_max_abs_err": lse_err,
             "autograd_err": autograd_err}
+
+
+def bwd_wgmma_report(log: str) -> dict:
+    """Per kernel of the bf16 backward (``dq<D>``, ``dkv<D>``): ptxas's
+    registers and spill bytes from the build log, and the dynamic shared
+    memory one CTA takes (from the library's own tile set)."""
+    import ctypes
+
+    from akka_allreduce_tpu_torch.ops import _build
+
+    smem = _build.load("flash_attention_bwd_wgmma").akka_flash_attention_bwd_wgmma_smem
+    smem.argtypes, smem.restype = [ctypes.c_int64, ctypes.c_int], ctypes.c_int
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"flash_bwd_(dq|dkv)_kernelILi(\d+)E", ln)
+        if "Compiling entry" in ln and m:
+            cur = f"{m.group(1)}<{m.group(2)}>"
+            out[cur] = {"smem": smem(int(m.group(2)), int(m.group(1) == "dkv"))}
+        elif cur and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out[cur].update(spill_stores=int(st), spill_loads=int(ld))
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 def lm_main_path(dev) -> dict:
@@ -463,7 +501,8 @@ def lm_train_path(dev) -> dict:
     launches_a = dict(count)
     require(launches_a == {"flash_attention": n_layers * TRAIN_STEPS,
                            "flash_attention_wgmma": n_layers * TRAIN_STEPS,
-                           "flash_attention_bwd": n_layers * TRAIN_STEPS},
+                           "flash_attention_bwd": n_layers * TRAIN_STEPS,
+                           "flash_attention_bwd_wgmma": n_layers * TRAIN_STEPS},
             f"flagship steps: launches {launches_a}")
     dropped = trainer.train_step(*batches[TRAIN_STEPS], valid=[0.0])
     require(dropped.loss == 0.0 and dropped.contributors == 0.0,
@@ -487,7 +526,7 @@ def lm_train_path(dev) -> dict:
     torch.cuda.synchronize()
     launches_b = dict(count)
     require(launches_b == {"flash_attention": 2, "flash_attention_wgmma": 0,
-                           "flash_attention_bwd": 2},
+                           "flash_attention_bwd": 2, "flash_attention_bwd_wgmma": 0},
             f"f32 gradient: launches {launches_b}")
     with mock.patch.object(la, "flash_attention", lambda q, k, v, causal, sm_scale:
                            fa.flash_attention_reference(q, k, v, causal=causal,
@@ -525,14 +564,15 @@ def lm_train_path(dev) -> dict:
     want_c = TRAIN_LM["n_layers"] * TRAIN_LM_STEPS
     require(launches_c["flash_attention"] >= want_c
             and launches_c["flash_attention_bwd"] == want_c
-            and launches_c["flash_attention_wgmma"] == 0,
+            and launches_c["flash_attention_wgmma"] == 0
+            and launches_c["flash_attention_bwd_wgmma"] == 0,
             f"lm-generate --train-steps: launches {launches_c}")
     torch.cuda.empty_cache()
     return {
         "launches": {
             "flash_attention_bf16": launches_a["flash_attention_wgmma"],
             "flash_attention_f32": launches_b["flash_attention"] + launches_c["flash_attention"],
-            "flash_attention_bwd_bf16": launches_a["flash_attention_bwd"],
+            "flash_attention_bwd_bf16": launches_a["flash_attention_bwd_wgmma"],
             "flash_attention_bwd_f32": (launches_b["flash_attention_bwd"]
                                         + launches_c["flash_attention_bwd"]),
         },
@@ -592,7 +632,8 @@ def profile_window(fn, top: int = 6) -> dict:
     summed device time of its kernels (user annotations such as
     ``Optimizer.step#Adam.step`` left out: they would count their kernels
     twice; kernel names may hold ``#`` too, as in ``{lambda(float)#1}``),
-    the device's busy share and the ``top`` kernels by device time."""
+    the device's busy share, the ``top`` kernels by device time and every
+    K4 kernel (``flash_*``) with its device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -609,7 +650,9 @@ def profile_window(fn, top: int = 6) -> dict:
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
-            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in ranked]}
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in ranked],
+            "flash": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                      for e in kernels if "flash_" in e.key]}
 
 
 def profile_lm(model, tokens, steps: int = 8) -> dict:
@@ -667,7 +710,7 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     paths = _build.build("local_reduce", "ring", "flash_attention", "flash_attention_wgmma",
-                         "flash_attention_bwd")
+                         "flash_attention_bwd", "flash_attention_bwd_wgmma")
     for path in paths.values():
         ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -851,12 +894,17 @@ def main() -> int:
 
     # -- 3d. K4's backward vs plain ------------------------------------------------
     t0 = time.perf_counter()
+    bwd_ptxas = bwd_wgmma_report(
+        paths["flash_attention_bwd_wgmma"].with_suffix(".log").read_text())
+    print("flash_attention_bwd_wgmma ptxas: " + json.dumps(bwd_ptxas), flush=True)
+    require(len(bwd_ptxas) == 16 and all("registers" in r for r in bwd_ptxas.values()),
+            f"ptxas report of every bf16 backward kernel: {sorted(bwd_ptxas)}")
     bwd = check_flash_bwd(dev, gen)
     err.update(bwd["err"])
     phase("flash_bwd_vs_plain", t0, max_err_of_max_grad=bwd["err"],
           other_shapes_max_err_of_max_grad=bwd["other"],
           lse_max_abs_err=bwd["lse_max_abs_err"],
-          local_attention_autograd_err=bwd["autograd_err"],
+          local_attention_autograd_err=bwd["autograd_err"], bf16_ptxas=bwd_ptxas,
           repeat="bit-identical (every shape launched twice)",
           tolerance={"f32": BWD_TOL["float32"], "bf16": BWD_TOL["bfloat16"],
                      "of": "max|grad| of the plain version", "lse_abs": 1e-4})
@@ -1066,9 +1114,10 @@ def main() -> int:
               f"{tk['ops'] / tk['ms'] / 1e9:.1f} TFLOP/s; SDPA {tk['library_ms']:.4f} ms, "
               f"{tk['ops'] / tk['library_ms'] / 1e9:.1f} TFLOP/s", flush=True)
         del q, k, v, qt, kt, vt
-    # K4's backward at the same shapes: the wrapper (di, then both kernels)
-    # beside the plain version and SDPA's backward (forward + backward minus
-    # forward); the bound is its five products
+    # K4's backward at the same shapes: the wrapper (bf16: both kernels, di
+    # inside the first; f32: di in PyTorch, then both kernels) beside the plain
+    # version and SDPA's backward (forward + backward minus forward); the bound
+    # is its five products
     for dt, bb in ((torch.bfloat16, LM_BATCH), (torch.float32, 2)):
         q, k, v, do = (torch.randn((bb, LM_SEQ, heads, hd), generator=gen,
                                    device=dev).to(dt) for _ in range(4))

@@ -268,6 +268,26 @@ def test_forward_kernel_dispatch_by_dtype(d):
             fa._check_kernel_shape(torch.zeros((1, 64, 1, max(bad, 0))))
 
 
+@pytest.mark.parametrize("d", range(32, 257, 32))
+def test_backward_kernel_dispatch_by_dtype(d):
+    """The fixed dispatch of K4's backward: bf16 to the Hopper kernels and
+    f32 to the f32 ones, each naming a source that exists and differs from
+    the other; the backward's shape check passes D (and raises on the card
+    check) and raises on the D between and beyond."""
+    assert fa.backward_kernel(torch.bfloat16) == "flash_attention_bwd_wgmma"
+    assert fa.backward_kernel(torch.float32) == "flash_attention_bwd"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert (fa._build.CSRC / f"{fa.backward_kernel(dtype)}.cu").is_file()
+    q = torch.zeros((1, 64, 2, d), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 64))
+    with pytest.raises(ValueError, match="lie on one CUDA device"):  # D passed
+        fa._backward(q, q, q, q, lse, q, True, d ** -0.5)
+    for bad in (d - 16, d + 8, 288):
+        qb = torch.zeros((1, 64, 2, bad), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="covers D"):
+            fa._backward(qb, qb, qb, qb, lse, qb, True, 1.0)
+
+
 def test_kernel_strides_meet_the_tensor_map_rules():
     """(batch, row) strides as the kernels' TMA maps take them: a dense
     tensor, a KV-cache slice read in place, a batch of one with an odd

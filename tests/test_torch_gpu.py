@@ -15,8 +15,8 @@ bf16, rounds P to bf16 for the PV product: f32 is held to rtol = atol =
 1e-4, bf16 to rtol = atol = 2e-2, the forward's lse to 1e-4 (absolute),
 and two launches of the bf16 forward on the same inputs to bit equality.
 K4's backward (which also rounds P and dS to bf16 in bf16) is held to the
-same numbers relative to max|grad|, and two of its launches on the same
-inputs to bit equality.
+same numbers relative to max|grad|, two of its launches on the same inputs
+to bit equality, and the bf16 kernel's di to 1e-5 of PyTorch's reduction.
 """
 
 from __future__ import annotations
@@ -504,18 +504,25 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 @pytest.mark.parametrize("b,t,h,h_kv,d", BWD_SHAPES)
 def test_flash_bwd_kernel_matches_plain(card, b, t, h, h_kv, d, dtype, causal):
     """dq, dk, dv (compact GQA shape) and the forward's lse against the plain
-    versions, relative to max|grad|: f32 within 1e-4, bf16 within 2e-2."""
+    versions, relative to max|grad|: f32 within 1e-4, bf16 within 2e-2.
+    bf16 goes through the Hopper kernels (their counter moves; T 192 and
+    320 leave a ragged 128-key block), f32 through the f32 ones."""
     q, k, v = _qkv(b, t, h, h_kv, d, dtype, card, seed=7)
     do = _qkv(b, t, h, h, d, dtype, card, seed=8)[0]
     o, lse = fa._forward(q, k, v, causal, d ** -0.5)
     ref_o, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal,
                                                   return_lse=True)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
-    before = fa.LAUNCHES["flash_attention_bwd"]
+    before = dict(fa.LAUNCHES)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    wgmma = int(dtype == torch.bfloat16)
+    assert fa.backward_kernel(dtype) == ("flash_attention_bwd_wgmma" if wgmma
+                                         else "flash_attention_bwd")
+    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert (fa.LAUNCHES["flash_attention_bwd_wgmma"]
+            == before["flash_attention_bwd_wgmma"] + wgmma)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape, name
         assert bool(torch.isfinite(g).all()), name
@@ -532,6 +539,36 @@ def test_flash_bwd_kernel_repeats_bit_identical(card, dtype):
     for a, b in zip(first, second):
         assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
                            b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("b,t,h,h_kv,d", [(1, 192, 4, 2, 32), (2, 256, 2, 2, 128),
+                                         (1, 320, 4, 1, 256)])
+def test_bf16_bwd_kernel_writes_di(card, b, t, h, h_kv, d):
+    """The bf16 dQ kernel's di = sum(o * do, -1), (B, H, T) f32, within 1e-5
+    of the same reduction in PyTorch, every row written (ragged T too)."""
+    q, k, v = _qkv(b, t, h, h_kv, d, torch.bfloat16, card, seed=13)
+    do = _qkv(b, t, h, h, d, torch.bfloat16, card, seed=14)[0]
+    o, lse = fa._forward(q, k, v, True, d ** -0.5)
+    di = fa._backward(q, k, v, o, lse, do, True, d ** -0.5)[3]
+    want = (o.float() * do.float()).sum(-1).transpose(1, 2)
+    assert di.shape == (b, h, t) and di.dtype == torch.float32
+    torch.testing.assert_close(di, want, rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_bwd_kernel_runs_on_the_callers_stream(card):
+    """A bf16 backward launched on a side stream gives the plain version's
+    gradients once that stream is joined."""
+    q, k, v = _qkv(1, 1024, 4, 2, 64, torch.bfloat16, card, seed=15)
+    do = _qkv(1, 1024, 4, 4, 64, torch.bfloat16, card, seed=16)[0]
+    o, lse = fa._forward(q, k, v, True, 0.125)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.current_stream(card).wait_stream(side)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= FLASH_TOL[torch.bfloat16], (name, _rel_err(g, w))
 
 
 def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
@@ -564,6 +601,8 @@ def test_local_attention_gradients_go_through_the_kernels(card, dtype, h_kv):
     out.backward(do)
     assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert (fa.LAUNCHES["flash_attention_bwd_wgmma"]
+            == before["flash_attention_bwd_wgmma"] + int(dtype == torch.bfloat16))
     plain = [x.clone().requires_grad_() for x in (q, k, v)]
     fa.flash_attention_reference(*plain, causal=True).backward(do)
     for name, got, want in zip("qkv", leaves, plain):
@@ -587,6 +626,8 @@ def test_training_step_launches_both_kernels_once_a_layer(card):
         m = trainer.train_step(x, y)
         assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + fwd
         assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+        assert (fa.LAUNCHES["flash_attention_bwd_wgmma"]
+                == before["flash_attention_bwd_wgmma"] + 2)
         assert np.isfinite(m.loss) and m.contributors == 1.0
         m = trainer.train_step(x, y, valid=[0.0])
         assert m.loss == 0.0 and m.contributors == 0.0
