@@ -1,11 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a) in f32: K4's forward when the
-// compute dtype is float32 (bf16 runs flash_attention_wgmma.cu: wgmma takes
-// f32 only as TF32, which would break the f32 parity held at 1e-4).
+// compute dtype is float32 (bf16 runs flash_attention_wgmma.cu), in f32 FMAs.
+// wgmma takes f32 only as TF32: one TF32 pass would break the f32 parity
+// held at 1e-4, while split TF32 (three passes, as the f32 backward
+// flash_attention_bwd_3xtf32.cu runs) keeps it; this kernel is not on the
+// tensor cores yet.
 //
 // Replaces the flash branch of akka_allreduce_tpu/ops/local_attention.py
 // local_attention, which calls the library Pallas TPU kernel
 // jax.experimental.pallas.ops.tpu.flash_attention (forward; the backward is
-// flash_attention_bwd.cu).
+// flash_attention_bwd_3xtf32.cu).
 //
 //   o[b, i, h, :] = sum_j p_ij v[b, j, h / G, :] / max(l_i, 1e-30)
 //   s_ij = (q[b, i, h, :] . k[b, j, h / G, :]) * scale      (f32)

@@ -1,8 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a) in bf16: K4's VJP on the
 // tensor-core path, designed for the card (TMA, mbarrier pipelines, wgmma
-// with register operands). The f32 backward stays in flash_attention_bwd.cu:
-// wgmma takes f32 only as TF32, which would break the f32 parity held at
-// 1e-4.
+// with register operands). The f32 backward is flash_attention_bwd_3xtf32.cu,
+// on the same plan in split TF32.
 //
 // Replaces the custom VJP of the library Pallas TPU kernel that the flash
 // branch of akka_allreduce_tpu/ops/local_attention.py local_attention

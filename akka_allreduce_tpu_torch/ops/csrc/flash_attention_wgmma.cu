@@ -5,8 +5,7 @@
 // Replaces the flash branch of akka_allreduce_tpu/ops/local_attention.py
 // local_attention, which calls the library Pallas TPU kernel
 // jax.experimental.pallas.ops.tpu.flash_attention. It computes what
-// flash_attention.cu computes (the f32 forward stays there: wgmma takes f32
-// only as TF32, which would break the f32 parity held at 1e-4):
+// flash_attention.cu computes (the f32 forward stays there, in f32 FMAs):
 //
 //   o[b, i, h, :] = sum_j p_ij v[b, j, h / G, :] / max(l_i, 1e-30)
 //   s_ij = (q[b, i, h, :] . k[b, j, h / G, :]) * scale      (f32)

@@ -1,10 +1,10 @@
 // Device helpers shared by the flash-attention kernels. The f32 forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu) take cp.async
-// tile copies and warp-level f32 products in the register layout of an
-// m16n8 mma accumulator; the bf16 forward and backward
-// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu) take the
-// constants, the bf16 packing and the stores from here and their Hopper
-// machinery from hopper.cuh.
+// (flash_attention.cu) takes cp.async tile copies and warp-level f32
+// products in the register layout of an m16n8 mma accumulator; the bf16
+// forward and backward (flash_attention_wgmma.cu,
+// flash_attention_bwd_wgmma.cu) and the f32 backward
+// (flash_attention_bwd_3xtf32.cu) take the constants, the bf16 packing and
+// the stores from here and their Hopper machinery from hopper.cuh.
 //
 // That layout: a warp owns 16 rows; each thread holds, for each 8-column
 // tile j, c[j][0..3] = rows g and g + 8 (g = lane / 4), columns 8j + 2t and

@@ -1,15 +1,18 @@
 // Hopper (sm_90a) building blocks, in inline PTX: TMA tensor maps (built on
 // the host) and tile loads, mbarrier pipelines with bounded waits, wgmma
-// shared-memory descriptors and products, and setmaxnreg, for the bf16
-// flash-attention forward (flash_attention_wgmma.cu) and backward
-// (flash_attention_bwd_wgmma.cu); and thread-block
+// shared-memory descriptors and products (bf16, and TF32 for the split-TF32
+// f32 backward), the proxy fence and named barriers, and setmaxnreg, for the
+// bf16 flash-attention forward (flash_attention_wgmma.cu) and backward
+// (flash_attention_bwd_wgmma.cu) and the f32 backward
+// (flash_attention_bwd_3xtf32.cu); and thread-block
 // cluster helpers (cluster rank and id, mapa, barrier.cluster, remote
 // mbarrier arrivals, st.async into a neighbour's shared memory) for the
 // ring allreduce (ring.cu).
 //
 // Shared-memory tiles follow the TMA swizzle: a tile of R rows x D bf16 is
 // stored as D / 64 column blocks of R rows x 128 bytes (128-byte swizzle)
-// and, when D % 64 == 32, one block of R rows x 64 bytes (64-byte swizzle).
+// and, when D % 64 == 32, one block of R rows x 64 bytes (64-byte swizzle);
+// an f32 tile is D / 32 column blocks of R rows x 128 bytes.
 // Every block starts on a 1024-byte boundary, so the swizzle pattern (a
 // function of the shared-memory address) is the same for the TMA that
 // writes a block and the wgmma descriptor that reads it.
@@ -20,7 +23,9 @@
 // mma layout repeated along N). The register A operand of an m64nNk16
 // product is, per warp, the m16n8k16 A fragment: a[0] = (g, k 2t, 2t + 1),
 // a[1] = (g + 8, k 2t ..), a[2] = (g, k 2t + 8 ..), a[3] = (g + 8, k 2t + 8
-// ..), each a pair of bf16.
+// ..), each a pair of bf16. That of a TF32 m64nNk8 product is the m16n8k8
+// one: a[0] = (g, k t), a[1] = (g + 8, k t), a[2] = (g, k t + 4),
+// a[3] = (g + 8, k t + 4), one TF32 value each.
 
 #pragma once
 
@@ -65,30 +70,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A TMA map over a (B, T, H, D) bf16 tensor read in place: dimensions
-// (D, H, T, B), innermost first; heads dense (stride D), row and batch
-// strides in elements (multiples of 8: 16-byte rows). One box is `cols`
-// columns (64: 128-byte swizzle; 32: 64-byte swizzle) of one head over
-// `rows` rows of one batch; rows past T read as zeros.
+// A TMA map over a (B, T, H, D) tensor of `elem` bytes an element (2: bf16,
+// 4: f32) read in place: dimensions (D, H, T, B), innermost first; heads
+// dense (stride D), row and batch strides in elements (16-byte rows). One
+// box is `cols` columns of one head over `rows` rows of one batch, a
+// 128-byte swizzle for 128-byte box rows (64 bf16 or 32 f32) and a 64-byte
+// one for 64-byte rows (32 bf16); rows past T read as zeros.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int64_t d,
                             int64_t heads, int64_t t_len, int64_t batch,
                             int64_t row_stride, int64_t batch_stride,
-                            int cols, int rows) {
+                            int cols, int rows, int elem = 2) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
       static_cast<cuuint64_t>(t_len), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(row_stride) * 2,
-                                 static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * elem,
+                                 static_cast<cuuint64_t>(row_stride) * elem,
+                                 static_cast<cuuint64_t>(batch_stride) * elem};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      map,
+      elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      cols * elem == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -543,6 +553,89 @@ __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+
+// -- device: split TF32 (3xTF32) ---------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
+// the b32 operand of a TF32 product: x = big + small with
+// big = tf32(x) and small = tf32(x - big) keeps about 21 bits of x
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operand reads, TMA writes that follow)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// d (64 x N) += A (64 x 8) B (8 x N) [d = A B when !accumulate], TF32 in,
+// f32 accumulators: A from registers (the m16n8k8 fragment above), B from
+// shared memory K-major (TF32 has no transposed operand)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
+                                           uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float* d, const uint32_t* a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float* d, const uint32_t* a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float* d, const uint32_t* a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
 }

@@ -15,8 +15,8 @@ for ``sm_90a``:
   CTA per 128 query rows, a TMA producer warpgroup and two ``wgmma``
   consumer warpgroups, K/V through a ring of ``mbarrier`` stages, exp2
   softmax); f32 goes to ``csrc/flash_attention.cu`` (one CTA per 64 query
-  rows, four warps, ``cp.async`` tiles, f32 FMAs: ``wgmma`` offers f32 only
-  as TF32). Both skip causal blocks above the diagonal.
+  rows, four warps, ``cp.async`` tiles, f32 FMAs; not yet on the tensor
+  cores). Both skip causal blocks above the diagonal.
 - **Backward**: dQ, dK, dV from Q, K, V, O, dO and ``lse``, with
   ``di = sum(o * do, -1)``, in two deterministic kernels (no atomics): dQ,
   one CTA per block of queries looping over the key blocks, and dK/dV, one
@@ -27,15 +27,22 @@ for ``sm_90a``:
   consumer warpgroups a CTA, TMA tiles through a ring of ``mbarrier``
   stages, P and dS kept in registers as the A operand, and ``di`` taken
   from O and dO by the dQ kernel, which runs first); f32 goes to
-  ``csrc/flash_attention_bwd.cu`` (four warps, ``cp.async`` tiles, f32
-  FMAs, ``di`` by one PyTorch reduction before the launch, as ``jnp.sum``
-  is in the Pallas VJP).
+  ``csrc/flash_attention_bwd_3xtf32.cu``, designed for Hopper on the same
+  plan in split TF32 (each f32 operand a TF32 big part plus a TF32 small
+  remainder, three TF32 ``wgmma`` products a product, as PyTorch's f32
+  attention does it; two consumer warpgroups a CTA with a role each, one
+  forming P and the other dS, with Q/dO or K/V held in registers up to
+  D 128; the products over the stored rows computed transposed, since TF32
+  ``wgmma`` has no transposed operand; ``di`` from O and dO in its dQ
+  kernel too).
 - **What bounds them**: operations. At the flagship shape (B 8, H 16, T 2048,
   D 128, causal) the forward's two products are 1.37e11 FLOP and the
   backward's five 3.44e11 FLOP, against 268 MB and 403 MB moved: far above
   the card's ridge in bf16. bf16 runs every product on the tensor cores
-  through ``wgmma`` (P, and dS in the backward, rounded to bf16); f32 runs
-  them as f32 FMAs, never TF32.
+  through ``wgmma`` (P, and dS in the backward, rounded to bf16). The f32
+  backward runs them on the tensor cores in split TF32 (an error of about
+  2^-21 of |a||b| a term, far inside the 1e-4 f32 parity; a single TF32
+  pass, at 2^-11, would break it); the f32 forward runs them as f32 FMAs.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` that joins them,
 and :func:`flash_attention` goes through it on every device: on the CPU both
@@ -49,9 +56,9 @@ T a multiple of 512; the kernels need T a multiple of 64, and rows
 16-byte aligned, which TMA needs too); other shapes raise.
 ``LAUNCHES["flash_attention"]`` counts every forward launch,
 ``["flash_attention_wgmma"]`` those of the bf16 Hopper kernel among them,
-``["flash_attention_bwd"]`` every backward launch and
+``["flash_attention_bwd"]`` every backward launch,
 ``["flash_attention_bwd_wgmma"]`` those of the bf16 Hopper kernels among
-them.
+them and ``["flash_attention_bwd_3xtf32"]`` those of the f32 ones.
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ from akka_allreduce_tpu_torch.ops.ring_attention import (
 )
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_wgmma": 0}
+            "flash_attention_bwd_wgmma": 0, "flash_attention_bwd_3xtf32": 0}
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,19 +94,18 @@ _FWD_ENTRIES = {
     "flash_attention_wgmma": "akka_flash_attention_fwd_wgmma",
     "flash_attention": "akka_flash_attention_fwd",
 }
-# the f32 backward: q, k, v, do, lse, di, dq, dk, dv, B, T, H, H_kv, D,
-# q/k/v/do batch strides, q/k/v/do row strides, scale, causal, device, stream
-_BWD_ARGTYPES = [
-    *[_PTR] * 9, _I64, _I64, _I64, _I64, _I64,
-    *[_I64] * 8, ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR,
-]
-# the bf16 backward: q, k, v, o, do, lse, di, dq, dk, dv, B, T, H, H_kv, D,
-# q/k/v/o/do batch strides, q/k/v/o/do row strides, scale, causal, device,
-# stream
+# both backward entries: q, k, v, o, do, lse, di, dq, dk, dv, B, T, H, H_kv,
+# D, q/k/v/o/do batch strides, q/k/v/o/do row strides, scale, causal,
+# device, stream
 _BWD_WGMMA_ARGTYPES = [
     *[_PTR] * 10, _I64, _I64, _I64, _I64, _I64,
     *[_I64] * 10, ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR,
 ]
+# the backward's entry in each source
+_BWD_ENTRIES = {
+    "flash_attention_bwd_wgmma": "akka_flash_attention_bwd_wgmma",
+    "flash_attention_bwd_3xtf32": "akka_flash_attention_bwd_3xtf32",
+}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -213,17 +219,18 @@ def forward_kernel(dtype: torch.dtype) -> str:
     this dtype: a fixed dispatch, not a fallback, the same at every D the
     gate admits (32 to 256, step 32). bf16 takes the Hopper kernel
     (``flash_attention_wgmma``: key tiles of 128 up to D 128, of 64 above);
-    f32 takes ``flash_attention``, since ``wgmma`` has f32 only as TF32."""
+    f32 takes ``flash_attention`` (f32 FMAs)."""
     return "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention"
 
 
 def backward_kernel(dtype: torch.dtype) -> str:
     """The source (``csrc/<name>.cu``) whose kernels run K4's backward for
     this dtype: a fixed dispatch, not a fallback, the same at every D the
-    gate admits. bf16 takes the Hopper kernels (``flash_attention_bwd_wgmma``:
-    a dQ kernel that also writes ``di``, then a dK/dV kernel); f32 takes
-    ``flash_attention_bwd``, since ``wgmma`` has f32 only as TF32."""
-    return "flash_attention_bwd_wgmma" if dtype == torch.bfloat16 else "flash_attention_bwd"
+    gate admits. Each is a dQ kernel that also writes ``di``, then a dK/dV
+    kernel: bf16 takes ``flash_attention_bwd_wgmma`` (bf16 ``wgmma``), f32
+    takes ``flash_attention_bwd_3xtf32`` (split-TF32 ``wgmma``)."""
+    return ("flash_attention_bwd_wgmma" if dtype == torch.bfloat16
+            else "flash_attention_bwd_3xtf32")
 
 
 def _strides(t: torch.Tensor, what: str) -> tuple[int, int]:
@@ -294,8 +301,7 @@ def _forward(q, k, v, causal: bool, scale: float):
 def _backward(q, k, v, o, lse, do, causal: bool, scale: float):
     """K4's backward on the card: ``(dq, dk, dv, di)`` from the kernels
     :func:`backward_kernel` names, ``di = sum(o * do, -1)`` (B, H, T) f32 as
-    the bf16 dQ kernel wrote it or, in f32, as the PyTorch reduction before
-    the launch gave it."""
+    the dQ kernel wrote it."""
     _check_kernel_shape(q, k, v, o, lse, do)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o and do must be {tuple(q.shape)}, got "
@@ -315,30 +321,19 @@ def _backward(q, k, v, o, lse, do, causal: bool, scale: float):
     (qb, qt), (kb, kt), (vb, vt), (ob, ot), (db, dt) = (
         _strides(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"))
     )
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    di = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     name = backward_kernel(q.dtype)
-    if name == "flash_attention_bwd_wgmma":
-        di = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-        lib, fn = _entry(name, "akka_flash_attention_bwd_wgmma", _BWD_WGMMA_ARGTYPES)
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, k.shape[2], d, qb, kb, vb, ob, db, qt, kt, vt, ot, dt,
-            float(scale), int(bool(causal)), q.device.index, stream,
-        )
-    else:
-        di = (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
-        lib, fn = _entry(name, "akka_flash_attention_bwd", _BWD_ARGTYPES)
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, k.shape[2], d, qb, kb, vb, db, qt, kt, vt, dt,
-            float(scale), int(bool(causal)), q.device.index, stream,
-        )
+    lib, fn = _entry(name, _BWD_ENTRIES[name], _BWD_WGMMA_ARGTYPES)
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, t, h, k.shape[2], d, qb, kb, vb, ob, db, qt, kt, vt, ot, dt,
+        float(scale), int(bool(causal)), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
     _build.check(lib, rc, "flash attention backward kernel launch")
     LAUNCHES["flash_attention_bwd"] += 1
-    if name == "flash_attention_bwd_wgmma":
-        LAUNCHES["flash_attention_bwd_wgmma"] += 1
+    LAUNCHES[name] += 1
     return dq, dk, dv, di
 
 
@@ -411,9 +406,9 @@ def flash_attention(
     or raises: dtypes other than f32 and bf16, D not a multiple of 32 or
     above 256, T not a multiple of 64 and rows not 16-byte aligned are not
     covered. bf16 runs the Hopper kernels (``wgmma``, TMA, ``mbarrier``
-    pipelines) in both directions at every covered D, f32 the f32-FMA
-    kernels (:func:`forward_kernel`, :func:`backward_kernel`). On a CPU
-    tensor it runs the plain versions.
+    pipelines) in both directions at every covered D; f32 runs the f32-FMA
+    forward and the split-TF32 Hopper backward (:func:`forward_kernel`,
+    :func:`backward_kernel`). On a CPU tensor it runs the plain versions.
     """
     _check(q, k, v)
     return FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale))

@@ -11,8 +11,8 @@ Phases, each printed as it ends:
 1. card: name, power limit and count (``nvidia-smi``);
 2. build: ``nvcc`` compiles every kernel source of the paths
    (``local_reduce``, ``ring``, ``flash_attention`` (f32),
-   ``flash_attention_wgmma`` (bf16), ``flash_attention_bwd`` (f32) and
-   ``flash_attention_bwd_wgmma`` (bf16)), all in parallel, and ptxas's
+   ``flash_attention_wgmma`` (bf16), ``flash_attention_bwd_3xtf32`` (f32)
+   and ``flash_attention_bwd_wgmma`` (bf16)), all in parallel, and ptxas's
    register and spill lines go to stderr;
 3. kernel vs plain: K1 ``masked_average`` and K2 ``elastic_average_step``
    against their plain versions on the card, at the main path's shapes
@@ -39,11 +39,12 @@ Phases, each printed as it ends:
    bf16 also T 576 and 1088 (ragged 128-row blocks) with 4 and 1 KV heads,
    and the lse within 1e-4; then K4's backward (dq, dk, dv)
    and the forward's lse against the plain versions: the flagship in bf16
-   through the Hopper kernels (``flash_attention_bwd_wgmma``: its counter
-   moves for every bf16 shape and for no f32 one; its ptxas registers and
-   spills and each kernel's shared memory are printed), f32 at B 2,
-   non-causal, D in {32, 64, 128, 256}, T in {1024, 4096}, H 16 over 4 and
-   1 KV heads, in bf16 also T 576 and 1088 (ragged 128-key blocks) with 4
+   through the Hopper kernels (``flash_attention_bwd_wgmma``), f32 at B 2
+   through the split-TF32 Hopper kernels (``flash_attention_bwd_3xtf32``),
+   each counter moving for every shape of its dtype and for no other (both
+   kernels' ptxas registers and spills and each kernel's shared memory are
+   printed), non-causal, D in {32, 64, 128, 256}, T in {1024, 4096}, H 16
+   over 4 and 1 KV heads, T 576 and 1088 (ragged 128-key blocks) with 4
    and 1 KV heads, every shape launched twice and held to bit equality; and
    the gradients through ``local_attention`` at a gated shape (the autograd
    path) against the plain version's;
@@ -73,22 +74,27 @@ Phases, each printed as it ends:
    backward 8 times a step each, both through the Hopper kernels, finite
    losses, contributors 1), then a
    ``valid=[0]`` step (loss 0, contributors 0); the whole model's f32
-   gradient (2 layers, B 2, T 2048) with the kernels against the same
-   model's with the plain attention; ``lm-generate --train-steps`` at a
-   small gated width (d 128, 4 heads, 2 layers, T 1024), whose last loss
-   must be below its first, with the copy accuracy printed;
+   gradient (2 layers, B 2, T 2048) with the kernels (the f32 backward
+   through ``flash_attention_bwd_3xtf32``) against the same model's with
+   the plain attention; ``lm-generate --train-steps`` at a small gated width
+   (d 128, 4 heads, 2 layers, T 1024; its f32 backward through the same
+   kernels), whose last loss must be below its first, with the copy
+   accuracy printed;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
-   call (``scaled_dot_product_attention`` for K4, timed only) and the bound;
-   K4's backward at the same shapes, beside the plain backward, SDPA's
-   backward (its forward + backward minus its forward) and the bound of its
-   five products; one flagship bf16 forward, for K4's share of it; one
+   call (``scaled_dot_product_attention`` for K4, timed only) and the bound
+   (f32: split TF32's rate, with the share of the f32-FMA bound printed
+   beside it); K4's backward at the same shapes, beside the plain backward,
+   SDPA's backward (its forward + backward minus its forward) and the bound
+   of its five products; one flagship bf16 forward, for K4's share of it; one
    prefill and 8 decode steps under ``torch.profiler`` (device busy share,
    top kernels); the flagship bf16 training step (median of 5, host clock
    ended by a synchronize; K4's forward + backward share of it) and two
    steps under ``torch.profiler``; and ``bench-mfu``'s record (slope-timed
-   MFU of the same step);
+   MFU of the same step); the flagship-width f32 training step at B 2
+   (median of 5, host clock; K4's backward's share of it from its CUDA-event
+   time);
 6. one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -123,6 +129,9 @@ ROUNDS = 3
 RTOL = ATOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# f32-accurate products on the tensor cores in split TF32: three TF32
+# products each at the H100 SXM's dense TF32 rate
+TF32X3_OPS_PER_S = 494.7e12 / 3
 BF16_OPS_PER_S = 989.4e12  # H100 SXM dense bf16 on the tensor cores
 RING_RANKS = 8
 RING_FLOATS = 25_000_000  # BASELINE config 4: ResNet-50's gradient buffer
@@ -153,7 +162,7 @@ SOURCE = {
     "flash_attention_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_wgmma.cu",
     "flash_attention_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
     "flash_attention_bwd_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd_wgmma.cu",
-    "flash_attention_bwd_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd_3xtf32.cu",
 }
 REPLACES = {
     "masked_average": "akka_allreduce_tpu/ops/local_reduce.py:79",
@@ -269,7 +278,7 @@ def check_flash_bwd(dev, gen) -> dict:
         shapes += [(dt, (1, tt, 4, 4, 128, True)) for tt in (1024, 4096)]
         shapes += [(dt, (2, t, h, 4, d, True)), (dt, (1, 1024, h, 1, 64, True))]
     # T a multiple of 64 but not of 128: the Hopper kernels' ragged key blocks
-    shapes += [(bf16, (1, tt, 8, hkv, hd, causal)) for tt in (576, 1088)
+    shapes += [(dt, (1, tt, 8, hkv, hd, causal)) for dt in (bf16, f32) for tt in (576, 1088)
                for hkv, hd in ((4, 128), (1, 64), (1, 256)) for causal in (True, False)]
 
     def rel(got, want) -> float:
@@ -289,10 +298,11 @@ def check_flash_bwd(dev, gen) -> dict:
         e_lse = float((lse - want_lse).abs().max())
         require(e_lse <= 1e-4, f"{what}: lse max abs err {e_lse}")
         lse_err = max(lse_err, e_lse)
-        before = fa.LAUNCHES["flash_attention_bwd_wgmma"]
+        before = dict(fa.LAUNCHES)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-        require(fa.LAUNCHES["flash_attention_bwd_wgmma"] == before + 2 * (dt == bf16),
+        require(all(fa.LAUNCHES[n] == before[n] + 2 * (n == fa.backward_kernel(dt))
+                    for n in ("flash_attention_bwd_wgmma", "flash_attention_bwd_3xtf32")),
                 f"{what}: the kernels backward_kernel names were launched")
         want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
         e = 0.0
@@ -317,9 +327,10 @@ def check_flash_bwd(dev, gen) -> dict:
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         before = dict(fa.LAUNCHES)
         la.local_attention(*leaves, causal=True).backward(do)
-        require(fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
-                and fa.LAUNCHES["flash_attention_bwd_wgmma"]
-                == before["flash_attention_bwd_wgmma"] + (dt == bf16),
+        require(all(fa.LAUNCHES[n] == before[n] + (n in ("flash_attention_bwd",
+                                                         fa.backward_kernel(dt)))
+                    for n in ("flash_attention_bwd", "flash_attention_bwd_wgmma",
+                              "flash_attention_bwd_3xtf32")),
                 "local_attention's backward launched K4's backward")
         plain = [x.clone().requires_grad_() for x in (q, k, v)]
         fa.flash_attention_reference(*plain, causal=True).backward(do)
@@ -332,15 +343,15 @@ def check_flash_bwd(dev, gen) -> dict:
             "autograd_err": autograd_err}
 
 
-def bwd_wgmma_report(log: str) -> dict:
-    """Per kernel of the bf16 backward (``dq<D>``, ``dkv<D>``): ptxas's
+def bwd_report(lib_name: str, log: str) -> dict:
+    """Per kernel of one backward source (``dq<D>``, ``dkv<D>``): ptxas's
     registers and spill bytes from the build log, and the dynamic shared
     memory one CTA takes (from the library's own tile set)."""
     import ctypes
 
     from akka_allreduce_tpu_torch.ops import _build
 
-    smem = _build.load("flash_attention_bwd_wgmma").akka_flash_attention_bwd_wgmma_smem
+    smem = getattr(_build.load(lib_name), f"akka_{lib_name}_smem")
     smem.argtypes, smem.restype = [ctypes.c_int64, ctypes.c_int], ctypes.c_int
     out, cur = {}, None
     for ln in log.splitlines():
@@ -502,7 +513,8 @@ def lm_train_path(dev) -> dict:
     require(launches_a == {"flash_attention": n_layers * TRAIN_STEPS,
                            "flash_attention_wgmma": n_layers * TRAIN_STEPS,
                            "flash_attention_bwd": n_layers * TRAIN_STEPS,
-                           "flash_attention_bwd_wgmma": n_layers * TRAIN_STEPS},
+                           "flash_attention_bwd_wgmma": n_layers * TRAIN_STEPS,
+                           "flash_attention_bwd_3xtf32": 0},
             f"flagship steps: launches {launches_a}")
     dropped = trainer.train_step(*batches[TRAIN_STEPS], valid=[0.0])
     require(dropped.loss == 0.0 and dropped.contributors == 0.0,
@@ -526,7 +538,8 @@ def lm_train_path(dev) -> dict:
     torch.cuda.synchronize()
     launches_b = dict(count)
     require(launches_b == {"flash_attention": 2, "flash_attention_wgmma": 0,
-                           "flash_attention_bwd": 2, "flash_attention_bwd_wgmma": 0},
+                           "flash_attention_bwd": 2, "flash_attention_bwd_wgmma": 0,
+                           "flash_attention_bwd_3xtf32": 2},
             f"f32 gradient: launches {launches_b}")
     with mock.patch.object(la, "flash_attention", lambda q, k, v, causal, sm_scale:
                            fa.flash_attention_reference(q, k, v, causal=causal,
@@ -564,6 +577,7 @@ def lm_train_path(dev) -> dict:
     want_c = TRAIN_LM["n_layers"] * TRAIN_LM_STEPS
     require(launches_c["flash_attention"] >= want_c
             and launches_c["flash_attention_bwd"] == want_c
+            and launches_c["flash_attention_bwd_3xtf32"] == want_c
             and launches_c["flash_attention_wgmma"] == 0
             and launches_c["flash_attention_bwd_wgmma"] == 0,
             f"lm-generate --train-steps: launches {launches_c}")
@@ -573,8 +587,8 @@ def lm_train_path(dev) -> dict:
             "flash_attention_bf16": launches_a["flash_attention_wgmma"],
             "flash_attention_f32": launches_b["flash_attention"] + launches_c["flash_attention"],
             "flash_attention_bwd_bf16": launches_a["flash_attention_bwd_wgmma"],
-            "flash_attention_bwd_f32": (launches_b["flash_attention_bwd"]
-                                        + launches_c["flash_attention_bwd"]),
+            "flash_attention_bwd_f32": (launches_b["flash_attention_bwd_3xtf32"]
+                                        + launches_c["flash_attention_bwd_3xtf32"]),
         },
         "per_part": {"a_flagship_bf16": launches_a, "b_model_grad_f32": launches_b,
                      "c_lm_generate_train_f32": launches_c},
@@ -584,10 +598,12 @@ def lm_train_path(dev) -> dict:
     }
 
 
-def time_train_step(dev, steps: int = 5) -> dict:
-    """The flagship bf16 training step: median host-clock ms over ``steps``
-    steps (each ends in its loss's host read), after one warm-up step; then
-    two steps under ``torch.profiler``; and the peak memory of them all."""
+def time_train_step(dev, dtype=None, batch: int = LM_BATCH, steps: int = 5,
+                    profiled: bool = True) -> dict:
+    """The flagship's training step in ``dtype`` (bf16 by default) at
+    ``batch``: median host-clock ms over ``steps`` steps (each ends in its
+    loss's host read), after one warm-up step; then, when ``profiled``, two
+    steps under ``torch.profiler``; and the peak memory of them all."""
     import statistics
 
     import torch
@@ -596,10 +612,10 @@ def time_train_step(dev, steps: int = 5) -> dict:
     from akka_allreduce_tpu_torch.train import LongContextTrainer
 
     torch.cuda.reset_peak_memory_stats()
-    trainer = LongContextTrainer(**LM, seq_len=LM_SEQ, compute_dtype=torch.bfloat16,
+    trainer = LongContextTrainer(**LM, seq_len=LM_SEQ, compute_dtype=dtype or torch.bfloat16,
                                  learning_rate=1e-3, seed=SEED, device=dev)
     batches = list(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED + 1).batches(
-        LM_BATCH, steps + 3))
+        batch, steps + 3))
     trainer.train_step(*batches[0])
     times = []
     for x, y in batches[1:steps + 1]:
@@ -613,15 +629,15 @@ def time_train_step(dev, steps: int = 5) -> dict:
         for x, y in batches[steps + 1:steps + 3]:
             trainer.train_step(x, y)
 
-    profiled = profile_window(two_steps, top=12)
-    profiled["steps"] = 2
     out = {
         "param_count": trainer.param_count,
         "step_ms": statistics.median(times),
         "step_ms_all": times,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "profile": profiled,
     }
+    if profiled:
+        out["profile"] = profile_window(two_steps, top=12)
+        out["profile"]["steps"] = 2
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del trainer
     torch.cuda.empty_cache()
     return out
@@ -710,7 +726,7 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     paths = _build.build("local_reduce", "ring", "flash_attention", "flash_attention_wgmma",
-                         "flash_attention_bwd", "flash_attention_bwd_wgmma")
+                         "flash_attention_bwd_3xtf32", "flash_attention_bwd_wgmma")
     for path in paths.values():
         ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -894,17 +910,19 @@ def main() -> int:
 
     # -- 3d. K4's backward vs plain ------------------------------------------------
     t0 = time.perf_counter()
-    bwd_ptxas = bwd_wgmma_report(
-        paths["flash_attention_bwd_wgmma"].with_suffix(".log").read_text())
-    print("flash_attention_bwd_wgmma ptxas: " + json.dumps(bwd_ptxas), flush=True)
-    require(len(bwd_ptxas) == 16 and all("registers" in r for r in bwd_ptxas.values()),
-            f"ptxas report of every bf16 backward kernel: {sorted(bwd_ptxas)}")
+    bwd_ptxas = {}
+    for lib_name in ("flash_attention_bwd_wgmma", "flash_attention_bwd_3xtf32"):
+        report = bwd_report(lib_name, paths[lib_name].with_suffix(".log").read_text())
+        print(f"{lib_name} ptxas: " + json.dumps(report), flush=True)
+        require(len(report) == 16 and all("registers" in r for r in report.values()),
+                f"ptxas report of every {lib_name} kernel: {sorted(report)}")
+        bwd_ptxas[lib_name] = report
     bwd = check_flash_bwd(dev, gen)
     err.update(bwd["err"])
     phase("flash_bwd_vs_plain", t0, max_err_of_max_grad=bwd["err"],
           other_shapes_max_err_of_max_grad=bwd["other"],
           lse_max_abs_err=bwd["lse_max_abs_err"],
-          local_attention_autograd_err=bwd["autograd_err"], bf16_ptxas=bwd_ptxas,
+          local_attention_autograd_err=bwd["autograd_err"], ptxas=bwd_ptxas,
           repeat="bit-identical (every shape launched twice)",
           tolerance={"f32": BWD_TOL["float32"], "bf16": BWD_TOL["bfloat16"],
                      "of": "max|grad| of the plain version", "lse_abs": 1e-4})
@@ -1106,7 +1124,7 @@ def main() -> int:
                     qt, kt, vt, is_causal=True), 20),
             "bytes": 4 * q.numel() * q.element_size(),
             "ops": 4 * bb * heads * LM_SEQ * LM_SEQ * hd / 2,
-            "ops_per_s": BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S,
+            "ops_per_s": BF16_OPS_PER_S if dt == torch.bfloat16 else TF32X3_OPS_PER_S,
         }
         tk = timing[flash_name(dt)]
         print(f"K4 forward {flash_name(dt)} (B {bb}, T {LM_SEQ}, H {heads}, D {hd}, "
@@ -1114,10 +1132,9 @@ def main() -> int:
               f"{tk['ops'] / tk['ms'] / 1e9:.1f} TFLOP/s; SDPA {tk['library_ms']:.4f} ms, "
               f"{tk['ops'] / tk['library_ms'] / 1e9:.1f} TFLOP/s", flush=True)
         del q, k, v, qt, kt, vt
-    # K4's backward at the same shapes: the wrapper (bf16: both kernels, di
-    # inside the first; f32: di in PyTorch, then both kernels) beside the plain
-    # version and SDPA's backward (forward + backward minus forward); the bound
-    # is its five products
+    # K4's backward at the same shapes: the wrapper (both kernels, di inside
+    # the first) beside the plain version and SDPA's backward (forward +
+    # backward minus forward); the bound is its five products
     for dt, bb in ((torch.bfloat16, LM_BATCH), (torch.float32, 2)):
         q, k, v, do = (torch.randn((bb, LM_SEQ, heads, hd), generator=gen,
                                    device=dev).to(dt) for _ in range(4))
@@ -1142,7 +1159,7 @@ def main() -> int:
             "library_ms": cuda_event_ms(sdpa_both, 10) - sdpa_ms,
             "bytes": 8 * q.numel() * q.element_size() + lse.numel() * 4,
             "ops": 5 * bb * heads * LM_SEQ * LM_SEQ * hd,
-            "ops_per_s": BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S,
+            "ops_per_s": BF16_OPS_PER_S if dt == torch.bfloat16 else TF32X3_OPS_PER_S,
         }
         del q, k, v, do, o, lse, ql, kl, vl, dol
         torch.cuda.empty_cache()
@@ -1161,6 +1178,11 @@ def main() -> int:
 
     step = time_train_step(dev)
     print(json.dumps({"train_profile": step["profile"]}), flush=True)
+    # the flagship width's f32 training step at B 2: K4's f32 backward runs
+    # 8 times in it, at the shape timed above
+    step32 = time_train_step(dev, torch.float32, batch=2, profiled=False)
+    k4_bwd_f32_share = (LM["n_layers"] * timing["flash_attention_bwd_f32"]["ms"]
+                        / step32["step_ms"])
     floor_ms = transformer_train_flops(
         n_params=step["param_count"], batch=LM_BATCH, seq=LM_SEQ,
         d_model=LM["d_model"], n_layers=LM["n_layers"]) / BF16_OPS_PER_S * 1e3
@@ -1203,6 +1225,14 @@ def main() -> int:
               f"({max(bytes_ms, ops_ms) / t['ms'] * 100:.1f}% of the bound "
               f"{max(bytes_ms, ops_ms):.4f} ms, by {bound_by}); plain "
               f"{t['plain_ms']:.4f} ms; library {library}", flush=True)
+    for name in ("flash_attention_f32", "flash_attention_bwd_f32"):
+        t = timing[name]
+        print(f"{name}: {t['ops'] / TF32X3_OPS_PER_S * 1e3 / t['ms'] * 100:.1f}% of the "
+              f"split-TF32 bound {t['ops'] / TF32X3_OPS_PER_S * 1e3:.4f} ms, "
+              f"{t['ops'] / FP32_OPS_PER_S * 1e3 / t['ms'] * 100:.1f}% of the f32-FMA "
+              f"bound {t['ops'] / FP32_OPS_PER_S * 1e3:.4f} ms; SDPA "
+              f"{t['ops'] / TF32X3_OPS_PER_S * 1e3 / t['library_ms'] * 100:.1f}% of the "
+              f"split-TF32 bound", flush=True)
     print(f"flagship bf16 forward (B {LM_BATCH} x T {LM_SEQ}): {forward_ms:.3f} ms; "
           f"K4 x {LM['n_layers']} = {flash_share * 100:.1f}% of it", flush=True)
     print(f"flagship bf16 train step (B {LM_BATCH} x T {LM_SEQ}, {card['name']}, "
@@ -1211,6 +1241,10 @@ def main() -> int:
           f"{LM['n_layers']} = {k4_train_share * 100:.1f}% of it; device busy "
           f"{step['profile']['busy_share'] * 100:.1f}%; bench-mfu "
           f"{mfu_rec['ms_per_step']} ms/step, MFU {mfu_rec['value']}", flush=True)
+    print(f"flagship-width f32 train step (B 2 x T {LM_SEQ}, {card['name']}, "
+          f"{card['power_limit']}): {step32['step_ms']:.3f} ms (median of "
+          f"{len(step32['step_ms_all'])}, host clock); K4 backward x {LM['n_layers']} = "
+          f"{k4_bwd_f32_share * 100:.1f}% of it", flush=True)
     phase("timings", t0, library_note="masked_average: torch.mv + sum + clamp + "
           "div; elastic_average_step: the same plus Tensor.addr_; "
           "ring_allreduce_f32: xs.sum(0, keepdim=True).expand_as(xs).contiguous(); "
@@ -1224,6 +1258,8 @@ def main() -> int:
           train_step_ms=step["step_ms"], train_step_ms_all=step["step_ms_all"],
           train_floor_ms=floor_ms, train_peak_memory_gb=step["peak_memory_gb"],
           k4_share_of_train_step=k4_train_share,
+          f32_train_step_ms=step32["step_ms"], f32_train_step_ms_all=step32["step_ms_all"],
+          k4_bwd_share_of_f32_train_step=k4_bwd_f32_share,
           bench_mfu={"mfu": mfu_rec["value"], "ms_per_step": mfu_rec["ms_per_step"],
                      "spread_pct": mfu_rec["spread_pct"]},
           busy_share={"prefill": prof["prefill"]["busy_share"],

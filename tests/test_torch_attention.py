@@ -270,12 +270,12 @@ def test_forward_kernel_dispatch_by_dtype(d):
 
 @pytest.mark.parametrize("d", range(32, 257, 32))
 def test_backward_kernel_dispatch_by_dtype(d):
-    """The fixed dispatch of K4's backward: bf16 to the Hopper kernels and
-    f32 to the f32 ones, each naming a source that exists and differs from
-    the other; the backward's shape check passes D (and raises on the card
-    check) and raises on the D between and beyond."""
+    """The fixed dispatch of K4's backward: bf16 to the bf16 Hopper kernels
+    and f32 to the split-TF32 ones, each naming a source that exists and
+    differs from the other; the backward's shape check passes D (and raises
+    on the card check) and raises on the D between and beyond."""
     assert fa.backward_kernel(torch.bfloat16) == "flash_attention_bwd_wgmma"
-    assert fa.backward_kernel(torch.float32) == "flash_attention_bwd"
+    assert fa.backward_kernel(torch.float32) == "flash_attention_bwd_3xtf32"
     for dtype in (torch.bfloat16, torch.float32):
         assert (fa._build.CSRC / f"{fa.backward_kernel(dtype)}.cu").is_file()
     q = torch.zeros((1, 64, 2, d), dtype=torch.bfloat16)

@@ -505,8 +505,9 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def test_flash_bwd_kernel_matches_plain(card, b, t, h, h_kv, d, dtype, causal):
     """dq, dk, dv (compact GQA shape) and the forward's lse against the plain
     versions, relative to max|grad|: f32 within 1e-4, bf16 within 2e-2.
-    bf16 goes through the Hopper kernels (their counter moves; T 192 and
-    320 leave a ragged 128-key block), f32 through the f32 ones."""
+    bf16 goes through the bf16 Hopper kernels, f32 through the split-TF32
+    ones, each counter moving for its own dtype only (T 192 and 320 leave a
+    ragged 128-row block)."""
     q, k, v = _qkv(b, t, h, h_kv, d, dtype, card, seed=7)
     do = _qkv(b, t, h, h, d, dtype, card, seed=8)[0]
     o, lse = fa._forward(q, k, v, causal, d ** -0.5)
@@ -517,12 +518,12 @@ def test_flash_bwd_kernel_matches_plain(card, b, t, h, h_kv, d, dtype, causal):
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
-    wgmma = int(dtype == torch.bfloat16)
-    assert fa.backward_kernel(dtype) == ("flash_attention_bwd_wgmma" if wgmma
-                                         else "flash_attention_bwd")
-    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
-    assert (fa.LAUNCHES["flash_attention_bwd_wgmma"]
-            == before["flash_attention_bwd_wgmma"] + wgmma)
+    name = fa.backward_kernel(dtype)
+    assert name == ("flash_attention_bwd_wgmma" if dtype == torch.bfloat16
+                    else "flash_attention_bwd_3xtf32")
+    for key in ("flash_attention_bwd", "flash_attention_bwd_wgmma",
+                "flash_attention_bwd_3xtf32"):
+        assert fa.LAUNCHES[key] == before[key] + (key in ("flash_attention_bwd", name)), key
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape, name
         assert bool(torch.isfinite(g).all()), name
@@ -541,13 +542,14 @@ def test_flash_bwd_kernel_repeats_bit_identical(card, dtype):
                            b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,h_kv,d", [(1, 192, 4, 2, 32), (2, 256, 2, 2, 128),
                                          (1, 320, 4, 1, 256)])
-def test_bf16_bwd_kernel_writes_di(card, b, t, h, h_kv, d):
-    """The bf16 dQ kernel's di = sum(o * do, -1), (B, H, T) f32, within 1e-5
-    of the same reduction in PyTorch, every row written (ragged T too)."""
-    q, k, v = _qkv(b, t, h, h_kv, d, torch.bfloat16, card, seed=13)
-    do = _qkv(b, t, h, h, d, torch.bfloat16, card, seed=14)[0]
+def test_bwd_kernel_writes_di(card, b, t, h, h_kv, d, dtype):
+    """The dQ kernel's di = sum(o * do, -1), (B, H, T) f32, within 1e-5 of
+    the same reduction in PyTorch, every row written (ragged T too)."""
+    q, k, v = _qkv(b, t, h, h_kv, d, dtype, card, seed=13)
+    do = _qkv(b, t, h, h, d, dtype, card, seed=14)[0]
     o, lse = fa._forward(q, k, v, True, d ** -0.5)
     di = fa._backward(q, k, v, o, lse, do, True, d ** -0.5)[3]
     want = (o.float() * do.float()).sum(-1).transpose(1, 2)
@@ -555,11 +557,12 @@ def test_bf16_bwd_kernel_writes_di(card, b, t, h, h_kv, d):
     torch.testing.assert_close(di, want, rtol=1e-5, atol=1e-5)
 
 
-def test_bf16_bwd_kernel_runs_on_the_callers_stream(card):
-    """A bf16 backward launched on a side stream gives the plain version's
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_runs_on_the_callers_stream(card, dtype):
+    """A backward launched on a side stream gives the plain version's
     gradients once that stream is joined."""
-    q, k, v = _qkv(1, 1024, 4, 2, 64, torch.bfloat16, card, seed=15)
-    do = _qkv(1, 1024, 4, 4, 64, torch.bfloat16, card, seed=16)[0]
+    q, k, v = _qkv(1, 1024, 4, 2, 64, dtype, card, seed=15)
+    do = _qkv(1, 1024, 4, 4, 64, dtype, card, seed=16)[0]
     o, lse = fa._forward(q, k, v, True, 0.125)
     side = torch.cuda.Stream(card)
     side.wait_stream(torch.cuda.current_stream(card))
@@ -568,7 +571,7 @@ def test_bf16_bwd_kernel_runs_on_the_callers_stream(card):
     torch.cuda.current_stream(card).wait_stream(side)
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert _rel_err(g, w) <= FLASH_TOL[torch.bfloat16], (name, _rel_err(g, w))
+        assert _rel_err(g, w) <= FLASH_TOL[dtype], (name, _rel_err(g, w))
 
 
 def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
@@ -603,6 +606,8 @@ def test_local_attention_gradients_go_through_the_kernels(card, dtype, h_kv):
     assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     assert (fa.LAUNCHES["flash_attention_bwd_wgmma"]
             == before["flash_attention_bwd_wgmma"] + int(dtype == torch.bfloat16))
+    assert (fa.LAUNCHES["flash_attention_bwd_3xtf32"]
+            == before["flash_attention_bwd_3xtf32"] + int(dtype == torch.float32))
     plain = [x.clone().requires_grad_() for x in (q, k, v)]
     fa.flash_attention_reference(*plain, causal=True).backward(do)
     for name, got, want in zip("qkv", leaves, plain):
@@ -652,11 +657,15 @@ def test_model_gradient_with_kernels_matches_plain_attention(card, monkeypatch):
     before = dict(fa.LAUNCHES)
     got = grads()
     assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    assert (fa.LAUNCHES["flash_attention_bwd_3xtf32"]
+            == before["flash_attention_bwd_3xtf32"] + 2)
     monkeypatch.setattr(la, "flash_attention", lambda q, k, v, causal, sm_scale:
                         fa.flash_attention_reference(q, k, v, causal=causal,
                                                      sm_scale=sm_scale))
     want = grads()
     assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    assert (fa.LAUNCHES["flash_attention_bwd_3xtf32"]
+            == before["flash_attention_bwd_3xtf32"] + 2)
     for name in want:
         scale = float(want[name].abs().max())
         err = float((got[name] - want[name]).abs().max())
