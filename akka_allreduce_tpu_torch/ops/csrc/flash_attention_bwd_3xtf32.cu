@@ -85,27 +85,32 @@
 //   S^T and dP^T are m64n64 products; above D 128 K and V stay in shared
 //   memory with 16-row tiles. Thread 0 streams Q, dO and their lse and di
 //   rows (bulk copies onto the same barrier) for every query head of the
-//   GQA group in turn, from the diagonal down under causal masking.
+//   GQA group in turn, from the diagonal down under causal masking. Every
+//   1,024 query rows each thread adds its dK^T or dV^T accumulators into
+//   its own elements of dK or dV in f32 and starts them again from zero: a
+//   longer run inside the tensor cores' accumulators drifts from the f32
+//   sum (over a GQA group of 16 at T 1024, 16,384 rows, chip_smoke.py's
+//   check found dK 1.2e-4 of max|grad| off, past its 1e-4).
 // - Thread 0 issues every TMA load; full barriers count the transaction
 //   bytes, empty barriers one arrival per warp. T is a multiple of 64, so
 //   every streamed tile is whole.
-// - Deterministic: no atomics, each output element written once by one
-//   thread, so a repeat is bit-identical.
+// - Deterministic: no atomics, each output element written by one thread
+//   only, in a fixed order, so a repeat is bit-identical.
 //
 // The C entry launches both kernels on the caller's stream, does not
 // synchronise, and returns a CUDA error code (cudaErrorInvalidValue for a
 // shape it does not cover).
 
 #include "flash_common.cuh"
-#include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace akka_flash;
 using namespace akka_sm90;
+using namespace akka_tf32;
 
 constexpr int kRows = 64;  // query rows (dQ) or keys (dK/dV) a warpgroup
-constexpr int kGroup = 2;  // fragments a commit group
 constexpr float kLog2e = 1.4426950408889634f;
 
 // two stages of streamed tiles where they fit, else one; plus the barriers
@@ -159,6 +164,10 @@ struct DkvCfg {
   static constexpr int kTileBytes = kBlockM * D * 4;  // Q or dO, big or small
   static constexpr int kStripBytes = kRows * kBlockM * 4;  // P^T or dS^T, b/s
   static constexpr int kStatBytes = kBlockM * 4;  // lse or di of one tile
+  // the query rows one run of the dK^T, dV^T accumulators takes before it is
+  // added into dK, dV in f32 (a longer run inside the tensor cores'
+  // accumulators drifts from the f32 sum)
+  static constexpr int kFlushIts = 1024 / kBlockM;
   static constexpr int kStripOff = 2 * kKVBytes;  // P^T b/s, then dS^T b/s
   static constexpr int kStageOff = kStripOff + 4 * kStripBytes;
   // a stage: Q big, Q small, dO big, dO small; then lse and di of each stage
@@ -190,236 +199,6 @@ struct Args {
   float scale, scale_log2;
   int causal;
 };
-
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
-
-// a byte offset inside a tile of 1024-byte-aligned rows of RB bytes (128:
-// 128-byte swizzle, 64: 64-byte swizzle), swizzled as TMA and wgmma see it
-template <int RB>
-__device__ __forceinline__ uint32_t swz(uint32_t off) {
-  return off ^ ((off >> 3) & (RB == 128 ? 0x70u : 0x30u));
-}
-
-// element (r, c) of an f32 tile of R rows: D / 32 column blocks of R rows
-// x 128 bytes
-template <int R>
-__device__ __forceinline__ uint32_t at(int r, int c) {
-  return (c >> 5) * R * 128 + swz<128>(r * 128 + (c & 31) * 4);
-}
-
-// the column where a split tile keeps column c: in each group of 8, the
-// even columns first, then the odd ones
-__device__ __forceinline__ int split_col(int c) {
-  return (c & ~7) | ((c & 1) << 2) | ((c & 7) >> 1);
-}
-
-// A strip: 64 rows x N f32 (N 16, 32 or 64), K-major as a B operand whose
-// k runs along a row. Element (r, c) lies at strip_at<N>(r, c): rows of 64
-// bytes (64-byte swizzle) for N 16, else 32-column blocks of 64 rows x 128
-// bytes, as a tile; the B operand of k step k (8 columns) starts at
-// strip_k<N>(k).
-template <int N>
-__device__ __forceinline__ uint32_t strip_at(int r, int c) {
-  return N == 16 ? swz<64>(r * 64 + c * 4) : at<64>(r, c);
-}
-
-template <int N>
-__device__ __forceinline__ uint32_t strip_k(int k) {
-  return N == 16 ? 32 * k : (k / 4) * 64 * 128 + 32 * (k % 4);
-}
-
-// the TMA loads of one tile (R rows from `row`) into its column blocks
-template <int D, int R>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const Maps& maps,
-                                          int x, uint64_t* bar, int head,
-                                          int row, int b) {
-#pragma unroll
-  for (int j = 0; j < D / 32; ++j) {
-    tma_load(dst + j * R * 128, &maps.m[x], bar, 32 * j, head, row, b);
-  }
-}
-
-// Split a raw tile of R rows x D in place into its TF32 big part and, at
-// `small`, its small part, columns permuted as split_col says; the NT
-// threads of the CTA take a group of 8 columns each in turn, one group at
-// a time (it runs beside the accumulators of the products in flight; more
-// in flight spill the dK/dV kernel's registers).
-template <int D, int R, int NT>
-__device__ __forceinline__ void split_tile(unsigned char* big,
-                                           unsigned char* small) {
-  constexpr int kGroups = R * D / 8;
-#pragma unroll 1
-  for (int k = 0; k < (kGroups + NT - 1) / NT; ++k) {
-    const int i = static_cast<int>(threadIdx.x) + k * NT;
-    if (kGroups % NT == 0 || i < kGroups) {
-      const int r = i / (D / 8);
-      const int c = (i % (D / 8)) * 8;
-      const uint32_t lo = at<R>(r, c);
-      const uint32_t hi = at<R>(r, c + 4);
-      const float4 x = *reinterpret_cast<const float4*>(big + lo);
-      const float4 y = *reinterpret_cast<const float4*>(big + hi);
-      const float v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
-      uint32_t bg[8], sm[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        bg[e] = to_tf32(v[e]);
-        sm[e] = to_tf32(v[e] - __uint_as_float(bg[e]));
-      }
-      *reinterpret_cast<uint4*>(big + lo) = make_uint4(bg[0], bg[2], bg[4], bg[6]);
-      *reinterpret_cast<uint4*>(big + hi) = make_uint4(bg[1], bg[3], bg[5], bg[7]);
-      *reinterpret_cast<uint4*>(small + lo) = make_uint4(sm[0], sm[2], sm[4], sm[6]);
-      *reinterpret_cast<uint4*>(small + hi) = make_uint4(sm[1], sm[3], sm[5], sm[7]);
-    }
-  }
-}
-
-// a TF32 A fragment, big and small
-struct Frag {
-  uint32_t b[4], s[4];
-};
-
-__device__ __forceinline__ void split_frag(Frag& f, float x0, float x1,
-                                           float x2, float x3) {
-  const float x[4] = {x0, x1, x2, x3};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f.b[i] = to_tf32(x[i]);
-    f.s[i] = to_tf32(x[i] - __uint_as_float(f.b[i]));
-  }
-}
-
-// one of the three TF32 products of a k step (term 0: small A x big B,
-// 1: big A x small B, 2: big A x big B; small terms first), B K-major at
-// bb (big) or bs (small), rows of RB bytes; term 0 overwrites the
-// accumulator unless `accumulate`
-template <int N, int RB = 128>
-__device__ __forceinline__ void mma3_term(float* acc, const Frag& f,
-                                          uint32_t bb, uint32_t bs, int term,
-                                          int accumulate) {
-  const uint64_t b = make_desc(term == 1 ? bs : bb, 16, 8 * RB,
-                               RB == 128 ? 1 : 2);
-  wgmma_tf32<N>(acc, term == 0 ? f.s : f.b, b, term > 0 || accumulate);
-}
-
-// acc[i] = A_i B_i^T (64 x N) over D for the NA products i of one call: A_i
-// is this warp's 16 rows of raw f32, load(i, k, x, y) giving columns
-// 8k + 2t, 8k + 2t + 1 of its rows g (x) and g + 8 (y), split in
-// registers; B_i the big and small of a split tile of N rows at bb[i],
-// bs[i]. Fragment f is product f % NA's at k step f / NA, so that
-// consecutive products feed different accumulators (a chain into one
-// accumulator waits on each product). Commit groups of kGroup fragments,
-// two in flight, so a group's A registers stay untouched until its
-// products are done.
-template <int D, int N, int NA, class Load>
-__device__ __forceinline__ void products_over_d(
-    float* const (&acc)[NA], const Load& load, const uint32_t (&bb)[NA],
-    const uint32_t (&bs)[NA]) {
-  constexpr int kSteps = D / 8;
-  constexpr int kChunks = NA * kSteps / kGroup;
-  Frag f[2][kGroup];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    if (c >= 2) wgmma_wait<1>();
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u) {
-      const int fi = c * kGroup + u;
-      float2 x, y;
-      load(fi % NA, fi / NA, x, y);
-      split_frag(f[c & 1][u], x.x, y.x, x.y, y.y);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int term = 0; term < 3; ++term) {
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        const int fi = c * kGroup + u;
-        const int i = fi % NA;
-        const int k = fi / NA;
-        const uint32_t off = (k / 4) * N * 128 + 32 * (k % 4);
-        mma3_term<N>(acc[i], f[c & 1][u], bb[i] + off, bs[i] + off, term,
-                     k > 0);
-      }
-    }
-    wgmma_commit();
-  }
-}
-
-// acc[m] (64 x 64) += A_m B over K rows, for the NM 64-row tiles m0 + m of
-// D: A_m^T is those 64 columns of a split tile (K rows x D at tb, ts:
-// big, small), this warp's 16 columns gathered into registers, zero past
-// D; B a strip (64 rows x K at sb, ss: big, small).
-// Fragments and commit groups as above, fragment f for tile f % NM.
-template <int D, int K, int NM>
-__device__ __forceinline__ void products_transposed(
-    float (*acc)[32], const unsigned char* tb, const unsigned char* ts,
-    uint32_t sb, uint32_t ss, int m0, int warp, int g, int t) {
-  constexpr int kSteps = K / 8;
-  constexpr int kChunks = NM * kSteps / kGroup;
-  constexpr int kRB = K == 16 ? 64 : 128;  // strip swizzle row bytes
-  Frag f[2][kGroup];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    if (c >= 2) wgmma_wait<1>();
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u) {
-      const int fi = c * kGroup + u;
-      const int m = m0 + fi % NM;
-      const int r = 8 * (fi / NM) + t;
-      Frag& fr = f[c & 1][u];
-      if (64 * m + 16 * warp < D) {  // the warp's 16 rows
-        const int col = split_col(64 * m + 16 * warp + g);
-        const uint32_t o[4] = {at<K>(r, col), at<K>(r, col + 8),
-                               at<K>(r + 4, col), at<K>(r + 4, col + 8)};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          fr.b[i] = *reinterpret_cast<const uint32_t*>(tb + o[i]);
-          fr.s[i] = *reinterpret_cast<const uint32_t*>(ts + o[i]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) fr.b[i] = fr.s[i] = 0u;
-      }
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int term = 0; term < 3; ++term) {
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        const int fi = c * kGroup + u;
-        const int k = fi / NM;
-        mma3_term<64, kRB>(acc[fi % NM], f[c & 1][u], sb + strip_k<K>(k),
-                           ss + strip_k<K>(k), term, 1);
-      }
-    }
-    wgmma_commit();
-  }
-}
-
-// write accumulator values x[4j + e] (rows r0 + 8 (e / 2), columns
-// 8j + 2t + (e % 2)) as TF32 big and small into a strip of 64 rows x N
-template <int N>
-__device__ __forceinline__ void write_strip(unsigned char* big,
-                                            unsigned char* small,
-                                            const float (&x)[N / 2], int r0,
-                                            int t) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v0 = x[4 * j + 2 * h];
-      const float v1 = x[4 * j + 2 * h + 1];
-      const uint32_t b0 = to_tf32(v0);
-      const uint32_t b1 = to_tf32(v1);
-      const uint32_t off = strip_at<N>(r0 + 8 * h, 8 * j + 2 * t);
-      *reinterpret_cast<uint2*>(big + off) = make_uint2(b0, b1);
-      *reinterpret_cast<uint2*>(small + off) =
-          make_uint2(to_tf32(v0 - __uint_as_float(b0)),
-                     to_tf32(v1 - __uint_as_float(b1)));
-    }
-  }
-}
 
 // The refill after tile i: once every warp has released its stage, thread
 // 0 loads tile i + S into it.
@@ -464,8 +243,8 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
   auto load_kv = [&](int i) {
     unsigned char* st = stage(i);
     mbar_expect_tx(&full[i % S], 2 * C::kTileBytes);
-    load_tile<D, BN>(st, maps, kK, &full[i % S], kvh, i * BN, b);
-    load_tile<D, BN>(st + 2 * C::kTileBytes, maps, kV, &full[i % S], kvh,
+    load_tile<D, BN>(st, &maps.m[kK], &full[i % S], kvh, i * BN, b);
+    load_tile<D, BN>(st + 2 * C::kTileBytes, &maps.m[kV], &full[i % S], kvh,
                      i * BN, b);
   };
   // split tile i once it has landed (every thread)
@@ -487,8 +266,8 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
     }
     fence_barrier_init();
     mbar_expect_tx(qdo_full, 2 * C::kRowBytes);
-    load_tile<D, kRows>(qdo, maps, kQ, qdo_full, h, m0, b);
-    load_tile<D, kRows>(qdo + C::kRowBytes, maps, kDo, qdo_full, h, m0, b);
+    load_tile<D, kRows>(qdo, &maps.m[kQ], qdo_full, h, m0, b);
+    load_tile<D, kRows>(qdo + C::kRowBytes, &maps.m[kDo], qdo_full, h, m0, b);
     if constexpr (!C::kQdoInRegs) {
       for (int i = 0; i < min(S, n_tiles); ++i) load_kv(i);
     }
@@ -690,9 +469,9 @@ __device__ __forceinline__ void dkv_load(unsigned char* smem, const Maps& maps,
   unsigned char* st = smem + C::kStageOff + s * 4 * C::kTileBytes;
   unsigned char* stat = smem + C::kStatOff + s * 2 * C::kStatBytes;
   mbar_expect_tx(&full[s], 2 * C::kTileBytes + 2 * C::kStatBytes);
-  load_tile<D, C::kBlockM>(st, maps, kQ, &full[s], h, m0, w.b);
-  load_tile<D, C::kBlockM>(st + 2 * C::kTileBytes, maps, kDo, &full[s], h, m0,
-                           w.b);
+  load_tile<D, C::kBlockM>(st, &maps.m[kQ], &full[s], h, m0, w.b);
+  load_tile<D, C::kBlockM>(st + 2 * C::kTileBytes, &maps.m[kDo], &full[s], h,
+                           m0, w.b);
   const int64_t row = (static_cast<int64_t>(w.b) * a.heads + h) * a.t_len + m0;
   bulk_load(stat, a.lse + row, C::kStatBytes, &full[s]);
   bulk_load(stat + C::kStatBytes, a.di + row, C::kStatBytes, &full[s]);
@@ -735,8 +514,8 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
     }
     fence_barrier_init();
     mbar_expect_tx(kv_full, 2 * C::kKVTile);
-    load_tile<D, kRows>(kv, maps, kK, kv_full, w.kvh, n0, w.b);
-    load_tile<D, kRows>(kv + C::kKVTile, maps, kV, kv_full, w.kvh, n0, w.b);
+    load_tile<D, kRows>(kv, &maps.m[kK], kv_full, w.kvh, n0, w.b);
+    load_tile<D, kRows>(kv + C::kKVTile, &maps.m[kV], kv_full, w.kvh, n0, w.b);
     if constexpr (!C::kKVInRegs) {
       for (int it = 0; it < min(S, w.n_it); ++it) {
         dkv_load<D>(smem, maps, a, w, it);
@@ -772,6 +551,29 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
   }
+  // dV, or dK times the scale, (B, T, H_kv, D) dense: acc[m][4j + e] is
+  // d = 64m + kl + 8 (e / 2), key n0 + 8j + 2t + (e % 2). Each element is
+  // this thread's alone: the first flush writes it, later ones add to it in
+  // f32, and the accumulators start again from zero.
+  auto flush = [&](bool first) {
+    const int64_t ld = static_cast<int64_t>(a.kv_heads) * D;
+    float* out = (role == 0 ? a.dv : a.dk) +
+                 (static_cast<int64_t>(w.b) * t_len + n0) * ld +
+                 static_cast<int64_t>(w.kvh) * D;
+    const float mul = role == 0 ? 1.f : a.scale;
+#pragma unroll
+    for (int m = 0; m < kTiles; ++m) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        if (64 * m + 16 * warp < D) {
+          const int d = 64 * m + kl + 8 * ((e >> 1) & 1);
+          float* o = out + (8 * (e / 4) + 2 * t + (e & 1)) * ld + d;
+          *o = first ? acc[m][e] * mul : *o + acc[m][e] * mul;
+        }
+        acc[m][e] = 0.f;
+      }
+    }
+  };
 
   // this warp's rows of K (warpgroup 0) or V (warpgroup 1), columns 8k + 2t
   // and + 1 of rows kl (.x, .y) and kl + 8 (.z, .w)
@@ -884,25 +686,12 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
     wgmma_wait<0>();
 #pragma unroll
     for (int m = 0; m < kTiles; ++m) fence_regs(acc[m]);
+    if ((it + 1) % C::kFlushIts == 0 && it + 1 < w.n_it) {
+      flush(it + 1 == C::kFlushIts);
+    }
     __syncthreads();  // the next tile is split and the strips free
   }
-
-  // dV, or dK times the scale, (B, T, H_kv, D) dense: acc[m][4j + e] is
-  // d = 64m + kl + 8 (e / 2), key n0 + 8j + 2t + (e % 2)
-  const int64_t ld = static_cast<int64_t>(a.kv_heads) * D;
-  float* out = (role == 0 ? a.dv : a.dk) +
-               (static_cast<int64_t>(w.b) * t_len + n0) * ld +
-               static_cast<int64_t>(w.kvh) * D;
-  const float mul = role == 0 ? 1.f : a.scale;
-#pragma unroll
-  for (int m = 0; m < kTiles; ++m) {
-    if (64 * m + 16 * warp >= D) continue;
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int d = 64 * m + kl + 8 * ((e >> 1) & 1);
-      out[(8 * (e / 4) + 2 * t + (e & 1)) * ld + d] = acc[m][e] * mul;
-    }
-  }
+  flush(w.n_it <= C::kFlushIts);
 }
 
 // ---- host ------------------------------------------------------------------

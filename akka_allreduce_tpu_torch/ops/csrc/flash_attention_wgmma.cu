@@ -4,8 +4,8 @@
 //
 // Replaces the flash branch of akka_allreduce_tpu/ops/local_attention.py
 // local_attention, which calls the library Pallas TPU kernel
-// jax.experimental.pallas.ops.tpu.flash_attention. It computes what
-// flash_attention.cu computes (the f32 forward stays there, in f32 FMAs):
+// jax.experimental.pallas.ops.tpu.flash_attention. It computes what the f32
+// forward flash_attention_3xtf32.cu computes:
 //
 //   o[b, i, h, :] = sum_j p_ij v[b, j, h / G, :] / max(l_i, 1e-30)
 //   s_ij = (q[b, i, h, :] . k[b, j, h / G, :]) * scale      (f32)
@@ -46,12 +46,13 @@
 //   4-D maps (D, H, T, B) over the tensors in place, 64-column boxes with a
 //   128-byte swizzle and a 64-byte one for a 32-column remainder; rows past
 //   T are zero-filled, so a ragged last block needs no special load.
-// - Softmax in the accumulator layout: the scores are scaled by scale *
-//   log2(e) (one FMUL; any sign of scale), the row max is taken on them,
-//   and p = 2^(s - m) is one FADD and one ex2; m is kept in base-2 units
-//   and lse converted back to natural log (the backward reads it). The
-//   element mask is built only on the diagonal block and the ragged edge;
-//   masked scores become -inf, whose exponential is exactly 0.
+// - Softmax in the accumulator layout (online_softmax, flash_common.cuh):
+//   the scores are scaled by scale * log2(e) (one FMUL; any sign of
+//   scale), the row max is taken on them, and p = 2^(s - m) is one FADD and
+//   one ex2; m is kept in base-2 units and lse converted back to natural log
+//   (the backward reads it). The element mask is built only on the diagonal
+//   block and the ragged edge; masked scores become -inf, whose exponential
+//   is exactly 0.
 // - Causal: key blocks above the diagonal are skipped, and the CTAs with
 //   the most key blocks are launched first (reversed query-block index).
 // Each consumer runs Q K^T, softmax, P V in turn on a block; the two
@@ -178,55 +179,6 @@ template <int D>
 __device__ __forceinline__ uint32_t stage_addr(const unsigned char* smem,
                                                int s) {
   return smem_addr(smem) + Cfg<D>::kKOff + s * 2 * Cfg<D>::kTileBytes;
-}
-
-// One key block's online softmax on raw scores s (the accumulator layout:
-// this thread's rows row_lo and row_lo + 8, keys n0 + 8j + 2t + {0, 1}):
-// scale them to base-2 units, mask where a key of the block is past T or
-// above the diagonal for some row of the consumer (whose first row is
-// row0), take the row max, move m_run and l_run, and leave p = 2^(s - m)
-// in s and the rescale factor of the rows' earlier sums in corr.
-template <int BN>
-__device__ __forceinline__ void online_softmax(float (&s)[BN / 2],
-                                               float (&m_run)[2],
-                                               float (&l_run)[2],
-                                               float (&corr)[2],
-                                               float scale_log2, int n0,
-                                               int row_lo, int t, int t_len,
-                                               int causal, int row0) {
-#pragma unroll
-  for (int e = 0; e < BN / 2; ++e) s[e] *= scale_log2;
-  if (n0 + BN > t_len || (causal && n0 + BN - 1 > row0)) {
-#pragma unroll
-    for (int e = 0; e < BN / 2; ++e) {
-      const int key = n0 + 8 * (e / 4) + 2 * t + (e & 1);
-      const int row = row_lo + 8 * ((e >> 1) & 1);
-      if (key >= t_len || (causal && key > row)) s[e] = -INFINITY;
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int e = 0; e < BN / 2; ++e) {
-    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m_run[r], mx[r]);
-    corr[r] = exp2_approx(m_run[r] - m_new);
-    m_run[r] = m_new;
-  }
-  float psum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int e = 0; e < BN / 2; ++e) {
-    const int r = (e >> 1) & 1;
-    const float p = exp2_approx(s[e] - m_run[r]);
-    s[e] = p;
-    psum[r] += p;
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + psum[r];
 }
 
 // P (f32, the accumulator layout) rounded to bf16 as the A operand of the

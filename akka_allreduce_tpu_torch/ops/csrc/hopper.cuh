@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks, in inline PTX: TMA tensor maps (built on
 // the host) and tile loads, mbarrier pipelines with bounded waits, wgmma
 // shared-memory descriptors and products (bf16, and TF32 for the split-TF32
-// f32 backward), the proxy fence and named barriers, and setmaxnreg, for the
-// bf16 flash-attention forward (flash_attention_wgmma.cu) and backward
-// (flash_attention_bwd_wgmma.cu) and the f32 backward
+// f32 kernels, whose shared pieces are in tf32.cuh), the proxy fence and
+// named barriers, and setmaxnreg, for the bf16 flash-attention forward
+// (flash_attention_wgmma.cu) and backward (flash_attention_bwd_wgmma.cu)
+// and the f32 forward (flash_attention_3xtf32.cu) and backward
 // (flash_attention_bwd_3xtf32.cu); and thread-block
 // cluster helpers (cluster rank and id, mapa, barrier.cluster, remote
 // mbarrier arrivals, st.async into a neighbour's shared memory) for the

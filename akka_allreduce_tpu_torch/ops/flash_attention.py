@@ -14,9 +14,12 @@ for ``sm_90a``:
   bf16 goes to ``csrc/flash_attention_wgmma.cu``, designed for Hopper (one
   CTA per 128 query rows, a TMA producer warpgroup and two ``wgmma``
   consumer warpgroups, K/V through a ring of ``mbarrier`` stages, exp2
-  softmax); f32 goes to ``csrc/flash_attention.cu`` (one CTA per 64 query
-  rows, four warps, ``cp.async`` tiles, f32 FMAs; not yet on the tensor
-  cores). Both skip causal blocks above the diagonal.
+  softmax); f32 goes to ``csrc/flash_attention_3xtf32.cu``, designed for
+  Hopper in split TF32 (one CTA per 128 query rows, two ``wgmma`` consumer
+  warpgroups with thread 0 issuing the TMA loads, Q resident in shared
+  memory, 64-key tiles up to D 128; P as the register A operand of
+  ``O += P V`` against V's split written transposed, since TF32 ``wgmma``
+  has no transposed operand). Both skip causal blocks above the diagonal.
 - **Backward**: dQ, dK, dV from Q, K, V, O, dO and ``lse``, with
   ``di = sum(o * do, -1)``, in two deterministic kernels (no atomics): dQ,
   one CTA per block of queries looping over the key blocks, and dK/dV, one
@@ -39,10 +42,10 @@ for ``sm_90a``:
   D 128, causal) the forward's two products are 1.37e11 FLOP and the
   backward's five 3.44e11 FLOP, against 268 MB and 403 MB moved: far above
   the card's ridge in bf16. bf16 runs every product on the tensor cores
-  through ``wgmma`` (P, and dS in the backward, rounded to bf16). The f32
-  backward runs them on the tensor cores in split TF32 (an error of about
-  2^-21 of |a||b| a term, far inside the 1e-4 f32 parity; a single TF32
-  pass, at 2^-11, would break it); the f32 forward runs them as f32 FMAs.
+  through ``wgmma`` (P, and dS in the backward, rounded to bf16). f32 runs
+  them on the tensor cores in split TF32 in both directions (an error of
+  about 2^-21 of |a||b| a term, far inside the 1e-4 f32 parity; a single
+  TF32 pass, at 2^-11, would break it).
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` that joins them,
 and :func:`flash_attention` goes through it on every device: on the CPU both
@@ -55,8 +58,9 @@ admits (``local_attention.flash_shapes_ok``: D a multiple of 32 up to 256,
 T a multiple of 512; the kernels need T a multiple of 64, and rows
 16-byte aligned, which TMA needs too); other shapes raise.
 ``LAUNCHES["flash_attention"]`` counts every forward launch,
-``["flash_attention_wgmma"]`` those of the bf16 Hopper kernel among them,
-``["flash_attention_bwd"]`` every backward launch,
+``["flash_attention_wgmma"]`` those of the bf16 Hopper kernel among them and
+``["flash_attention_3xtf32"]`` those of the f32 one;
+``["flash_attention_bwd"]`` counts every backward launch,
 ``["flash_attention_bwd_wgmma"]`` those of the bf16 Hopper kernels among
 them and ``["flash_attention_bwd_3xtf32"]`` those of the f32 ones.
 """
@@ -76,8 +80,9 @@ from akka_allreduce_tpu_torch.ops.ring_attention import (
     repeat_kv,
 )
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_wgmma": 0, "flash_attention_bwd_3xtf32": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_3xtf32": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+            "flash_attention_bwd_3xtf32": 0}
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,7 +97,7 @@ _FWD_ARGTYPES = [
 # the forward's entry in each source
 _FWD_ENTRIES = {
     "flash_attention_wgmma": "akka_flash_attention_fwd_wgmma",
-    "flash_attention": "akka_flash_attention_fwd",
+    "flash_attention_3xtf32": "akka_flash_attention_fwd_3xtf32",
 }
 # both backward entries: q, k, v, o, do, lse, di, dq, dk, dv, B, T, H, H_kv,
 # D, q/k/v/o/do batch strides, q/k/v/o/do row strides, scale, causal,
@@ -219,8 +224,10 @@ def forward_kernel(dtype: torch.dtype) -> str:
     this dtype: a fixed dispatch, not a fallback, the same at every D the
     gate admits (32 to 256, step 32). bf16 takes the Hopper kernel
     (``flash_attention_wgmma``: key tiles of 128 up to D 128, of 64 above);
-    f32 takes ``flash_attention`` (f32 FMAs)."""
-    return "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention"
+    f32 takes ``flash_attention_3xtf32`` (split-TF32 ``wgmma``: key tiles of
+    64 up to D 128, of 16 above)."""
+    return ("flash_attention_wgmma" if dtype == torch.bfloat16
+            else "flash_attention_3xtf32")
 
 
 def backward_kernel(dtype: torch.dtype) -> str:
@@ -293,8 +300,7 @@ def _forward(q, k, v, causal: bool, scale: float):
     lib, fn = _entry(name, _FWD_ENTRIES[name], _FWD_ARGTYPES)
     _build.check(lib, fn(*args), "flash attention kernel launch")
     LAUNCHES["flash_attention"] += 1
-    if name == "flash_attention_wgmma":
-        LAUNCHES["flash_attention_wgmma"] += 1
+    LAUNCHES[name] += 1
     return out, lse
 
 
@@ -406,8 +412,8 @@ def flash_attention(
     or raises: dtypes other than f32 and bf16, D not a multiple of 32 or
     above 256, T not a multiple of 64 and rows not 16-byte aligned are not
     covered. bf16 runs the Hopper kernels (``wgmma``, TMA, ``mbarrier``
-    pipelines) in both directions at every covered D; f32 runs the f32-FMA
-    forward and the split-TF32 Hopper backward (:func:`forward_kernel`,
+    pipelines) in both directions at every covered D; f32 runs the split-TF32
+    Hopper kernels in both directions (:func:`forward_kernel`,
     :func:`backward_kernel`). On a CPU tensor it runs the plain versions.
     """
     _check(q, k, v)

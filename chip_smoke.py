@@ -10,7 +10,7 @@ Phases, each printed as it ends:
 
 1. card: name, power limit and count (``nvidia-smi``);
 2. build: ``nvcc`` compiles every kernel source of the paths
-   (``local_reduce``, ``ring``, ``flash_attention`` (f32),
+   (``local_reduce``, ``ring``, ``flash_attention_3xtf32`` (f32),
    ``flash_attention_wgmma`` (bf16), ``flash_attention_bwd_3xtf32`` (f32)
    and ``flash_attention_bwd_wgmma`` (bf16)), all in parallel, and ptxas's
    register and spill lines go to stderr;
@@ -31,13 +31,16 @@ Phases, each printed as it ends:
    row checked against rank 0's; its ptxas report (registers, spills) and
    launch plan (ranks per CTA, cluster, clusters, item width, int8 team,
    shared memory) are printed; then K4, the
-   flash-attention forward, against its plain version: the flagship shape
-   (B 8, T 2048, H 16, D 128) in bf16, causal, through the Hopper kernel
-   (``flash_attention_wgmma``: its launch counter moves, a repeat is bit
-   identical); the same in f32 at B 2; non-causal; D in {32, 64, 96, 128,
-   256}; T in {1024, 1536, 4096}; grouped-query K/V (4 and 1 KV heads); in
-   bf16 also T 576 and 1088 (ragged 128-row blocks) with 4 and 1 KV heads,
-   and the lse within 1e-4; then K4's backward (dq, dk, dv)
+   flash-attention forward, against its plain version (the f32 kernel's
+   ptxas registers and spills and its shared memory at every D printed
+   first): the flagship shape (B 8, T 2048, H 16, D 128) in bf16, causal,
+   through the bf16 Hopper kernel (``flash_attention_wgmma``), the same in
+   f32 at B 2 through the split-TF32 one (``flash_attention_3xtf32``), each
+   counter moving for every shape of its dtype and for no other, a repeat
+   bit-identical; non-causal; D in {32, 64, 96, 128, 256}; T in {1024,
+   1536, 4096}; grouped-query K/V (4 and 1 KV heads); T 576 and 1088
+   (ragged 128-row blocks) with 4 and 1 KV heads; and the lse within 1e-4;
+   then K4's backward (dq, dk, dv)
    and the forward's lse against the plain versions: the flagship in bf16
    through the Hopper kernels (``flash_attention_bwd_wgmma``), f32 at B 2
    through the split-TF32 Hopper kernels (``flash_attention_bwd_3xtf32``),
@@ -62,8 +65,8 @@ Phases, each printed as it ends:
    shape) against a float64 sum; (d) the Transformer LM's serving path at
    the flagship width (vocab 256, d_model 2048, 16 heads, 8 layers, seeded
    random weights): the bf16 forward on B 8 x T 2048 copy-task tokens
-   (K4 once a layer through the Hopper kernel, finite logits); the f32
-   forward against
+   (K4 once a layer through the bf16 Hopper kernel, finite logits); the
+   f32 forward (K4 once a layer through the split-TF32 one) against
    ``LMGenerator.decode_logits(chunk=256)``, whose nonzero offsets take the
    dense or blockwise path (no K4); ``LMGenerator.generate`` with the
    2048-token prompt and 32 greedy steps in f32 (K4 at prefill), its first
@@ -74,8 +77,9 @@ Phases, each printed as it ends:
    backward 8 times a step each, both through the Hopper kernels, finite
    losses, contributors 1), then a
    ``valid=[0]`` step (loss 0, contributors 0); the whole model's f32
-   gradient (2 layers, B 2, T 2048) with the kernels (the f32 backward
-   through ``flash_attention_bwd_3xtf32``) against the same model's with
+   gradient (2 layers, B 2, T 2048) with the kernels (the f32 forward and
+   backward through ``flash_attention_3xtf32`` and
+   ``flash_attention_bwd_3xtf32``) against the same model's with
    the plain attention; ``lm-generate --train-steps`` at a small gated width
    (d 128, 4 heads, 2 layers, T 1024; its f32 backward through the same
    kernels), whose last loss must be below its first, with the copy
@@ -93,8 +97,9 @@ Phases, each printed as it ends:
    ended by a synchronize; K4's forward + backward share of it) and two
    steps under ``torch.profiler``; and ``bench-mfu``'s record (slope-timed
    MFU of the same step); the flagship-width f32 training step at B 2
-   (median of 5, host clock; K4's backward's share of it from its CUDA-event
-   time);
+   (median of 5, host clock; K4's forward's and backward's shares of it
+   from their CUDA-event times) and two such steps under ``torch.profiler``
+   (device busy share, top kernels, K4's kernels);
 6. one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -160,7 +165,7 @@ SOURCE = {
     "elastic_average_step": "akka_allreduce_tpu_torch/ops/csrc/local_reduce.cu",
     **{ring_name(m): "akka_allreduce_tpu_torch/ops/csrc/ring.cu" for m in RING_MODES},
     "flash_attention_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_wgmma.cu",
-    "flash_attention_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_3xtf32.cu",
     "flash_attention_bwd_bf16": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd_wgmma.cu",
     "flash_attention_bwd_f32": "akka_allreduce_tpu_torch/ops/csrc/flash_attention_bwd_3xtf32.cu",
 }
@@ -202,9 +207,9 @@ def flash_name(dtype) -> str:
 def check_flash(dev, gen) -> tuple[dict, float, float]:
     """K4 against its plain version at every listed shape; returns the error
     at each dtype's flagship shape, the largest error elsewhere and the
-    largest bf16 lse error. The bf16 flagship must go through the Hopper
-    kernel and repeat bit for bit; every bf16 shape's lse must be within
-    1e-4 of the plain version's."""
+    largest lse error. Every shape must go through the kernel
+    ``forward_kernel`` names for its dtype, and its lse must be within 1e-4
+    of the plain version's; each flagship must repeat bit for bit."""
     import torch
 
     from akka_allreduce_tpu_torch.ops import flash_attention as fa
@@ -218,32 +223,32 @@ def check_flash(dev, gen) -> tuple[dict, float, float]:
         shapes += [(dt, (2, 1024, 4, 4, hd, True)) for hd in (32, 64, 96, 128, 256)]
         shapes += [(dt, (1, tt, 4, 4, 128, True)) for tt in (1024, 1536, 4096)]
         shapes += [(dt, (2, t, h, 4, d, True)), (dt, (1, 1024, 8, 1, 64, True))]
-    # T a multiple of 64 but not of 128: the Hopper kernel's ragged blocks
-    shapes += [(bf16, (1, tt, 8, hkv, hd, causal)) for tt in (576, 1088)
+    # T a multiple of 64 but not of 128: the Hopper kernels' ragged blocks
+    shapes += [(dt, (1, tt, 8, hkv, hd, causal)) for dt in (bf16, f32) for tt in (576, 1088)
                for hkv, hd in ((4, 128), (1, 64), (1, 256)) for causal in (True, False)]
     err, other, lse_err = {}, 0.0, 0.0
     for dt, (bb, tt, hh, hkv, hd, causal) in shapes:
         q = torch.randn((bb, tt, hh, hd), generator=gen, device=dev).to(dt)
         k = torch.randn((bb, tt, hkv, hd), generator=gen, device=dev).to(dt)
         v = torch.randn((bb, tt, hkv, hd), generator=gen, device=dev).to(dt)
-        before = fa.LAUNCHES["flash_attention_wgmma"]
+        before = dict(fa.LAUNCHES)
         got = fa.flash_attention(q, k, v, causal=causal)
         want, want_lse = fa.flash_attention_reference(q, k, v, causal=causal,
                                                       return_lse=True)
         tol = FLASH_TOL[str(dt).split(".")[-1]]
         what = f"flash {dt} B{bb} T{tt} H{hh}/{hkv} D{hd} causal={causal}"
-        require(fa.LAUNCHES["flash_attention_wgmma"] == before + (dt == bf16),
+        require(all(fa.LAUNCHES[n] == before[n] + (n == fa.forward_kernel(dt))
+                    for n in ("flash_attention_wgmma", "flash_attention_3xtf32")),
                 f"{what}: the kernel forward_kernel names was launched")
         require(got.shape == want.shape and got.dtype == dt, f"{what}: shape/dtype")
         require(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
         e = float((got.float() - want.float()).abs().max())
         require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
                 f"{what}: max abs err {e}")
-        if dt == bf16:
-            _, lse = fa._forward(q, k, v, causal, hd ** -0.5)
-            e_lse = float((lse - want_lse).abs().max())
-            require(e_lse <= 1e-4, f"{what}: lse max abs err {e_lse}")
-            lse_err = max(lse_err, e_lse)
+        _, lse = fa._forward(q, k, v, causal, hd ** -0.5)
+        e_lse = float((lse - want_lse).abs().max())
+        require(e_lse <= 1e-4, f"{what}: lse max abs err {e_lse}")
+        lse_err = max(lse_err, e_lse)
         if (bb, tt, hh, hkv, hd, causal) == flagship[dt]:
             err[flash_name(dt)] = e
             again = fa.flash_attention(q, k, v, causal=causal)
@@ -343,22 +348,26 @@ def check_flash_bwd(dev, gen) -> dict:
             "autograd_err": autograd_err}
 
 
-def bwd_report(lib_name: str, log: str) -> dict:
-    """Per kernel of one backward source (``dq<D>``, ``dkv<D>``): ptxas's
-    registers and spill bytes from the build log, and the dynamic shared
-    memory one CTA takes (from the library's own tile set)."""
+def ptxas_report(lib_name: str, log: str) -> dict:
+    """Per kernel of one K4 source with a ``_smem`` entry (``fwd<D>`` of the
+    f32 forward; ``dq<D>``, ``dkv<D>`` of a backward): ptxas's registers and
+    spill bytes from the build log, and the dynamic shared memory one CTA
+    takes (from the library's own tile set)."""
     import ctypes
 
     from akka_allreduce_tpu_torch.ops import _build
 
     smem = getattr(_build.load(lib_name), f"akka_{lib_name}_smem")
-    smem.argtypes, smem.restype = [ctypes.c_int64, ctypes.c_int], ctypes.c_int
+    bwd = "_bwd_" in lib_name
+    smem.argtypes = [ctypes.c_int64, ctypes.c_int] if bwd else [ctypes.c_int64]
+    smem.restype = ctypes.c_int
     out, cur = {}, None
     for ln in log.splitlines():
-        m = re.search(r"flash_bwd_(dq|dkv)_kernelILi(\d+)E", ln)
+        m = re.search(r"flash_(?:bwd_(dq|dkv)|fwd_3xtf32)_kernelILi(\d+)E", ln)
         if "Compiling entry" in ln and m:
-            cur = f"{m.group(1)}<{m.group(2)}>"
-            out[cur] = {"smem": smem(int(m.group(2)), int(m.group(1) == "dkv"))}
+            kind, d = m.group(1) or "fwd", int(m.group(2))
+            cur = f"{kind}<{d}>"
+            out[cur] = {"smem": smem(d, int(kind == "dkv")) if bwd else smem(d)}
         elif cur and "spill stores" in ln:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
             out[cur].update(spill_stores=int(st), spill_loads=int(ld))
@@ -404,9 +413,9 @@ def lm_main_path(dev) -> dict:
     with torch.no_grad():
         logits32 = model32(tokens)
     torch.cuda.synchronize()
-    launches_b = count["flash_attention"]
-    require(launches_b == n_layers and count["flash_attention_wgmma"] == 0,
-            f"f32 forward: K4 launches {count}")
+    launches_b = count["flash_attention_3xtf32"]
+    require(launches_b == count["flash_attention"] == n_layers
+            and count["flash_attention_wgmma"] == 0, f"f32 forward: K4 launches {count}")
     gen = LMGenerator(model32, max_len=LM_SEQ + LM_GEN)
     oracle = gen.decode_logits(tokens, chunk=256)
     torch.cuda.synchronize()
@@ -422,9 +431,9 @@ def lm_main_path(dev) -> dict:
     zero(count)
     out = gen.generate(tokens, LM_GEN)
     torch.cuda.synchronize()
-    launches_c = count["flash_attention"]
-    require(launches_c == n_layers and count["flash_attention_wgmma"] == 0,
-            f"generate: prefill K4 launches {count}")
+    launches_c = count["flash_attention_3xtf32"]
+    require(launches_c == count["flash_attention"] == n_layers
+            and count["flash_attention_wgmma"] == 0, f"generate: prefill K4 launches {count}")
     require(out.shape == (LM_BATCH, LM_GEN), "generated tokens shape")
     seq = tokens
     with torch.no_grad():
@@ -512,6 +521,7 @@ def lm_train_path(dev) -> dict:
     launches_a = dict(count)
     require(launches_a == {"flash_attention": n_layers * TRAIN_STEPS,
                            "flash_attention_wgmma": n_layers * TRAIN_STEPS,
+                           "flash_attention_3xtf32": 0,
                            "flash_attention_bwd": n_layers * TRAIN_STEPS,
                            "flash_attention_bwd_wgmma": n_layers * TRAIN_STEPS,
                            "flash_attention_bwd_3xtf32": 0},
@@ -538,8 +548,8 @@ def lm_train_path(dev) -> dict:
     torch.cuda.synchronize()
     launches_b = dict(count)
     require(launches_b == {"flash_attention": 2, "flash_attention_wgmma": 0,
-                           "flash_attention_bwd": 2, "flash_attention_bwd_wgmma": 0,
-                           "flash_attention_bwd_3xtf32": 2},
+                           "flash_attention_3xtf32": 2, "flash_attention_bwd": 2,
+                           "flash_attention_bwd_wgmma": 0, "flash_attention_bwd_3xtf32": 2},
             f"f32 gradient: launches {launches_b}")
     with mock.patch.object(la, "flash_attention", lambda q, k, v, causal, sm_scale:
                            fa.flash_attention_reference(q, k, v, causal=causal,
@@ -576,6 +586,7 @@ def lm_train_path(dev) -> dict:
     require(rc == 0 and last < first, f"lm-generate --train-steps: rc {rc}, {trained}")
     want_c = TRAIN_LM["n_layers"] * TRAIN_LM_STEPS
     require(launches_c["flash_attention"] >= want_c
+            and launches_c["flash_attention_3xtf32"] == launches_c["flash_attention"]
             and launches_c["flash_attention_bwd"] == want_c
             and launches_c["flash_attention_bwd_3xtf32"] == want_c
             and launches_c["flash_attention_wgmma"] == 0
@@ -585,7 +596,8 @@ def lm_train_path(dev) -> dict:
     return {
         "launches": {
             "flash_attention_bf16": launches_a["flash_attention_wgmma"],
-            "flash_attention_f32": launches_b["flash_attention"] + launches_c["flash_attention"],
+            "flash_attention_f32": (launches_b["flash_attention_3xtf32"]
+                                    + launches_c["flash_attention_3xtf32"]),
             "flash_attention_bwd_bf16": launches_a["flash_attention_bwd_wgmma"],
             "flash_attention_bwd_f32": (launches_b["flash_attention_bwd_3xtf32"]
                                         + launches_c["flash_attention_bwd_3xtf32"]),
@@ -598,12 +610,11 @@ def lm_train_path(dev) -> dict:
     }
 
 
-def time_train_step(dev, dtype=None, batch: int = LM_BATCH, steps: int = 5,
-                    profiled: bool = True) -> dict:
+def time_train_step(dev, dtype=None, batch: int = LM_BATCH, steps: int = 5) -> dict:
     """The flagship's training step in ``dtype`` (bf16 by default) at
     ``batch``: median host-clock ms over ``steps`` steps (each ends in its
-    loss's host read), after one warm-up step; then, when ``profiled``, two
-    steps under ``torch.profiler``; and the peak memory of them all."""
+    loss's host read), after one warm-up step; then two steps under
+    ``torch.profiler``; and the peak memory of them all."""
     import statistics
 
     import torch
@@ -633,10 +644,8 @@ def time_train_step(dev, dtype=None, batch: int = LM_BATCH, steps: int = 5,
         "param_count": trainer.param_count,
         "step_ms": statistics.median(times),
         "step_ms_all": times,
+        "profile": {**profile_window(two_steps, top=12), "steps": 2},
     }
-    if profiled:
-        out["profile"] = profile_window(two_steps, top=12)
-        out["profile"]["steps"] = 2
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del trainer
     torch.cuda.empty_cache()
@@ -725,8 +734,9 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    paths = _build.build("local_reduce", "ring", "flash_attention", "flash_attention_wgmma",
-                         "flash_attention_bwd_3xtf32", "flash_attention_bwd_wgmma")
+    paths = _build.build("local_reduce", "ring", "flash_attention_3xtf32",
+                         "flash_attention_wgmma", "flash_attention_bwd_3xtf32",
+                         "flash_attention_bwd_wgmma")
     for path in paths.values():
         ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -900,10 +910,16 @@ def main() -> int:
 
     # -- 3c. K4 vs plain ---------------------------------------------------------
     t0 = time.perf_counter()
+    fwd_ptxas = ptxas_report("flash_attention_3xtf32", paths[
+        "flash_attention_3xtf32"].with_suffix(".log").read_text())
+    print("flash_attention_3xtf32 ptxas: " + json.dumps(fwd_ptxas), flush=True)
+    require(len(fwd_ptxas) == 8 and all("registers" in r for r in fwd_ptxas.values()),
+            f"ptxas report of every flash_attention_3xtf32 kernel: {sorted(fwd_ptxas)}")
     flash_err, flash_other, flash_lse = check_flash(dev, gen)
     err.update(flash_err)
     phase("flash_vs_plain", t0, max_abs_err=flash_err,
-          other_shapes_max_abs_err=flash_other, bf16_lse_max_abs_err=flash_lse,
+          other_shapes_max_abs_err=flash_other, lse_max_abs_err=flash_lse,
+          ptxas=fwd_ptxas,
           tolerance={"f32": {"rtol": FLASH_TOL["float32"], "atol": FLASH_TOL["float32"]},
                      "bf16": {"rtol": FLASH_TOL["bfloat16"],
                               "atol": FLASH_TOL["bfloat16"]}, "lse_abs": 1e-4})
@@ -912,7 +928,7 @@ def main() -> int:
     t0 = time.perf_counter()
     bwd_ptxas = {}
     for lib_name in ("flash_attention_bwd_wgmma", "flash_attention_bwd_3xtf32"):
-        report = bwd_report(lib_name, paths[lib_name].with_suffix(".log").read_text())
+        report = ptxas_report(lib_name, paths[lib_name].with_suffix(".log").read_text())
         print(f"{lib_name} ptxas: " + json.dumps(report), flush=True)
         require(len(report) == 16 and all("registers" in r for r in report.values()),
                 f"ptxas report of every {lib_name} kernel: {sorted(report)}")
@@ -1178,9 +1194,12 @@ def main() -> int:
 
     step = time_train_step(dev)
     print(json.dumps({"train_profile": step["profile"]}), flush=True)
-    # the flagship width's f32 training step at B 2: K4's f32 backward runs
-    # 8 times in it, at the shape timed above
-    step32 = time_train_step(dev, torch.float32, batch=2, profiled=False)
+    # the flagship width's f32 training step at B 2: K4's f32 forward and
+    # backward run 8 times each in it, at the shape timed above
+    step32 = time_train_step(dev, torch.float32, batch=2)
+    print(json.dumps({"train_profile_f32": step32["profile"]}), flush=True)
+    k4_fwd_f32_share = (LM["n_layers"] * timing["flash_attention_f32"]["ms"]
+                        / step32["step_ms"])
     k4_bwd_f32_share = (LM["n_layers"] * timing["flash_attention_bwd_f32"]["ms"]
                         / step32["step_ms"])
     floor_ms = transformer_train_flops(
@@ -1243,8 +1262,10 @@ def main() -> int:
           f"{mfu_rec['ms_per_step']} ms/step, MFU {mfu_rec['value']}", flush=True)
     print(f"flagship-width f32 train step (B 2 x T {LM_SEQ}, {card['name']}, "
           f"{card['power_limit']}): {step32['step_ms']:.3f} ms (median of "
-          f"{len(step32['step_ms_all'])}, host clock); K4 backward x {LM['n_layers']} = "
-          f"{k4_bwd_f32_share * 100:.1f}% of it", flush=True)
+          f"{len(step32['step_ms_all'])}, host clock); K4 forward x {LM['n_layers']} = "
+          f"{k4_fwd_f32_share * 100:.1f}% and backward x {LM['n_layers']} = "
+          f"{k4_bwd_f32_share * 100:.1f}% of it; device busy "
+          f"{step32['profile']['busy_share'] * 100:.1f}%", flush=True)
     phase("timings", t0, library_note="masked_average: torch.mv + sum + clamp + "
           "div; elastic_average_step: the same plus Tensor.addr_; "
           "ring_allreduce_f32: xs.sum(0, keepdim=True).expand_as(xs).contiguous(); "
@@ -1259,12 +1280,14 @@ def main() -> int:
           train_floor_ms=floor_ms, train_peak_memory_gb=step["peak_memory_gb"],
           k4_share_of_train_step=k4_train_share,
           f32_train_step_ms=step32["step_ms"], f32_train_step_ms_all=step32["step_ms_all"],
+          k4_fwd_share_of_f32_train_step=k4_fwd_f32_share,
           k4_bwd_share_of_f32_train_step=k4_bwd_f32_share,
           bench_mfu={"mfu": mfu_rec["value"], "ms_per_step": mfu_rec["ms_per_step"],
                      "spread_pct": mfu_rec["spread_pct"]},
           busy_share={"prefill": prof["prefill"]["busy_share"],
                       "decode": prof["decode"]["busy_share"],
-                      "train": step["profile"]["busy_share"]})
+                      "train": step["profile"]["busy_share"],
+                      "train_f32": step32["profile"]["busy_share"]})
 
     # -- 6. result lines ----------------------------------------------------------
     phase("total", t_start)

@@ -9,8 +9,10 @@ script digests an older checkout unpacked elsewhere), builds its K4 kernels,
 runs K4's forward and backward on one CUDA card at the listed shapes on
 inputs drawn from seed 0, and prints one JSON object: for each shape, the
 first 16 hex digits of the SHA-256 of the forward's output and lse, and of
-the backward's dq, dk and dv. Equal digests on one card mean bit-identical
-outputs. It exits non-zero without a card.
+the backward's dq, dk and dv; for f32 also of the backward's dq, dk and dv
+on a fixed o and lse (from ``flash_attention_reference``), so that this
+digest does not move with the forward, and of that o and lse. Equal digests
+on one card mean bit-identical outputs. It exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -22,13 +24,14 @@ import sys
 
 import torch
 
-# (dtype, B, T, H, H_kv, D, causal): the flagship in bf16 and f32, and bf16
+# (dtype, B, T, H, H_kv, D, causal): the flagship in bf16 and f32, and
 # shapes with ragged 128-row blocks, grouped-query K/V and D 64 and 256
 SHAPES = [
     ("bfloat16", 8, 2048, 16, 16, 128, True),
     ("bfloat16", 1, 1088, 8, 1, 64, True),
     ("bfloat16", 1, 576, 8, 4, 256, False),
     ("float32", 2, 2048, 16, 16, 128, True),
+    ("float32", 1, 1088, 8, 1, 64, True),
 ]
 
 
@@ -58,8 +61,14 @@ def main() -> int:
         o, lse = fa._forward(q, k, v, causal, d ** -0.5)
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
-        out[f"{dt} B{b} T{t} H{h}/{h_kv} D{d} causal={causal}"] = {
-            "forward": digest(o, lse), "backward": digest(*grads)}
+        row = {"forward": digest(o, lse), "backward": digest(*grads)}
+        if dt == "float32":
+            o, lse = fa.flash_attention_reference(q, k, v, causal=causal,
+                                                  return_lse=True)
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            torch.cuda.synchronize()
+            row.update(fixed_o_lse=digest(o, lse), backward_fixed=digest(*grads))
+        out[f"{dt} B{b} T{t} H{h}/{h_kv} D{d} causal={causal}"] = row
     print(json.dumps(out))
     return 0
 

@@ -19,7 +19,9 @@ and ``akka_allreduce_tpu_torch.ops``:
 - which path ``local_attention`` takes for each shape and offset;
 - the guards of the K4 wrapper that hold on every device, the forward's
   fixed dispatch by dtype and the stride rules of the kernels' TMA maps;
-- the API at a negative or zero scale, against softmax written out densely.
+- the API at a negative or zero scale, against softmax written out densely;
+- the f32 kernels' split-TF32 numerics, emulated: within 1e-5 of the plain
+  forward, where one TF32 pass misses 1e-4.
 """
 
 from __future__ import annotations
@@ -254,11 +256,11 @@ def test_flash_wrapper_guards_on_every_device():
 
 @pytest.mark.parametrize("d", range(32, 257, 32))
 def test_forward_kernel_dispatch_by_dtype(d):
-    """The fixed dispatch of K4's forward: bf16 to the Hopper kernel and f32
-    to the f32 one, each naming a source that exists; the kernels' shape
-    check passes D and raises on the D between and beyond."""
+    """The fixed dispatch of K4's forward: bf16 to the bf16 Hopper kernel and
+    f32 to the split-TF32 one, each naming a source that exists; the
+    kernels' shape check passes D and raises on the D between and beyond."""
     assert fa.forward_kernel(torch.bfloat16) == "flash_attention_wgmma"
-    assert fa.forward_kernel(torch.float32) == "flash_attention"
+    assert fa.forward_kernel(torch.float32) == "flash_attention_3xtf32"
     for dtype in (torch.bfloat16, torch.float32):
         assert (fa._build.CSRC / f"{fa.forward_kernel(dtype)}.cu").is_file()
     with pytest.raises(ValueError, match="lie on one CUDA device"):  # D passed
@@ -326,6 +328,55 @@ def test_flash_attention_takes_any_scale(scale, causal):
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(fa.flash_attention(q, k, v, causal=causal, sm_scale=scale),
                                out, rtol=0, atol=0)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa bits, to
+    nearest, ties away from zero (on the f32 bit pattern, sign apart)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_products(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b with TF32 operands and f32 sums: one pass (big x big) or split
+    TF32's three (small x big + big x small, then big x big)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_tf32_forward_numerics_hold_f32_parity(causal):
+    """The numerics argument of the f32 forward kernel: both of its products
+    (S = Q K^T and O = P V) taken as split TF32, with ``cvt.rna.tf32``
+    emulated on the bit patterns, land within 1e-5 of
+    ``flash_attention_reference`` at B 1, T 128, H 2, D 64; one TF32 pass
+    does not hold the kernels' 1e-4 parity. The tolerance: each split-TF32
+    product errs by about 2^-21 |a||b| a term (the dropped small x small
+    term and the rounding of the small parts), summed over 64 terms of
+    unit-variance inputs and scaled by 1/8 that is under 1e-6 in a score,
+    and the softmax and P V carry it to the output at that size; 1e-5
+    leaves a margin of ten. One pass errs by about 2^-11 a term."""
+    rng = np.random.default_rng(41)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 128, 2, 64)).astype(np.float32))
+               for _ in range(3))
+    want, want_lse = fa.flash_attention_reference(q, k, v, causal=causal,
+                                                  return_lse=True)
+    qh, kh, vh = (x[0].transpose(0, 1) for x in (q, k, v))  # (H, T, D)
+    err = {}
+    for passes in (3, 1):
+        s = _tf32_products(qh, kh.transpose(1, 2), passes) * 64 ** -0.5
+        if causal:
+            s = s.masked_fill(torch.ones(128, 128, dtype=torch.bool).triu(1), float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        out = (_tf32_products(p, vh, passes) / l).transpose(0, 1)[None]
+        lse = (m + torch.log(l))[..., 0][None]
+        err[passes] = max(float((out - want).abs().max()),
+                          float((lse - want_lse).abs().max()))
+    assert err[3] <= 1e-5, err
+    assert err[1] > 1e-4, err
 
 
 # -- K4's backward ------------------------------------------------------------

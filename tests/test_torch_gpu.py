@@ -13,7 +13,7 @@ in all three wire modes too.
 K4 sums in another order than the plain version's dense products and, in
 bf16, rounds P to bf16 for the PV product: f32 is held to rtol = atol =
 1e-4, bf16 to rtol = atol = 2e-2, the forward's lse to 1e-4 (absolute),
-and two launches of the bf16 forward on the same inputs to bit equality.
+and two launches of either forward on the same inputs to bit equality.
 K4's backward (which also rounds P and dS to bf16 in bf16) is held to the
 same numbers relative to max|grad|, two of its launches on the same inputs
 to bit equality, and the bf16 kernel's di to 1e-5 of PyTorch's reduction.
@@ -356,18 +356,20 @@ def _qkv(b, t, h, h_kv, d, dtype, dev, seed=0):
 )
 def test_flash_kernel_matches_plain(card, b, t, h, h_kv, d, dtype, causal):
     q, k, v = _qkv(b, t, h, h_kv, d, dtype, card)
-    before = fa.LAUNCHES["flash_attention"]
+    before = dict(fa.LAUNCHES)
     out = fa.flash_attention(q, k, v, causal=causal)
     ref = fa.flash_attention_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    for name in ("flash_attention_wgmma", "flash_attention_3xtf32"):
+        assert fa.LAUNCHES[name] == before[name] + (name == fa.forward_kernel(dtype))
     assert out.dtype == dtype and out.shape == (b, t, h, d)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64),
-                                     (torch.bfloat16, 128)])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 64), (torch.bfloat16, 128)])
 def test_flash_kernel_reads_a_cache_slice_in_place(card, dtype, d):
     """K/V as the live slots of a longer cache (batch stride > T * H * D)."""
     q, k, v = _qkv(2, 256, 4, 2, d, dtype, card, seed=5)
@@ -405,11 +407,37 @@ def test_wgmma_forward_matches_plain(card, d, t, h, h_kv, causal):
     assert torch.equal(lse, again_lse)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,h_kv", [(2, 2), (8, 4), (4, 1)])
+@pytest.mark.parametrize("t", [576, 1088])
+@pytest.mark.parametrize("d", range(32, 257, 32))
+def test_3xtf32_forward_matches_plain(card, d, t, h, h_kv, causal):
+    """The f32 Hopper forward (split TF32) at every D it covers, at T a
+    multiple of 64 but not of 128 (a ragged last query block), with compact
+    GQA K/V: the output within 1e-4 and lse within 1e-4 of the plain
+    version, one launch of that kernel, and a repeat bit-identical."""
+    q, k, v = _qkv(1, t, h, h_kv, d, torch.float32, card, seed=d + t + h_kv)
+    assert fa.forward_kernel(q.dtype) == "flash_attention_3xtf32"
+    before = dict(fa.LAUNCHES)
+    out, lse = fa._forward(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_3xtf32"] == before["flash_attention_3xtf32"] + 1
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_wgmma"] == before["flash_attention_wgmma"]
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+    assert out.dtype == torch.float32 and out.shape == (1, t, h, d)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    again, again_lse = fa._forward(q, k, v, causal, d ** -0.5)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(lse.view(torch.int32), again_lse.view(torch.int32))
+
+
 @pytest.mark.parametrize("d", range(32, 257, 32))
 def test_forward_dispatch_sends_each_dtype_where_the_source_says(card, d):
-    """bf16 launches the Hopper kernel and f32 the f32 kernel, at every D,
-    and both take any scale: a negative and a zero one match the plain
-    version as the default does."""
+    """bf16 launches the bf16 Hopper kernel and f32 the split-TF32 one, at
+    every D, and both take any scale: a negative and a zero one match the
+    plain version as the default does."""
     for dtype, wgmma in ((torch.bfloat16, 1), (torch.float32, 0)):
         q, k, v = _qkv(1, 128, 2, 2, d, dtype, card, seed=d)
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
@@ -419,6 +447,8 @@ def test_forward_dispatch_sends_each_dtype_where_the_source_says(card, d):
             assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
             assert (fa.LAUNCHES["flash_attention_wgmma"]
                     == before["flash_attention_wgmma"] + wgmma)
+            assert (fa.LAUNCHES["flash_attention_3xtf32"]
+                    == before["flash_attention_3xtf32"] + 1 - wgmma)
             ref = fa.flash_attention_reference(q, k, v, causal=True, sm_scale=scale)
             torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
@@ -528,6 +558,23 @@ def test_flash_bwd_kernel_matches_plain(card, b, t, h, h_kv, d, dtype, causal):
         assert g.dtype == dtype and g.shape == w.shape, name
         assert bool(torch.isfinite(g).all()), name
         assert _rel_err(g, w) <= FLASH_TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b,t,h,h_kv,d", [(1, 1024, 16, 1, 64), (1, 4096, 4, 1, 64),
+                                          (1, 1024, 16, 1, 256)])
+def test_f32_bwd_holds_long_runs_of_query_rows(card, b, t, h, h_kv, d, seed):
+    """dK and dV sum over every query row of a kv head's GQA group: 16,384
+    rows here. The f32 backward holds them within 1e-4 of max|grad| of the
+    plain version: its tensor-core accumulators are added into dK and dV in
+    f32 every 1,024 rows, where one run over all 16,384 drifted past 1e-4."""
+    q, k, v = _qkv(b, t, h, h_kv, d, torch.float32, card, seed=seed)
+    do = _qkv(b, t, h, h, d, torch.float32, card, seed=seed + 100)[0]
+    o, lse = fa._forward(q, k, v, True, d ** -0.5)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= 1e-4, (name, _rel_err(g, w))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

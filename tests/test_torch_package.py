@@ -167,7 +167,8 @@ def test_cpu_attention_path_counts_no_launches():
     model(torch.zeros((1, 1024), dtype=torch.int64)).sum().backward()
     assert model.blocks[0].attn.q_kernel.grad.abs().sum() > 0
     assert tflash.LAUNCHES == before
-    assert set(before) == {"flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
+    assert set(before) == {"flash_attention", "flash_attention_wgmma",
+                           "flash_attention_3xtf32", "flash_attention_bwd",
                            "flash_attention_bwd_wgmma", "flash_attention_bwd_3xtf32"}
 
 
