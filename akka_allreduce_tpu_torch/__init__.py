@@ -23,23 +23,27 @@ Module names mirror the JAX package so each counterpart is easy to find:
   with the attention dispatch (``local_attention``: dense, flash or
   blockwise)
 - ``models``        — the Transformer LM on one device (``TransformerLM``,
-  ``rope``, ``remat``), its KV-cache decoder (``LMGenerator``), the copy
-  task's data (host batches and a device sampler) and the carrying-over of
-  flax weights
-- ``train``         — ``LongContextTrainer``, the LM's trainer on one card,
-  and ``normalize_valid``
+  ``rope``, ``remat``), its KV-cache decoder (``LMGenerator``), the MLP of
+  config 3 (``MLP``), the copy task's and the classification stream's data
+  (host batches and device samplers) and the carrying-over of flax weights
+- ``train``         — ``DPTrainer``, the data-parallel trainer over virtual
+  ranks (its f32 gradient average through K1 on the card),
+  ``LongContextTrainer``, the LM's trainer on one card, and the shared
+  helpers
 - ``binder``        — parameters to and from one flat f32 vector in the JAX
   trainers' leaf order (``flatten_params``)
 - ``state``         — hand-over of the ``(K, data)`` replica state to and from
   numpy, in the JAX package's flat or packed layout
 - ``utils``         — slope timing, CUDA-event timing, card description,
   FLOP accounting, per-round metrics
-- ``bench_suite``   — the single-card branch of BASELINE configs 2 and 4
+- ``bench_suite``   — the single-card branch of BASELINE configs 2 and 4,
+  and config 3
 - ``__main__``      — ``bench-suite``, ``bench`` (allreduce bandwidth),
   ``lm-generate`` (KV-cache decoding, optionally after training),
-  ``train-lm`` and ``bench-mfu``
+  ``train-lm``, ``train-mlp`` and ``bench-mfu``
 - ``bench``         — the single-card ``local_threshold_reduce_bw`` metric
-- ``bench_mfu``     — the slope-timed MFU of the LM's training step
+- ``bench_mfu``     — the slope-timed MFU of the LM's and the MLP's
+  training steps
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with
 no CUDA they raise instead of running on the CPU (see ``_device``).

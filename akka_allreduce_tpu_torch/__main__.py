@@ -3,7 +3,7 @@
 Commands:
 
 - ``bench-suite [--quick] [--device cpu] [--floats N] [--out FILE]`` — the
-  BASELINE configs ported so far (2 and 4), one JSON record each.
+  BASELINE configs ported so far (2, 3 and 4), one JSON record each.
 - ``bench [--floats N] [--iters N] [--schedule psum|butterfly|ring]
   [--bucket N] [--compress bf16|int8] [--devices N] [--mesh line|grid]
   [--device cpu]`` — threshold-allreduce bandwidth over N virtual ranks on
@@ -32,7 +32,17 @@ Commands:
   the step time, TFLOP/s, MFU and the loss trend. ``--dp/--sp/--tp`` above
   1, ``--compress``, ``--overlap`` and the checkpoint flags are not ported
   yet and are refused.
-- ``bench-mfu [--workload lm] ...`` — the slope-timed MFU record of
+- ``train-mlp [--steps N] [--batch N] [--lr X] [--hidden N ...] [--bucket N]
+  [--compress bf16|int8] [--error-feedback] [--bf16] [--devices N] [--mesh
+  line|grid] [--device-data] [--metrics-out FILE] [--device cpu]`` — the
+  MLP/MNIST data-parallel SGD of config 3: ``DPTrainer`` over ``--devices``
+  virtual ranks (default 8) on one card, the f32 gradient average through
+  K1. The host loop (one ``train_step`` event a step in the metrics JSONL)
+  or, with ``--device-data``, one chain with batches drawn on the card.
+  Prints the parameter count and mesh, then the step time, TFLOP/s and the
+  loss trend. ``--overlap``, ``--accum`` above 1 and the checkpoint flags
+  are not ported yet and are refused.
+- ``bench-mfu [--workload lm|mlp] ...`` — the slope-timed MFU record of
   ``bench_mfu.py`` (the flagship LM by default).
 """
 
@@ -45,13 +55,13 @@ import sys
 def _cmd_bench_suite(argv: list[str]) -> int:
     p = argparse.ArgumentParser(
         "bench-suite",
-        description="run the ported BASELINE configs (2 and 4), one JSON "
+        description="run the ported BASELINE configs (2, 3 and 4), one JSON "
         "record each",
     )
     p.add_argument("--out", default=None, help="append records to this JSONL")
     p.add_argument(
         "--quick", action="store_true",
-        help="1/8-size payloads at fixed trip counts",
+        help="1/8-size payloads and short chains at fixed trip counts",
     )
     p.add_argument(
         "--device", default=None,
@@ -455,6 +465,139 @@ def _cmd_train_lm(argv: list[str]) -> int:
     return 0
 
 
+def _cmd_train_mlp(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "train-mlp",
+        description="MLP/MNIST data-parallel SGD (config 3) over virtual ranks "
+        "on one card",
+    )
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--batch", type=int, default=64, help="global batch size")
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--hidden", type=int, nargs="+", default=[128])
+    p.add_argument("--bucket", type=int, default=None, help="grad bucket (elements)")
+    p.add_argument(
+        "--compress", choices=("bf16", "int8"), default=None,
+        help="gradient wire compression: bf16 (psum) or int8 (ring, line mesh only)",
+    )
+    p.add_argument(
+        "--error-feedback", action="store_true",
+        help="carry each rank's compression residual into its next contribution "
+        "(requires --compress)",
+    )
+    p.add_argument(
+        "--bf16", action="store_true",
+        help="bfloat16 activations and products (params and logits stay f32)",
+    )
+    p.add_argument("--devices", type=int, default=8, help="virtual ranks")
+    p.add_argument(
+        "--mesh", choices=("line", "grid"), default="line",
+        help="1D line or 2D butterfly grid of the ranks",
+    )
+    p.add_argument("--metrics-out", default=None, help="JSONL metrics path")
+    p.add_argument(
+        "--device-data", action="store_true",
+        help="sample batches on the device inside one chain",
+    )
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' runs the plain PyTorch path; default: the CUDA card",
+    )
+    # the JAX command's options that need parts not ported yet
+    p.add_argument("--overlap", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--accum", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--checkpoint-every", type=int, default=0, help=argparse.SUPPRESS)
+    for flag in ("--async-checkpoint", "--delta-checkpoint"):
+        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    for flag, value, ok, what in (
+        ("--overlap", args.overlap, (False,), "per-leaf gradient collectives"),
+        ("--accum", args.accum, (1,), "gradient accumulation"),
+        ("--checkpoint-dir", args.checkpoint_dir, (None,), "checkpoints"),
+        ("--checkpoint-every", args.checkpoint_every, (0,), "checkpoints"),
+        ("--async-checkpoint", args.async_checkpoint, (False,), "checkpoints"),
+        ("--delta-checkpoint", args.delta_checkpoint, (False,), "checkpoints"),
+    ):
+        if value not in ok:
+            p.error(f"{flag} is not ported yet ({what})")
+
+    import time
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
+    from akka_allreduce_tpu_torch.train import DPTrainer
+    from akka_allreduce_tpu_torch.utils.benchmarking import dense_train_flops
+    from akka_allreduce_tpu_torch.utils.metrics import MetricsLogger
+
+    if args.mesh == "grid":
+        mesh = grid_mesh(n=args.devices, device=args.device)
+    else:
+        mesh = line_mesh(args.devices, device=args.device)
+    dev = mesh.device
+    trainer = DPTrainer(
+        MLP(hidden=tuple(args.hidden), classes=10,
+            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, device=dev),
+        mesh, learning_rate=args.lr, bucket_size=args.bucket,
+        compress=args.compress, error_feedback=args.error_feedback,
+    )
+    if args.batch % trainer.data_shards:
+        p.error(f"global batch {args.batch} not divisible by {trainer.data_shards} ranks")
+    print(f"MLP params: {trainer.param_count / 1e6:.3f}M, mesh {mesh.shape}, "
+          f"device {dev}")
+    label = "mlp_mnist"
+    flops = dense_train_flops(trainer.param_count, args.batch)
+    ds = mnist_like()
+    logger = MetricsLogger(args.metrics_out)
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    if args.device_data:
+        history = trainer.train_chain(ds.device_sampler(), args.steps,
+                                      args.batch // trainer.data_shards)
+        total = time.perf_counter() - t0
+        for m in history:
+            logger.log_event(kind="train_step", workload=label, step=m.step,
+                             loss=m.loss, contributors=m.contributors)
+    else:
+        history = []
+        for x, y in ds.batches(args.batch, args.steps):
+            st = time.perf_counter()
+            m = trainer.train_step(x, y)  # ends in the loss's host read
+            dt = time.perf_counter() - st
+            history.append(m)
+            logger.log_event(
+                kind="train_step", workload=label, step=m.step, loss=m.loss,
+                contributors=m.contributors, step_time_s=round(dt, 6),
+                **_mfu_fields(flops, dt, dev),
+            )
+        total = time.perf_counter() - t0
+    losses = [m.loss for m in history]
+    # the first steps' warm-up is included, so this MFU is a floor;
+    # bench-mfu --workload mlp is the slope-timed measurement
+    perf = _mfu_fields(flops, total / max(len(losses), 1), dev)
+    if perf:
+        logger.log_event(kind="train_summary", workload=label, steps=len(losses),
+                         host_loop=not args.device_data, **perf)
+    logger.close()
+    trend = (f"loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f}"
+             if losses else "no steps taken")
+    mode = "on-device " if args.device_data else ""
+    print(
+        f"{label}: {len(losses)} {mode}steps over {trainer.n_devices} virtual ranks "
+        f"in {total:.2f}s ({total / max(len(losses), 1) * 1e3:.2f} ms/step)"
+        f"{_mfu_note(perf)}; {trend}", flush=True,
+    )
+    return 0
+
+
 def _cmd_bench_mfu(argv: list[str]) -> int:
     from akka_allreduce_tpu_torch.bench_mfu import main as bench_mfu_main
 
@@ -466,6 +609,7 @@ COMMANDS = {
     "bench": _cmd_bench,
     "lm-generate": _cmd_lm_generate,
     "train-lm": _cmd_train_lm,
+    "train-mlp": _cmd_train_mlp,
     "bench-mfu": _cmd_bench_mfu,
 }
 

@@ -1,7 +1,7 @@
 """MFU benchmark of the port: slope-timed training chains + a FLOP model.
 
-Counterpart of ``akka_allreduce_tpu/bench_mfu.py``, the ``lm`` workload:
-the flagship LM (``--workload lm`` defaults: vocab 256, d_model 2048, 16
+Counterpart of ``akka_allreduce_tpu/bench_mfu.py``, the ``lm`` and ``mlp``
+workloads. ``lm``: the flagship LM (``--workload lm`` defaults: vocab 256, d_model 2048, 16
 heads of D 128, 8 layers, 404M parameters, seq 2048, batch 8, bf16 compute,
 f32 parameters and Adam moments, no remat) trained by
 ``LongContextTrainer.train_chain`` (batches drawn on the card, one host read
@@ -10,11 +10,14 @@ a chain). A step's time is the difference between a short and a long chain
 escalation rule: the long chain grows until the differential signal reaches
 about ``SIGNAL_S`` seconds. MFU is the model FLOPs (``transformer_train_flops``:
 no remat recompute, causal-halved attention) over the card's dense bf16 peak
-(``utils.benchmarking.device_peak_flops``).
+(``utils.benchmarking.device_peak_flops``). ``mlp``: the MNIST MLP at
+``--hidden`` (default 2048 2048, 5.8M parameters) trained by ``DPTrainer``
+over 8 virtual ranks, ``--batch`` rows split across them, lr 0.1, its FLOPs
+``dense_train_flops``.
 
 The record has the JAX record's fields, plus ``device`` and ``power_limit``;
 ``compile_s`` is the warm-up (the first chains), since nothing is compiled
-ahead here. The mlp, resnet, moe and fsdp workloads are not ported yet.
+ahead here. The resnet, moe and fsdp workloads are not ported yet.
 Runs on the card unless ``--device cpu`` (where MFU is None: no peak).
 """
 
@@ -165,11 +168,45 @@ def run_lm(args) -> dict:
     )
 
 
+def run_mlp(args) -> dict:
+    from akka_allreduce_tpu_torch.bench_suite import VIRTUAL_WORKERS
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import DPTrainer
+    from akka_allreduce_tpu_torch.utils.benchmarking import dense_train_flops
+
+    hidden = tuple(args.hidden)
+    mesh = line_mesh(VIRTUAL_WORKERS, device=args.device)
+    trainer = DPTrainer(MLP(hidden=hidden, classes=10, device=mesh.device), mesh,
+                        learning_rate=0.1)
+    per_rank = max(1, args.batch // trainer.n_devices)
+    batch = per_rank * trainer.n_devices
+    sampler = mnist_like().device_sampler()
+
+    def timed(steps: int) -> float:
+        t0 = time.perf_counter()
+        trainer.train_chain(sampler, steps, per_rank)  # ends in its one host read
+        return time.perf_counter() - t0
+
+    return _chain_mfu_record(
+        "mlp",
+        timed,
+        dense_train_flops(trainer.param_count, batch),
+        device=trainer.device,
+        extra={
+            "params_m": round(trainer.param_count / 1e6, 3),
+            "hidden": list(hidden),
+            "batch": batch,
+            "virtual_ranks": trainer.n_devices,
+        },
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         "bench-mfu",
         description="slope-timed MFU of the training workloads on the card "
-        "(one JSON line; flagship = lm, the one ported so far)",
+        "(one JSON line; flagship = lm; lm and mlp ported so far)",
     )
     p.add_argument("--workload", choices=WORKLOADS, default="lm")
     p.add_argument("--batch", type=int, default=8, help="global batch size")
@@ -182,6 +219,8 @@ def main(argv: list[str] | None = None) -> int:
         help="grouped-query attention K/V heads",
     )
     p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--hidden", type=int, nargs="+", default=[2048, 2048],
+                   help="mlp only: hidden widths")
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--sp", type=int, default=None)
     p.add_argument(
@@ -193,12 +232,13 @@ def main(argv: list[str] | None = None) -> int:
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
     args = p.parse_args(argv)
-    if args.workload != "lm":
-        p.error(f"--workload {args.workload} is not ported yet (lm only)")
+    if args.workload not in ("lm", "mlp"):
+        p.error(f"--workload {args.workload} is not ported yet (lm and mlp only)")
     for flag, value in (("--dp", args.dp), ("--sp", args.sp)):
         if value not in (None, 1):
             p.error(f"{flag} > 1 is not ported yet (one card, a 1 x 1 mesh)")
-    print(json.dumps(run_lm(args)), flush=True)
+    run = run_lm if args.workload == "lm" else run_mlp
+    print(json.dumps(run(args)), flush=True)
     return 0
 
 

@@ -1,17 +1,18 @@
 """The BASELINE benchmark matrix on the port: the single-card branch of
-configs 2 and 4 (``akka_allreduce_tpu/bench_suite.py``), one JSON record
-each.
+configs 2 and 4 and config 3 (``akka_allreduce_tpu/bench_suite.py``), one
+JSON record each.
 
-On one card the round's work is the fused threshold reduce over K = 8
-virtual workers (the reference's "N local workers" shape): the payload is
-masked, averaged and folded back into every replica by the elastic-average
-kernel (K2), in a slope-timed loop. Records carry the same fields as the JAX
-package's, plus ``device`` (the card's name, or ``"cpu"``) and
+On one card the round's work of configs 2 and 4 is the fused threshold
+reduce over K = 8 virtual workers (the reference's "N local workers"
+shape): the payload is masked, averaged and folded back into every replica
+by the elastic-average kernel (K2), in a slope-timed loop. Config 3 is the
+MLP/MNIST data-parallel SGD step over 8 virtual ranks (``DPTrainer``, its
+gradient average through K1 on the card). Records carry the same fields as
+the JAX package's, plus ``device`` (the card's name, or ``"cpu"``) and
 ``power_limit`` (``nvidia-smi``'s, or null on the CPU).
 
-Configs 1, 3 and 5 (host engine, MLP data-parallel step, elastic re-mesh)
-and the multi-rank collective branch wait for later slices of the port; they
-are not stubbed.
+Configs 1 and 5 (host engine, elastic re-mesh) and the multi-rank
+collective branch wait for later slices of the port; they are not stubbed.
 
 Usage: ``python -m akka_allreduce_tpu_torch bench-suite [--quick]
 [--device cpu] [--floats N] [--out FILE]``.
@@ -28,11 +29,17 @@ from typing import Any, Callable
 import torch
 
 from akka_allreduce_tpu_torch._device import resolve_device
+from akka_allreduce_tpu_torch.models import MLP, mnist_like
 from akka_allreduce_tpu_torch.ops import elastic_average_step, pack_tiles
+from akka_allreduce_tpu_torch.parallel import line_mesh
+from akka_allreduce_tpu_torch.train import DPTrainer
 from akka_allreduce_tpu_torch.utils.benchmarking import (
     SlopeEstimate,
+    dense_train_flops,
     device_fields,
+    device_peak_flops,
     median_slope,
+    mfu,
 )
 
 REFERENCE_GBPS = 1.25  # 10 GbE ceiling of the reference's Netty data plane
@@ -161,6 +168,74 @@ def config2_butterfly(
     )
 
 
+# -- config 3: MLP/MNIST DP-SGD step -------------------------------------------
+
+
+def config3_mlp_step(
+    steps: int = 20,
+    batch_per_device: int = 16,
+    *,
+    device: str | torch.device | None = None,
+    target_signal_s: float | None = 1.0,
+    chain_trips: tuple[int, int] = (5, 25),
+    outer: int = 4,
+) -> dict:
+    """``MLP(hidden=(128,))`` trained by ``DPTrainer`` over 8 virtual ranks,
+    16 rows a rank, lr 0.1: ``step_ms`` is the host loop's mean over
+    ``steps + 2`` steps after one warm-up step (each ends in its loss's host
+    read); ``device_step_ms`` the slope between ``train_chain``s of
+    ``chain_trips`` steps (batches drawn on the device, one host read a
+    chain), grown to ``target_signal_s`` of signal. ``steps_taken`` counts
+    every step the trainer took, and so the gradient syncs."""
+    dev = resolve_device(device)
+    trainer = DPTrainer(MLP(hidden=(128,), classes=10, device=dev),
+                        line_mesh(VIRTUAL_WORKERS, device=dev), learning_rate=0.1)
+    ds = mnist_like()
+    batch = batch_per_device * trainer.n_devices
+    it = ds.batches(batch, steps + 3)
+    trainer.train_step(*next(it))  # warm-up
+    losses = []
+    t0 = time.perf_counter()
+    for x, y in it:
+        losses.append(trainer.train_step(x, y).loss)
+    dt = (time.perf_counter() - t0) / max(len(losses), 1)
+
+    sampler = ds.device_sampler()
+    last_losses = []
+
+    def timed_chain(n_steps: int) -> float:
+        t0 = time.perf_counter()
+        chain_losses, _ = trainer.train_chain(sampler, n_steps, batch_per_device,
+                                              fetch_metrics=False)
+        last_losses[:] = [float(chain_losses[-1])]  # the host read ends the chain
+        return time.perf_counter() - t0
+
+    lo, hi = chain_trips
+    chain_est = median_slope(timed_chain, lo, hi, outer=outer,
+                             target_signal_s=target_signal_s)
+    sec = chain_est.seconds_per_iter
+    u = mfu(dense_train_flops(trainer.param_count, batch), sec, device_peak_flops(dev))
+    return _record(
+        3,
+        "mlp_mnist_dp_sgd",
+        devices=1,
+        virtual_workers=trainer.n_devices,
+        params=trainer.param_count,
+        global_batch=batch,
+        step_ms=round(dt * 1e3, 2),
+        device_step_ms=round(sec * 1e3, 3),
+        mfu=round(u, 4) if u is not None else None,
+        device_step_spread_pct=(
+            chain_est.spread_pct if math.isfinite(chain_est.spread_pct) else None),
+        chain_loss_last=round(last_losses[0], 4),
+        loss_first=round(losses[0], 4),
+        loss_last=round(losses[-1], 4),
+        steps_taken=trainer.step_num,
+        path="k1_masked_average" if dev.type == "cuda" else "plain_masked_average",
+        **device_fields(dev),
+    )
+
+
 # -- config 4: ResNet-50-class grad sync, 25M params --------------------------
 
 
@@ -186,15 +261,22 @@ def run_suite(
     device: str | torch.device | None = None,
     floats: int | None = None,
 ) -> list[dict]:
-    """Configs 2 and 4, one JSON line each. ``quick`` runs 1/8-size payloads
-    at fixed trip counts (no growing them to a 0.3 s timing signal, so its
-    run time is bounded); ``floats`` sets both payload sizes."""
+    """Configs 2, 3 and 4, one JSON line each. ``quick`` runs 1/8-size
+    payloads and short chains at fixed trip counts (no growing them to a
+    timing signal, so its run time is bounded); ``floats`` sets the payload
+    sizes of configs 2 and 4."""
     scale = 8 if quick else 1
     signal = None if quick else 0.3
     configs: list[Callable[[], dict]] = [
         lambda: config2_butterfly(
             floats or 64 * 1024 * 1024 // scale, device=device,
             target_signal_s=signal,
+        ),
+        lambda: config3_mlp_step(
+            device=device,
+            target_signal_s=None if quick else 1.0,
+            chain_trips=(2, 6) if quick else (5, 25),
+            outer=2 if quick else 4,
         ),
         lambda: config4_grad_sync(
             floats or 25_000_000 // scale, device=device,

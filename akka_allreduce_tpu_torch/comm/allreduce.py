@@ -33,10 +33,11 @@ Schedules (``build_threshold_allreduce`` / ``threshold_allreduce``):
   kernel (one launch, a whole-payload mask applied inside it), on the CPU
   its plain version.
 
-The backward-sync and training family of the JAX module (``localize_tree``,
+:func:`ring_ef_residual` is the int8 trainer's error-feedback residual. The
+backward-sync family of the JAX module (``localize_tree``,
 ``grouped_tree_psum``, ``backward_*_sync``, ``overlap_value_and_grad``,
-``compressed_value_and_grad``, ``validate_trainer_compress``,
-``ring_ef_residual``) arrives with the trainer.
+``compressed_value_and_grad``, ``validate_trainer_compress``) arrives with
+the trainer's ``overlap``.
 """
 
 from __future__ import annotations
@@ -392,6 +393,18 @@ def ring_allreduce_sum(
     if return_residual:
         return out, errs.reshape(n, -1)[:, :data]
     return out
+
+
+def ring_ef_residual(
+    c: torch.Tensor, v: torch.Tensor, hop_err: torch.Tensor
+) -> torch.Tensor:
+    """Next-step error-feedback residual of a ring sync with per-hop
+    accounting: a masked rank's whole folded contribution carries forward
+    (``c·(1−v)``), plus every quantization error the rank injected while
+    sending or relaying (``hop_err`` from ``ring_allreduce_sum(...,
+    return_residual=True)``). ``c`` and ``hop_err`` are ``(n, data)`` rank
+    stacks, ``v`` the ``(n,)`` mask."""
+    return c * (1.0 - v.to(c.dtype))[:, None] + hop_err.reshape(c.shape)
 
 
 def ring_reduce_scatter_sum(

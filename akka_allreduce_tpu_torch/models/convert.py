@@ -1,12 +1,13 @@
 """Weights carried across from the JAX package's flax parameter trees.
 
-:func:`transformer_state_dict_from_flax` maps a ``TransformerLM`` flax tree,
-given as nested dicts of numpy arrays (``{"params": {...}}`` or the inner
-dict), to the ``state_dict`` of :class:`.transformer.TransformerLM`. The
-port keeps the flax shapes, so each leaf is renamed, never transposed. An
-unknown or a missing leaf raises ``ValueError``. :func:`flax_path` maps the
-other way, one port parameter name to its flax path (the binder orders a
-flat parameter vector by it).
+:func:`transformer_state_dict_from_flax` and :func:`mlp_state_dict_from_flax`
+map a ``TransformerLM`` or ``MLP`` flax tree, given as nested dicts of numpy
+arrays (``{"params": {...}}`` or the inner dict), to the ``state_dict`` of
+:class:`.transformer.TransformerLM` or :class:`.mlp.MLP`. The port keeps the
+flax shapes, so each leaf is renamed, never transposed. An unknown or a
+missing leaf raises ``ValueError``. :func:`flax_path` maps the other way,
+one port parameter name of either model to its flax path (the binder orders
+a flat parameter vector by it).
 """
 
 from __future__ import annotations
@@ -59,15 +60,21 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 _TOP_PATHS = {name: tuple(path.split("/")) for path, name in _TOP_LEAVES.items()}
 _BLOCK_PATHS = {name: tuple(path.split("/")) for path, name in _BLOCK_LEAVES.items()}
 _PORT_BLOCK = re.compile(r"blocks\.(\d+)\.(.+)")
+_DENSE = re.compile(r"Dense_(\d+)/(kernel|bias)")
+_PORT_DENSE = re.compile(r"dense\.(\d+)\.(kernel|bias)")
 
 
 def flax_path(name: str) -> tuple[str, ...]:
-    """The flax path (inside ``params``) of the port's ``TransformerLM``
-    parameter ``name``, e.g. ``blocks.1.attn.q_kernel`` ->
-    ``("Block_1", "Attention_0", "q", "kernel")``; ``ValueError`` for a name
-    with no flax counterpart."""
+    """The flax path (inside ``params``) of the port's ``TransformerLM`` or
+    ``MLP`` parameter ``name``, e.g. ``blocks.1.attn.q_kernel`` ->
+    ``("Block_1", "Attention_0", "q", "kernel")`` or ``dense.2.bias`` ->
+    ``("Dense_2", "bias")``; ``ValueError`` for a name with no flax
+    counterpart."""
     if name in _TOP_PATHS:
         return _TOP_PATHS[name]
+    m = _PORT_DENSE.fullmatch(name)
+    if m is not None:
+        return (f"Dense_{m.group(1)}", m.group(2))
     m = _PORT_BLOCK.fullmatch(name)
     if m is None or m.group(2) not in _BLOCK_PATHS:
         raise ValueError(f"parameter {name!r} has no flax counterpart")
@@ -104,6 +111,37 @@ def transformer_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
         missing.append(f"Block_i for i in {sorted(set(range(max(blocks) + 1)) - set(blocks))}")
     for i, leaves in sorted(blocks.items()):
         missing += [f"Block_{i}/{p}" for p in _BLOCK_LEAVES if p not in leaves]
+    if missing:
+        raise ValueError(f"flax tree lacks leaves: {missing}")
+    return out
+
+
+def mlp_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ``MLP`` ``state_dict`` from a flax tree: ``Dense_i/kernel``
+    and ``Dense_i/bias`` -> ``dense.i.kernel`` and ``dense.i.bias``.
+
+    Raises ``ValueError`` on a leaf with no counterpart in the port and on
+    a leaf the port needs that the tree lacks (layers numbered from 0 with
+    no gap, each with its kernel and bias).
+    """
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, torch.Tensor] = {}
+    unknown = []
+    for path, arr in _flatten(tree).items():
+        m = _DENSE.fullmatch(path)
+        if m is None:
+            unknown.append(path)
+            continue
+        out[f"dense.{m.group(1)}.{m.group(2)}"] = torch.from_numpy(
+            np.array(arr, dtype=np.float32))
+    if unknown:
+        raise ValueError(f"flax leaves with no counterpart in the port: {sorted(unknown)}")
+    layers = {int(name.split(".")[1]) for name in out}
+    missing = [f"Dense_{i}/{leaf}" for i in range(max(layers, default=-1) + 1)
+               for leaf in ("kernel", "bias") if f"dense.{i}.{leaf}" not in out]
+    if not out:
+        missing.append("Dense_0/kernel, Dense_0/bias")
     if missing:
         raise ValueError(f"flax tree lacks leaves: {missing}")
     return out

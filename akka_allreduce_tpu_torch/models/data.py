@@ -1,16 +1,73 @@
-"""Synthetic LM data: the copy task.
+"""Synthetic data: the classification stream and the LM copy task.
 
-The port's copy of ``SyntheticCopyLM`` and ``lm_copy_task`` from
+The port's copy of ``SyntheticClassification``, ``mnist_like``,
+``SyntheticCopyLM`` and ``lm_copy_task`` from
 ``akka_allreduce_tpu/models/data.py``. ``batches`` is numpy only and gives
 the same batches as the JAX package's for the same seed (held bit for bit in
 the tests). ``device_sampler`` draws batches on the device with a
 ``torch.Generator``: the same task, but not ``jax.random``'s numbers.
+``imagenet_like`` and ``FileDataset`` arrive with ResNet-50.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+class SyntheticClassification:
+    """Class-template + Gaussian-noise stream with a fixed seed: each class
+    has a fixed random template and a sample is its template plus noise, so
+    a correct trainer reduces the loss."""
+
+    def __init__(
+        self,
+        input_shape: tuple[int, ...],
+        classes: int,
+        *,
+        noise: float = 0.5,
+        seed: int = 0,
+    ) -> None:
+        self.input_shape = input_shape
+        self.classes = classes
+        self.noise = noise
+        rng = np.random.default_rng(seed)
+        self.templates = rng.standard_normal((classes, *input_shape), dtype=np.float32)
+        self._seed = seed
+
+    def batches(self, batch_size: int, steps: int, *, seed_offset: int = 1):
+        """Yield ``steps`` batches of (images f32, labels int32)."""
+        rng = np.random.default_rng(self._seed + seed_offset)
+        for _ in range(steps):
+            labels = rng.integers(0, self.classes, size=batch_size)
+            noise = rng.standard_normal((batch_size, *self.input_shape), dtype=np.float32)
+            images = self.templates[labels] + self.noise * noise
+            yield images, labels.astype(np.int32)
+
+    def device_sampler(self):
+        """``(generator, rows) -> (images f32, labels int64)`` drawn with
+        ``generator`` on its device: the data-loader path that keeps a
+        training chain free of host-to-device copies
+        (``DPTrainer.train_chain``). The templates are uploaded once a
+        device, so the device stream and ``batches`` present the same task."""
+        noise_scale, classes, shape = self.noise, self.classes, self.input_shape
+        host = torch.from_numpy(self.templates)
+        uploaded: dict[torch.device, torch.Tensor] = {}
+
+        def sample(generator: torch.Generator, rows: int):
+            dev = generator.device
+            if dev not in uploaded:
+                uploaded[dev] = host.to(dev)
+            labels = torch.randint(0, classes, (rows,), generator=generator, device=dev)
+            noise = torch.randn((rows, *shape), generator=generator, device=dev)
+            return uploaded[dev][labels] + noise_scale * noise, labels
+
+        return sample
+
+
+def mnist_like(seed: int = 0) -> SyntheticClassification:
+    """28x28x1, 10 classes: the MLP/MNIST workload's shape."""
+    return SyntheticClassification((28, 28, 1), 10, seed=seed)
 
 
 class SyntheticCopyLM:

@@ -4,6 +4,7 @@ from akka_allreduce_tpu_torch.utils.benchmarking import (  # noqa: F401
     SlopeEstimate,
     card_info,
     cuda_event_ms,
+    dense_train_flops,
     device_peak_flops,
     median_slope,
     mfu,

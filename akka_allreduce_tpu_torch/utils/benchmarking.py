@@ -9,7 +9,8 @@
 - :func:`card_info`: the card's name, power limit and count, as
   ``nvidia-smi`` reports them; every number measured on a card is written
   down beside them.
-- FLOP accounting: the port's copy of ``transformer_train_flops``, a
+- FLOP accounting: the port's copies of ``dense_train_flops`` and
+  ``transformer_train_flops``, a
   forward-only form for serving (:func:`transformer_forward_flops`),
   :func:`device_peak_flops`, the card's dense bf16 peak, and the port's copy
   of :func:`mfu`.
@@ -66,6 +67,16 @@ def mfu(
     if peak_flops is None or seconds_per_step <= 0:
         return None
     return flops_per_step / seconds_per_step / (peak_flops * n_devices)
+
+
+def dense_train_flops(
+    n_params: int | float, tokens: int | float, *, remat: bool = False
+) -> float:
+    """Model FLOPs of one training step of a dense (matmul-dominated) model:
+    ``6·N·tokens`` (2N forward + 4N backward per token or sample); ``remat``
+    adds one forward (``8·N·tokens``)."""
+    per_token = 8.0 if remat else 6.0
+    return per_token * float(n_params) * float(tokens)
 
 
 def transformer_train_flops(

@@ -56,7 +56,7 @@ Phases, each printed as it ends:
    result from ``masked_average``, the fold from ``elastic_average_step`` on
    the packed form), checked against the same rounds through the plain
    versions, then the bench (the ``local_threshold_reduce_bw`` metric) and
-   ``bench_suite.run_suite`` for configs 2 and 4; (b) for each compress
+   ``bench_suite.run_suite`` for configs 2, 3 and 4; (b) for each compress
    mode, ``threshold_allreduce(line_mesh(8), ..., schedule="pallas_ring")``
    at 8 x 25M (the mask rides into K3: one launch a round, checked) against
    the same round through the plain K3, and one ``measure_allreduce``
@@ -83,7 +83,20 @@ Phases, each printed as it ends:
    the plain attention; ``lm-generate --train-steps`` at a small gated width
    (d 128, 4 heads, 2 layers, T 1024; its f32 backward through the same
    kernels), whose last loss must be below its first, with the copy
-   accuracy printed;
+   accuracy printed; (f) ``DPTrainer`` on the MLP over virtual ranks:
+   bench-suite config 3 (its record printed, one K1 launch a step), then
+   ``MLP(hidden=(2048, 2048))`` (bench-mfu's width, 5,824,522 parameters)
+   over ``line_mesh(8)`` at 16 rows a rank in f32: K1 against
+   ``masked_average_reference`` on a step's ``(8, 5824522)`` gradient
+   stack, with every rank and with rank 7 masked, and the parameters after
+   the update from either average, bit for bit; a step with 8 contributors,
+   one with 7, then 20 steps with a falling loss, one K1 launch each; one
+   step each of the bf16 and int8 syncs (the int8 ring's rows
+   bit-identical) and of both with error feedback under a masked rank (its
+   bf16 residual row more than 50x any other's; the int8 residual equal to
+   the ring's per-hop errors plus the masked rank's whole gradient), none
+   launching K1; ``train_chain`` for 2 steps on card-drawn batches,
+   ``train-mlp`` for 5 steps and the ``bench-mfu --workload mlp`` record;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -99,7 +112,11 @@ Phases, each printed as it ends:
    MFU of the same step); the flagship-width f32 training step at B 2
    (median of 5, host clock; K4's forward's and backward's shares of it
    from their CUDA-event times) and two such steps under ``torch.profiler``
-   (device busy share, top kernels, K4's kernels);
+   (device busy share, top kernels, K4's kernels); the DP step at
+   ``MLP(2048, 2048)`` (median of 5, host clock ended by a synchronize),
+   K1 by CUDA events on its ``(8, 5824522)`` stack beside its plain
+   version, ``torch.mv`` and its bound, K1's share of the step, and two
+   steps under ``torch.profiler``;
 6. one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -153,6 +170,12 @@ MODEL_GRAD_TOL = 1e-4
 TRAIN_STEPS = 3  # flagship training steps on the main path
 TRAIN_LM = dict(vocab=64, d_model=128, n_heads=4, n_layers=2)  # lm-generate --train-steps
 TRAIN_LM_SEQ, TRAIN_LM_STEPS = 1024, 40
+# the DP trainer at bench-mfu --workload mlp's width: 5,824,522 parameters
+DP_RANKS, DP_HIDDEN, DP_ROWS, DP_STEPS = 8, (2048, 2048), 16, 20
+DP_PARAMS = 784 * 2048 + 2048 + 2048 * 2048 + 2048 + 2048 * 10 + 10
+# a masked rank's bf16 EF row against every other's norm (the JAX package's
+# band, tests/test_train.py)
+EF_BF16_RATIO = 50.0
 
 
 def ring_name(mode: str | None) -> str:
@@ -610,6 +633,222 @@ def lm_train_path(dev) -> dict:
     }
 
 
+def dp_train_path(dev) -> dict:
+    """``DPTrainer`` on the MLP over virtual ranks: (a) bench-suite config 3,
+    its K1 launches equal to its steps; (b) at bench-mfu's width
+    (``MLP(hidden=(2048, 2048))``, ``line_mesh(8)``, 16 rows a rank, f32):
+    K1 against its plain version on a step's gradient stack and the update
+    from either average, bit for bit; then, counted, a step with every rank,
+    one with rank 7 masked and 20 training steps, one K1 launch each; one
+    step of each compressed sync (bf16, int8, and both with EF under a
+    masked rank), none launching K1; (c) ``train_chain`` for 2 steps,
+    ``train-mlp`` for 5 and the ``bench-mfu --workload mlp`` record.
+    Returns the launches and figures of each part, with the trainer and a
+    step's stack for the timings."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch import bench_suite
+    from akka_allreduce_tpu_torch.__main__ import main as cli_main
+    from akka_allreduce_tpu_torch.comm.allreduce import ring_allreduce_sum, ring_ef_residual
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import DPTrainer, TrainStepMetrics
+
+    count = lr.LAUNCHES
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def k1(n: int) -> int:
+        """K1's launches for n f32 syncs (the CPU, in a rehearsal, launches none)."""
+        return n if on_card else 0
+
+    # (a) bench-suite config 3
+    zero(count)
+    rec3 = bench_suite.config3_mlp_step(device=dev)
+    sync()
+    print(json.dumps(rec3), flush=True)
+    launches_a = dict(count)
+    require(launches_a == {"masked_average": k1(rec3["steps_taken"]),
+                           "elastic_average_step": 0},
+            f"config 3: one K1 launch a step: {launches_a}, {rec3['steps_taken']} steps")
+    require(rec3["loss_last"] < rec3["loss_first"] and math.isfinite(rec3["device_step_ms"])
+            and rec3["path"] == ("k1_masked_average" if on_card else "plain_masked_average"),
+            f"config 3 record {rec3}")
+
+    # (b) the bench-mfu width
+    mesh = line_mesh(DP_RANKS, device=dev)
+
+    def trainer(**kw):
+        return DPTrainer(MLP(hidden=DP_HIDDEN, seed=SEED, device=dev), mesh, **kw)
+
+    def on_dev(x, y):
+        return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev).long()
+
+    batches = list(mnist_like(seed=SEED).batches(DP_RANKS * DP_ROWS, DP_STEPS + 2))
+    masked7 = [1.0] * (DP_RANKS - 1) + [0.0]
+    t = trainer()
+    require(t.param_count == DP_PARAMS, f"MLP(2048, 2048) params {t.param_count}")
+    stack, _ = t.rank_gradients(*on_dev(*batches[0]))
+    require(stack.shape == (DP_RANKS, DP_PARAMS) and bool(torch.isfinite(stack).all()),
+            f"gradient stack {tuple(stack.shape)}")
+    p0 = t.get_flat_params()
+    for bits in ([1.0] * DP_RANKS, masked7):
+        v = torch.tensor(bits, device=dev)
+        got, cnt = lr.masked_average(stack, v)
+        want, want_cnt = lr.masked_average_reference(stack, v)
+        require(torch.equal(got, want) and float(cnt) == float(want_cnt) == sum(bits),
+                f"K1 on the step's stack, mask {bits}: max abs err "
+                f"{float((got - want).abs().max())}")
+        t.apply_gradients(want)
+        p_plain = t.get_flat_params()
+        t.set_flat_params(p0)
+        t.apply_gradients(got)
+        require(np.array_equal(t.get_flat_params(), p_plain),
+                f"parameters after the update from K1's average, mask {bits}")
+        t.set_flat_params(p0)
+    del got, want
+    sync()
+
+    zero(count)
+    m_all = t.train_step(*batches[0])
+    m_7 = t.train_step(*batches[1], valid=masked7)
+    require(m_all.contributors == DP_RANKS and m_7.contributors == DP_RANKS - 1,
+            f"contributors {m_all.contributors}, {m_7.contributors}")
+    losses = [t.train_step(x, y).loss for x, y in batches[2:]]
+    sync()
+    require(all(math.isfinite(loss) for loss in losses) and losses[-1] < losses[0],
+            f"{DP_STEPS} steps: losses {losses}")
+    require(dict(count) == {"masked_average": k1(DP_STEPS + 2), "elastic_average_step": 0},
+            f"one K1 launch an f32 step: {dict(count)}")
+
+    compressed = {}
+    masked3 = [1.0, 1.0, 1.0, 0.0] + [1.0] * (DP_RANKS - 4)
+    for compress, ef in (("bf16", False), ("int8", False), ("bf16", True), ("int8", True)):
+        tc = trainer(compress=compress, error_feedback=ef)
+        x, y = on_dev(*batches[0])
+        if compress == "int8" and not ef:
+            cstack, _ = tc.rank_gradients(x, y)
+            rows = ring_allreduce_sum(cstack, compress="int8")
+            require(all(torch.equal(rows[r], rows[0]) for r in range(1, DP_RANKS)),
+                    "int8 ring rows bit-identical")
+            del cstack, rows
+        if compress == "int8" and ef:
+            # the step's three stages, to hold the residual against the
+            # ring's own per-hop errors on the same stack
+            v3 = torch.tensor(masked3, device=dev)
+            cstack, rank_losses = tc.rank_gradients(x, y)
+            average, cnt = tc.sync(cstack, v3)
+            _, hop = ring_allreduce_sum(cstack * v3[:, None], compress="int8",
+                                        return_residual=True)
+            require(torch.equal(tc._ef, ring_ef_residual(cstack, v3, hop)),
+                    "int8 EF: the residual is c (1 - v) plus the ring's per-hop errors")
+            tc.apply_gradients(average)
+            m = TrainStepMetrics(1, float((rank_losses * v3).sum() / cnt), float(cnt))
+            del cstack, hop
+        else:
+            m = tc.train_step(x, y, valid=masked3 if ef else None)
+        flat = tc.get_flat_params()
+        require(math.isfinite(m.loss) and bool(np.isfinite(flat).all())
+                and m.contributors == DP_RANKS - ef, f"{compress} ef={ef} step {m}")
+        entry = {"loss": m.loss, "contributors": m.contributors}
+        if ef:
+            norms = tc._ef.norm(dim=1)
+            ratio = float(norms[3]) / float(torch.cat([norms[:3], norms[4:]]).max())
+            # int8's per-hop errors grow with the width (the JAX trainer's
+            # too): its band is held through the residual's formula above
+            require(compress == "int8" or ratio > EF_BF16_RATIO,
+                    f"{compress} EF: masked rank's row {ratio:.1f}x the others'")
+            entry["masked_ef_ratio"] = ratio
+        compressed[f"{compress}{'_ef' if ef else ''}"] = entry
+        del tc
+    require(count["masked_average"] == k1(DP_STEPS + 2), "a compressed sync launched K1")
+    launches_b = dict(count)
+
+    # (c) the entry points
+    zero(count)
+    chain = t.train_chain(mnist_like(seed=SEED).device_sampler(), 2, DP_ROWS)
+    sync()
+    require(len(chain) == 2 and all(math.isfinite(m.loss) for m in chain)
+            and count["masked_average"] == k1(2), f"train_chain {chain}, {dict(count)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train-mlp", "--steps", "5", "--batch", str(DP_RANKS * DP_ROWS),
+                       "--hidden", *map(str, DP_HIDDEN),
+                       *([] if on_card else ["--device", "cpu"])])
+    sync()
+    cli_line = buf.getvalue().strip().splitlines()[-1]
+    print(cli_line, flush=True)
+    require(rc == 0 and count["masked_average"] == k1(2 + 5),
+            f"train-mlp: rc {rc}, {dict(count)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["bench-mfu", "--workload", "mlp", "--batch", str(DP_RANKS * DP_ROWS),
+                       "--hidden", *map(str, DP_HIDDEN),
+                       *([] if on_card else ["--device", "cpu"])])
+    sync()
+    mfu_rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(json.dumps(mfu_rec), flush=True)
+    require(rc == 0 and mfu_rec["ms_per_step"] > 0 and mfu_rec["hidden"] == list(DP_HIDDEN)
+            and count["masked_average"] >= k1(2 + 5 + 1), f"bench-mfu --workload mlp {mfu_rec}")
+    launches_c = dict(count)
+    return {
+        "launches": launches_a["masked_average"] + launches_b["masked_average"]
+        + launches_c["masked_average"],
+        "per_part": {"a_config3": launches_a["masked_average"],
+                     "b_width_2048": launches_b["masked_average"],
+                     "c_entry_points": launches_c["masked_average"]},
+        "config3": rec3, "losses": losses, "masked_step": m_7.loss,
+        "compressed": compressed, "bench_mfu": mfu_rec, "train_mlp": cli_line,
+        "trainer": t, "batches": batches, "stack": stack,
+    }
+
+
+def time_dp_step(dp: dict, steps: int = 5) -> dict:
+    """The DP step at bench-mfu's width: median host-clock ms over ``steps``
+    f32 steps (each ended by a synchronize), after one warm-up step; K1 by
+    CUDA events on a step's ``(8, P)`` gradient stack with all ranks, beside
+    its plain version and ``torch.mv`` + sum + clamp + div; two steps under
+    ``torch.profiler``."""
+    import statistics
+
+    import torch
+
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.utils import cuda_event_ms
+
+    t, batches, stack = dp["trainer"], dp["batches"], dp["stack"]
+    t.train_step(*batches[0])
+    times = []
+    for x, y in batches[1:steps + 1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    v = torch.ones(DP_RANKS, device=stack.device)
+    k, p = stack.shape
+    k1 = {
+        "ms": cuda_event_ms(lambda: lr.masked_average(stack, v), 50),
+        "plain_ms": cuda_event_ms(lambda: lr.masked_average_reference(stack, v), 10),
+        "library_ms": cuda_event_ms(
+            lambda: torch.mv(stack.t(), v) / torch.clamp_min(v.sum(), 1.0), 50),
+        "bound_ms": (k * p + k + p + 1) * 4 / HBM_BYTES_PER_S * 1e3,
+    }
+
+    def two_steps():
+        for x, y in batches[steps + 1:steps + 3]:
+            t.train_step(x, y)
+
+    return {"step_ms": statistics.median(times), "step_ms_all": times, "k1": k1,
+            "k1_share": k1["ms"] / statistics.median(times),
+            "profile": {**profile_window(two_steps, top=8), "steps": 2}}
+
+
 def time_train_step(dev, dtype=None, batch: int = LM_BATCH, steps: int = 5) -> dict:
     """The flagship's training step in ``dtype`` (bf16 by default) at
     ``batch``: median host-clock ms over ``steps`` steps (each ends in its
@@ -975,9 +1214,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     require(bench_rec["metric"].startswith("local_threshold_reduce_bw_64Mfloat")
             and bench_rec["value"] > 0, f"bench record {bench_rec}")
-    require([r["config"] for r in records] == [2, 4], "configs 2 and 4")
+    require([r["config"] for r in records] == [2, 3, 4], "configs 2, 3 and 4")
     for rec in records:
-        require(math.isfinite(rec["seconds_per_iter"]) and rec["seconds_per_iter"] > 0
+        require(math.isfinite(rec.get("seconds_per_iter", rec.get("device_step_ms")))
+                and rec.get("seconds_per_iter", rec.get("device_step_ms")) > 0
                 and rec["device"] == card["name"] and rec["power_limit"]
                 == card["power_limit"], f"record {rec}")
     phase("main_path", t0, rounds=ROUNDS, launches_per_round=per_round,
@@ -1067,6 +1307,16 @@ def main() -> int:
           launches_by_part=train["per_part"], flagship_losses=train["losses"],
           model_grad_f32_max_err_of_max_grad=train["model_grad_err"],
           model_grad_tolerance=MODEL_GRAD_TOL, copy_task=train["copy"])
+
+    # -- 4f. main path: the DP trainer on the MLP over virtual ranks -------------
+    t0 = time.perf_counter()
+    dp = dp_train_path(dev)
+    phase("dp_train_path", t0, launches={"masked_average": dp["launches"]},
+          launches_by_part=dp["per_part"], losses=dp["losses"], masked_step=dp["masked_step"],
+          compressed=dp["compressed"], config3={k: dp["config3"][k] for k in (
+              "step_ms", "device_step_ms", "loss_first", "loss_last", "steps_taken")},
+          bench_mfu={k: dp["bench_mfu"][k] for k in ("value", "ms_per_step", "spread_pct")},
+          k1_vs_plain="bit-identical on the step's (8, 5824522) stack, and the update")
 
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
@@ -1216,7 +1466,15 @@ def main() -> int:
             and mfu_rec["device"] == card["name"], f"bench-mfu record {mfu_rec}")
     torch.cuda.empty_cache()
 
+    # the DP step at bench-mfu's width, K1's share of it, its profile
+    dp_time = time_dp_step(dp)
+    print(json.dumps({"dp_profile": dp_time["profile"]}), flush=True)
+    dp_launches = dp["launches"]
+    del dp
+    torch.cuda.empty_cache()
+
     path_launches = {**launches, **ring_launches}
+    path_launches["masked_average"] += dp_launches
     for part in (lm["launches"], train["launches"]):
         for name, n in part.items():
             path_launches[name] = path_launches.get(name, 0) + n
@@ -1266,6 +1524,14 @@ def main() -> int:
           f"{k4_fwd_f32_share * 100:.1f}% and backward x {LM['n_layers']} = "
           f"{k4_bwd_f32_share * 100:.1f}% of it; device busy "
           f"{step32['profile']['busy_share'] * 100:.1f}%", flush=True)
+    k1 = dp_time["k1"]
+    print(f"DP step, MLP(2048, 2048) over {DP_RANKS} virtual ranks x {DP_ROWS} rows, f32 "
+          f"({card['name']}, {card['power_limit']}): {dp_time['step_ms']:.3f} ms (median "
+          f"of {len(dp_time['step_ms_all'])}, host clock); K1 on the ({DP_RANKS}, "
+          f"{DP_PARAMS}) stack {k1['ms']:.4f} ms ({k1['bound_ms'] / k1['ms'] * 100:.1f}% "
+          f"of its {k1['bound_ms']:.4f} ms bound; plain {k1['plain_ms']:.4f} ms, library "
+          f"{k1['library_ms']:.4f} ms) = {dp_time['k1_share'] * 100:.2f}% of the step; "
+          f"device busy {dp_time['profile']['busy_share'] * 100:.1f}%", flush=True)
     phase("timings", t0, library_note="masked_average: torch.mv + sum + clamp + "
           "div; elastic_average_step: the same plus Tensor.addr_; "
           "ring_allreduce_f32: xs.sum(0, keepdim=True).expand_as(xs).contiguous(); "
@@ -1284,7 +1550,10 @@ def main() -> int:
           k4_bwd_share_of_f32_train_step=k4_bwd_f32_share,
           bench_mfu={"mfu": mfu_rec["value"], "ms_per_step": mfu_rec["ms_per_step"],
                      "spread_pct": mfu_rec["spread_pct"]},
-          busy_share={"prefill": prof["prefill"]["busy_share"],
+          dp_step_ms=dp_time["step_ms"], dp_step_ms_all=dp_time["step_ms_all"],
+          dp_k1=dp_time["k1"], dp_k1_share=dp_time["k1_share"],
+          busy_share={"dp_step": dp_time["profile"]["busy_share"],
+                      "prefill": prof["prefill"]["busy_share"],
                       "decode": prof["decode"]["busy_share"],
                       "train": step["profile"]["busy_share"],
                       "train_f32": step32["profile"]["busy_share"]})

@@ -26,13 +26,19 @@ import pytest
 import torch
 
 from akka_allreduce_tpu_torch.comm import allreduce as ar
-from akka_allreduce_tpu_torch.models import LMGenerator, SyntheticCopyLM, TransformerLM
+from akka_allreduce_tpu_torch.models import (
+    MLP,
+    LMGenerator,
+    SyntheticCopyLM,
+    TransformerLM,
+    mnist_like,
+)
 from akka_allreduce_tpu_torch.ops import flash_attention as fa
 from akka_allreduce_tpu_torch.ops import local_attention as la
 from akka_allreduce_tpu_torch.ops import local_reduce as lr
 from akka_allreduce_tpu_torch.ops import ring as rk
 from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
-from akka_allreduce_tpu_torch.train import LongContextTrainer
+from akka_allreduce_tpu_torch.train import DPTrainer, LongContextTrainer
 
 pytestmark = pytest.mark.gpu
 
@@ -717,3 +723,68 @@ def test_model_gradient_with_kernels_matches_plain_attention(card, monkeypatch):
         scale = float(want[name].abs().max())
         err = float((got[name] - want[name]).abs().max())
         assert err <= 1e-4 * scale, (name, err, scale)
+
+
+# -- the data-parallel trainer over virtual ranks ---------------------------------
+
+
+def _dp(card, **kw):
+    return DPTrainer(MLP(hidden=(256, 128), seed=1, device=card), line_mesh(8, device=card),
+                     **kw)
+
+
+@pytest.mark.parametrize("mesh", ["line", "grid"])
+def test_dp_f32_step_launches_k1_once_bit_equal_to_plain(card, mesh):
+    """Every f32 step syncs through one K1 launch; on the step's gradient
+    stack K1 equals its plain version bit for bit, and so do the parameters
+    after the update from either average."""
+    m = line_mesh(8, device=card) if mesh == "line" else grid_mesh(4, 2, device=card)
+    t = DPTrainer(MLP(hidden=(256, 128), seed=1, device=card), m, bucket_size=4096)
+    batches = list(mnist_like().batches(64, 3))
+    valid = [1, 1, 1, 1, 1, 1, 1, 0]
+    before = lr.LAUNCHES["masked_average"]
+    hist = [t.train_step(x, y, valid) for x, y in batches]
+    assert lr.LAUNCHES["masked_average"] == before + 3
+    assert [h.contributors for h in hist] == [7.0] * 3 and hist[-1].loss < hist[0].loss
+    x, y = t._place_batch(*batches[0])
+    stack, _ = t.rank_gradients(x, y)
+    v = torch.tensor(valid, dtype=torch.float32, device=card)
+    got, count = lr.masked_average(stack, v)
+    want, want_count = lr.masked_average_reference(stack, v)
+    assert torch.equal(got, want) and float(count) == float(want_count) == 7.0
+    p0 = t.get_flat_params()
+    t.apply_gradients(want)
+    p_plain = t.get_flat_params()
+    t.set_flat_params(p0)
+    t.apply_gradients(t.sync(stack, v)[0])
+    np.testing.assert_array_equal(t.get_flat_params(), p_plain)
+
+
+def test_dp_trainer_without_a_device_raises_when_cuda_is_absent(card, monkeypatch):
+    model = MLP(hidden=(16,), device=card)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DPTrainer(model, line_mesh(8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MLP(hidden=(16,))
+
+
+def test_dp_int8_rows_agree_bit_for_bit(card):
+    """The int8 ring's rows on the card are bit-identical and within 1e-6
+    of max|sum| of the CPU's; with EF the residual is the masked rank's
+    whole contribution plus every rank's per-hop errors."""
+    t = _dp(card, compress="int8", error_feedback=True)
+    x, y = t._place_batch(*next(mnist_like().batches(64, 1)))
+    stack, _ = t.rank_gradients(x, y)
+    total = ar.ring_allreduce_sum(stack, compress="int8")
+    for r in range(1, 8):
+        assert torch.equal(total[r], total[0])
+    total_cpu = ar.ring_allreduce_sum(stack.cpu(), compress="int8")
+    assert float((total[0].cpu() - total_cpu[0]).abs().max()) <= 1e-6 * float(
+        total_cpu.abs().max())
+    v = torch.tensor([1, 1, 1, 0, 1, 1, 1, 1], dtype=torch.float32, device=card)
+    average, count = t.sync(stack, v)
+    assert float(count) == 7.0 and bool(torch.isfinite(average).all())
+    _, hop = ar.ring_allreduce_sum(stack * v[:, None], compress="int8", return_residual=True)
+    # the masked rank banks its whole gradient beside its own per-hop errors
+    assert torch.equal(t._ef, ar.ring_ef_residual(stack, v, hop))

@@ -191,8 +191,12 @@ def test_bench_suite_cli_prints_records(capsys, tmp_path, one_torch_thread):
     assert rc == 0
     lines = capsys.readouterr().out.strip().splitlines()
     records = [json.loads(line) for line in lines]
-    assert [r["config"] for r in records] == [2, 4]
+    assert [r["config"] for r in records] == [2, 3, 4]
     assert out.read_text().strip().splitlines() == lines
+    mlp = records.pop(1)  # config 3: the MLP's DP step, at its own size
+    assert mlp["name"] == "mlp_mnist_dp_sgd" and mlp["virtual_workers"] == 8
+    assert mlp["device"] == "cpu" and mlp["path"] == "plain_masked_average"
+    assert mlp["step_ms"] > 0 and math.isfinite(mlp["device_step_ms"])
     for rec in records:
         assert rec["name"].startswith(
             ("butterfly_allreduce", "resnet_grad_sync_25M")
