@@ -24,10 +24,12 @@ Module names mirror the JAX package so each counterpart is easy to find:
   blockwise)
 - ``models``        — the Transformer LM on one device (``TransformerLM``,
   ``rope``, ``remat``), its KV-cache decoder (``LMGenerator``), the MLP of
-  config 3 (``MLP``), the copy task's and the classification stream's data
-  (host batches and device samplers) and the carrying-over of flax weights
+  config 3 (``MLP``), ResNet-50 of config 4 (``ResNet50``), the copy task's
+  and the classification streams' data (host batches and device samplers),
+  ``.npz`` files (``FileDataset``) and the carrying-over of flax weights
 - ``train``         — ``DPTrainer``, the data-parallel trainer over virtual
-  ranks (its f32 gradient average through K1 on the card),
+  ranks (its f32 gradient average through K1 on the card, fused or one
+  sync a parameter leaf inside the backward; gradient accumulation),
   ``LongContextTrainer``, the LM's trainer on one card, and the shared
   helpers
 - ``binder``        — parameters to and from one flat f32 vector in the JAX
@@ -35,15 +37,17 @@ Module names mirror the JAX package so each counterpart is easy to find:
 - ``state``         — hand-over of the ``(K, data)`` replica state to and from
   numpy, in the JAX package's flat or packed layout
 - ``utils``         — slope timing, CUDA-event timing, card description,
-  FLOP accounting, per-round metrics
+  FLOP accounting, per-round metrics, replica checks over virtual ranks
 - ``bench_suite``   — the single-card branch of BASELINE configs 2 and 4,
   and config 3
 - ``__main__``      — ``bench-suite``, ``bench`` (allreduce bandwidth),
   ``lm-generate`` (KV-cache decoding, optionally after training),
-  ``train-lm``, ``train-mlp`` and ``bench-mfu``
+  ``train-lm``, ``train-mlp``, ``train-resnet`` and ``bench-mfu``
+- ``graft_entry``   — ``entry()`` (the ResNet-50 forward) and
+  ``dryrun_multichip(n)`` (DP steps and the schedules over n virtual ranks)
 - ``bench``         — the single-card ``local_threshold_reduce_bw`` metric
-- ``bench_mfu``     — the slope-timed MFU of the LM's and the MLP's
-  training steps
+- ``bench_mfu``     — the slope-timed MFU of the LM's, the MLP's and
+  ResNet-50's training steps
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with
 no CUDA they raise instead of running on the CPU (see ``_device``).

@@ -33,17 +33,24 @@ Commands:
   1, ``--compress``, ``--overlap`` and the checkpoint flags are not ported
   yet and are refused.
 - ``train-mlp [--steps N] [--batch N] [--lr X] [--hidden N ...] [--bucket N]
-  [--compress bf16|int8] [--error-feedback] [--bf16] [--devices N] [--mesh
-  line|grid] [--device-data] [--metrics-out FILE] [--device cpu]`` — the
-  MLP/MNIST data-parallel SGD of config 3: ``DPTrainer`` over ``--devices``
-  virtual ranks (default 8) on one card, the f32 gradient average through
-  K1. The host loop (one ``train_step`` event a step in the metrics JSONL)
-  or, with ``--device-data``, one chain with batches drawn on the card.
-  Prints the parameter count and mesh, then the step time, TFLOP/s and the
-  loss trend. ``--overlap``, ``--accum`` above 1 and the checkpoint flags
-  are not ported yet and are refused.
-- ``bench-mfu [--workload lm|mlp] ...`` — the slope-timed MFU record of
-  ``bench_mfu.py`` (the flagship LM by default).
+  [--compress bf16|int8] [--error-feedback] [--overlap] [--accum N] [--bf16]
+  [--devices N] [--mesh line|grid] [--device-data] [--metrics-out FILE]
+  [--device cpu]`` — the MLP/MNIST data-parallel SGD of config 3:
+  ``DPTrainer`` over ``--devices`` virtual ranks (default 8) on one card,
+  the f32 gradient average through K1 (once a step; once a leaf with
+  ``--overlap``). The host loop (one ``train_step`` event a step in the
+  metrics JSONL; ``train_step_accum`` with ``--accum``) or, with
+  ``--device-data`` (not with ``--accum``), one chain with batches drawn on
+  the card. Prints the parameter count and mesh, then the step time,
+  TFLOP/s and the loss trend. The checkpoint flags are not ported yet and
+  are refused.
+- ``train-resnet [--image-size N] [--classes N]`` and the flags
+  of ``train-mlp`` but ``--hidden`` — ResNet-50 (config 4) the same way, 32
+  px images and 10 classes by default, the gradient bucketed at 262,144
+  (no bucket with ``--overlap``); prints ``ResNet params: ...M`` and the MFU
+  of ``3 · resnet_fwd_flops``.
+- ``bench-mfu [--workload lm|mlp|resnet] ...`` — the slope-timed MFU record
+  of ``bench_mfu.py`` (the flagship LM by default).
 """
 
 from __future__ import annotations
@@ -465,16 +472,12 @@ def _cmd_train_lm(argv: list[str]) -> int:
     return 0
 
 
-def _cmd_train_mlp(argv: list[str]) -> int:
-    p = argparse.ArgumentParser(
-        "train-mlp",
-        description="MLP/MNIST data-parallel SGD (config 3) over virtual ranks "
-        "on one card",
-    )
+def _dp_train_flags(p: argparse.ArgumentParser, *, lr: float = 0.1) -> None:
+    """The flags ``train-mlp`` and ``train-resnet`` share (the JAX CLI's
+    ``_train_flags``, less those not ported yet)."""
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--batch", type=int, default=64, help="global batch size")
-    p.add_argument("--lr", type=float, default=0.1)
-    p.add_argument("--hidden", type=int, nargs="+", default=[128])
+    p.add_argument("--lr", type=float, default=lr)
     p.add_argument("--bucket", type=int, default=None, help="grad bucket (elements)")
     p.add_argument(
         "--compress", choices=("bf16", "int8"), default=None,
@@ -484,6 +487,16 @@ def _cmd_train_mlp(argv: list[str]) -> int:
         "--error-feedback", action="store_true",
         help="carry each rank's compression residual into its next contribution "
         "(requires --compress)",
+    )
+    p.add_argument(
+        "--overlap", action="store_true",
+        help="sync each parameter leaf inside the backward (one sync a leaf: "
+        "K1 in f32); excludes --bucket and --accum",
+    )
+    p.add_argument(
+        "--accum", type=int, default=1,
+        help="microbatches a rank per step, their gradients averaged before "
+        "the one sync",
     )
     p.add_argument(
         "--bf16", action="store_true",
@@ -504,53 +517,54 @@ def _cmd_train_mlp(argv: list[str]) -> int:
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
     # the JAX command's options that need parts not ported yet
-    p.add_argument("--overlap", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--accum", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--checkpoint-every", type=int, default=0, help=argparse.SUPPRESS)
     for flag in ("--async-checkpoint", "--delta-checkpoint"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+
+
+def _parse_dp_args(p: argparse.ArgumentParser, argv: list[str]):
     args = p.parse_args(argv)
-    for flag, value, ok, what in (
-        ("--overlap", args.overlap, (False,), "per-leaf gradient collectives"),
-        ("--accum", args.accum, (1,), "gradient accumulation"),
-        ("--checkpoint-dir", args.checkpoint_dir, (None,), "checkpoints"),
-        ("--checkpoint-every", args.checkpoint_every, (0,), "checkpoints"),
-        ("--async-checkpoint", args.async_checkpoint, (False,), "checkpoints"),
-        ("--delta-checkpoint", args.delta_checkpoint, (False,), "checkpoints"),
+    for flag, value, ok in (
+        ("--checkpoint-dir", args.checkpoint_dir, (None,)),
+        ("--checkpoint-every", args.checkpoint_every, (0,)),
+        ("--async-checkpoint", args.async_checkpoint, (False,)),
+        ("--delta-checkpoint", args.delta_checkpoint, (False,)),
     ):
         if value not in ok:
-            p.error(f"{flag} is not ported yet ({what})")
+            p.error(f"{flag} is not ported yet (checkpoints)")
+    if args.accum < 1:
+        p.error(f"--accum must be >= 1, got {args.accum}")
+    if args.accum > 1 and args.device_data:
+        p.error("--accum is not supported with --device-data (the on-device chain "
+                "samples fixed per-rank batches); drop one of the flags")
+    return args
 
+
+def _dp_mesh(args):
+    from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
+
+    if args.mesh == "grid":
+        return grid_mesh(n=args.devices, device=args.device)
+    return line_mesh(args.devices, device=args.device)
+
+
+def _run_dp_training(p, trainer, ds, args, *, label: str, flops: float) -> int:
+    """Train ``trainer`` on ``ds``: the host loop (one ``train_step`` event a
+    step in the metrics JSONL; ``train_step_accum`` with ``--accum``) or,
+    with ``--device-data``, one chain with batches drawn on the device. Then
+    the step time, TFLOP/s (MFU on a card with a known peak) and the loss
+    trend."""
     import time
 
     import numpy as np
     import torch
 
-    from akka_allreduce_tpu_torch.models import MLP, mnist_like
-    from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
-    from akka_allreduce_tpu_torch.train import DPTrainer
-    from akka_allreduce_tpu_torch.utils.benchmarking import dense_train_flops
     from akka_allreduce_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.mesh == "grid":
-        mesh = grid_mesh(n=args.devices, device=args.device)
-    else:
-        mesh = line_mesh(args.devices, device=args.device)
-    dev = mesh.device
-    trainer = DPTrainer(
-        MLP(hidden=tuple(args.hidden), classes=10,
-            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, device=dev),
-        mesh, learning_rate=args.lr, bucket_size=args.bucket,
-        compress=args.compress, error_feedback=args.error_feedback,
-    )
     if args.batch % trainer.data_shards:
         p.error(f"global batch {args.batch} not divisible by {trainer.data_shards} ranks")
-    print(f"MLP params: {trainer.param_count / 1e6:.3f}M, mesh {mesh.shape}, "
-          f"device {dev}")
-    label = "mlp_mnist"
-    flops = dense_train_flops(trainer.param_count, args.batch)
-    ds = mnist_like()
+    dev = trainer.device
     logger = MetricsLogger(args.metrics_out)
 
     def sync() -> None:
@@ -570,7 +584,11 @@ def _cmd_train_mlp(argv: list[str]) -> int:
         history = []
         for x, y in ds.batches(args.batch, args.steps):
             st = time.perf_counter()
-            m = trainer.train_step(x, y)  # ends in the loss's host read
+            # each ends in its loss's host read
+            if args.accum > 1:
+                m = trainer.train_step_accum(x, y, args.accum)
+            else:
+                m = trainer.train_step(x, y)
             dt = time.perf_counter() - st
             history.append(m)
             logger.log_event(
@@ -581,7 +599,7 @@ def _cmd_train_mlp(argv: list[str]) -> int:
         total = time.perf_counter() - t0
     losses = [m.loss for m in history]
     # the first steps' warm-up is included, so this MFU is a floor;
-    # bench-mfu --workload mlp is the slope-timed measurement
+    # bench-mfu is the slope-timed measurement
     perf = _mfu_fields(flops, total / max(len(losses), 1), dev)
     if perf:
         logger.log_event(kind="train_summary", workload=label, steps=len(losses),
@@ -598,6 +616,74 @@ def _cmd_train_mlp(argv: list[str]) -> int:
     return 0
 
 
+def _cmd_train_mlp(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "train-mlp",
+        description="MLP/MNIST data-parallel SGD (config 3) over virtual ranks "
+        "on one card",
+    )
+    _dp_train_flags(p)
+    p.add_argument("--hidden", type=int, nargs="+", default=[128])
+    args = _parse_dp_args(p, argv)
+
+    import torch
+
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.train import DPTrainer
+    from akka_allreduce_tpu_torch.utils.benchmarking import dense_train_flops
+
+    mesh = _dp_mesh(args)
+    trainer = DPTrainer(
+        MLP(hidden=tuple(args.hidden), classes=10,
+            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, device=mesh.device),
+        mesh, learning_rate=args.lr, bucket_size=args.bucket,
+        compress=args.compress, error_feedback=args.error_feedback, overlap=args.overlap,
+    )
+    print(f"MLP params: {trainer.param_count / 1e6:.3f}M, mesh {mesh.shape}, "
+          f"device {mesh.device}")
+    return _run_dp_training(p, trainer, mnist_like(), args, label="mlp_mnist",
+                            flops=dense_train_flops(trainer.param_count, args.batch))
+
+
+def _cmd_train_resnet(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "train-resnet",
+        description="ResNet-50 data-parallel SGD (config 4) over virtual ranks on one card",
+    )
+    _dp_train_flags(p)
+    p.add_argument("--image-size", type=int, default=32)
+    p.add_argument("--classes", type=int, default=10)
+    args = _parse_dp_args(p, argv)
+
+    import torch
+
+    from akka_allreduce_tpu_torch.models import (
+        ResNet50,
+        SyntheticClassification,
+        resnet_fwd_flops,
+    )
+    from akka_allreduce_tpu_torch.train import DPTrainer
+
+    mesh = _dp_mesh(args)
+    trainer = DPTrainer(
+        ResNet50(args.classes, torch.bfloat16 if args.bf16 else torch.float32,
+                 device=mesh.device),
+        mesh, learning_rate=args.lr,
+        # the reference's chunk size by default; --overlap drops only the
+        # default (an explicit --bucket still meets the trainer's guard)
+        bucket_size=(args.bucket if args.bucket is not None
+                     else (None if args.overlap else 262_144)),
+        compress=args.compress, error_feedback=args.error_feedback, overlap=args.overlap,
+    )
+    print(f"ResNet params: {trainer.param_count / 1e6:.1f}M, mesh {mesh.shape}, "
+          f"device {mesh.device}")
+    ds = SyntheticClassification((args.image_size, args.image_size, 3), args.classes, seed=0)
+    # conv FLOPs from the architecture, x3 for forward + backward: the
+    # convention bench-mfu uses, so both report the same MFU
+    fwd = resnet_fwd_flops(trainer.model, args.image_size, args.batch)
+    return _run_dp_training(p, trainer, ds, args, label="resnet50", flops=3 * fwd)
+
+
 def _cmd_bench_mfu(argv: list[str]) -> int:
     from akka_allreduce_tpu_torch.bench_mfu import main as bench_mfu_main
 
@@ -610,6 +696,7 @@ COMMANDS = {
     "lm-generate": _cmd_lm_generate,
     "train-lm": _cmd_train_lm,
     "train-mlp": _cmd_train_mlp,
+    "train-resnet": _cmd_train_resnet,
     "bench-mfu": _cmd_bench_mfu,
 }
 

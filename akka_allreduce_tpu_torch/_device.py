@@ -9,10 +9,15 @@ choice follows the tensor alone:
 
 There is no interpret mode and no silent fallback. Entry points that create
 tensors resolve their device with :func:`resolve_device`: the card unless the
-caller asks for ``"cpu"``, and an error when CUDA is missing.
+caller asks for ``"cpu"``, and an error when CUDA is missing. The port's f32
+is IEEE f32 on the card too: :func:`ieee_f32` holds cuDNN's convolutions to
+it wherever the port runs one.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Iterator
 
 import torch
 
@@ -34,6 +39,25 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return torch.device("cuda", 0 if dev.index is None else dev.index)
+
+
+@contextlib.contextmanager
+def ieee_f32() -> Iterator[None]:
+    """f32 convolutions in f32 inside the block, and the caller's setting
+    back after it.
+
+    cuDNN runs f32 convolutions in TF32 (a 10-bit mantissa) while
+    ``torch.backends.cudnn.allow_tf32`` holds, which is PyTorch's default.
+    The switch is process-wide and read at each launch, so a block that
+    holds a forward and its backward (a training step) covers both; a
+    backward run after the block has closed takes the caller's setting.
+    """
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def use_kernel(t: torch.Tensor) -> bool:

@@ -1,7 +1,7 @@
 """MFU benchmark of the port: slope-timed training chains + a FLOP model.
 
-Counterpart of ``akka_allreduce_tpu/bench_mfu.py``, the ``lm`` and ``mlp``
-workloads. ``lm``: the flagship LM (``--workload lm`` defaults: vocab 256, d_model 2048, 16
+Counterpart of ``akka_allreduce_tpu/bench_mfu.py``, the ``lm``, ``mlp`` and
+``resnet`` workloads. ``lm``: the flagship LM (``--workload lm`` defaults: vocab 256, d_model 2048, 16
 heads of D 128, 8 layers, 404M parameters, seq 2048, batch 8, bf16 compute,
 f32 parameters and Adam moments, no remat) trained by
 ``LongContextTrainer.train_chain`` (batches drawn on the card, one host read
@@ -13,11 +13,15 @@ no remat recompute, causal-halved attention) over the card's dense bf16 peak
 (``utils.benchmarking.device_peak_flops``). ``mlp``: the MNIST MLP at
 ``--hidden`` (default 2048 2048, 5.8M parameters) trained by ``DPTrainer``
 over 8 virtual ranks, ``--batch`` rows split across them, lr 0.1, its FLOPs
-``dense_train_flops``.
+``dense_train_flops``. ``resnet``: ``ResNet50(classes=1000)`` in bf16
+compute (f32 parameters) trained by ``DPTrainer`` over ``line_mesh(8)``, lr
+0.1, on ``--image-size`` (64) px images, ``--batch`` (8) rows a step split
+across the ranks, the gradient unbucketed (the JAX record's trainer); its
+FLOPs ``3 · resnet_fwd_flops``.
 
 The record has the JAX record's fields, plus ``device`` and ``power_limit``;
 ``compile_s`` is the warm-up (the first chains), since nothing is compiled
-ahead here. The resnet, moe and fsdp workloads are not ported yet.
+ahead here. The moe and fsdp workloads are not ported yet.
 Runs on the card unless ``--device cpu`` (where MFU is None: no peak).
 """
 
@@ -202,11 +206,47 @@ def run_mlp(args) -> dict:
     )
 
 
+def run_resnet(args) -> dict:
+    import torch
+
+    from akka_allreduce_tpu_torch.bench_suite import VIRTUAL_WORKERS
+    from akka_allreduce_tpu_torch.models import ResNet50, SyntheticClassification, resnet_fwd_flops
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import DPTrainer
+
+    mesh = line_mesh(VIRTUAL_WORKERS, device=args.device)
+    model = ResNet50(args.classes, torch.bfloat16, device=mesh.device)
+    trainer = DPTrainer(model, mesh, learning_rate=0.1)
+    per_rank = max(1, args.batch // trainer.n_devices)
+    batch = per_rank * trainer.n_devices
+    size = args.image_size
+    sampler = SyntheticClassification((size, size, 3), args.classes, seed=0).device_sampler()
+
+    def timed(steps: int) -> float:
+        t0 = time.perf_counter()
+        trainer.train_chain(sampler, steps, per_rank)  # ends in its one host read
+        return time.perf_counter() - t0
+
+    return _chain_mfu_record(
+        "resnet",
+        timed,
+        3.0 * resnet_fwd_flops(model, size, batch),
+        device=trainer.device,
+        extra={
+            "params_m": round(trainer.param_count / 1e6, 1),
+            "image_size": size,
+            "batch": batch,
+            "compute_dtype": "bf16",
+            "virtual_ranks": trainer.n_devices,
+        },
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         "bench-mfu",
         description="slope-timed MFU of the training workloads on the card "
-        "(one JSON line; flagship = lm; lm and mlp ported so far)",
+        "(one JSON line; flagship = lm; lm, mlp and resnet ported so far)",
     )
     p.add_argument("--workload", choices=WORKLOADS, default="lm")
     p.add_argument("--batch", type=int, default=8, help="global batch size")
@@ -221,6 +261,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--vocab", type=int, default=256)
     p.add_argument("--hidden", type=int, nargs="+", default=[2048, 2048],
                    help="mlp only: hidden widths")
+    p.add_argument("--image-size", type=int, default=64, help="resnet only")
+    p.add_argument("--classes", type=int, default=1000, help="resnet only")
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--sp", type=int, default=None)
     p.add_argument(
@@ -232,12 +274,12 @@ def main(argv: list[str] | None = None) -> int:
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
     args = p.parse_args(argv)
-    if args.workload not in ("lm", "mlp"):
-        p.error(f"--workload {args.workload} is not ported yet (lm and mlp only)")
+    if args.workload not in ("lm", "mlp", "resnet"):
+        p.error(f"--workload {args.workload} is not ported yet (lm, mlp and resnet only)")
     for flag, value in (("--dp", args.dp), ("--sp", args.sp)):
         if value not in (None, 1):
             p.error(f"{flag} > 1 is not ported yet (one card, a 1 x 1 mesh)")
-    run = run_lm if args.workload == "lm" else run_mlp
+    run = {"lm": run_lm, "mlp": run_mlp, "resnet": run_resnet}[args.workload]
     print(json.dumps(run(args)), flush=True)
     return 0
 

@@ -33,11 +33,23 @@ Schedules (``build_threshold_allreduce`` / ``threshold_allreduce``):
   kernel (one launch, a whole-payload mask applied inside it), on the CPU
   its plain version.
 
-:func:`ring_ef_residual` is the int8 trainer's error-feedback residual. The
-backward-sync family of the JAX module (``localize_tree``,
-``grouped_tree_psum``, ``backward_*_sync``, ``overlap_value_and_grad``,
-``compressed_value_and_grad``, ``validate_trainer_compress``) arrives with
-the trainer's ``overlap``.
+:func:`ring_ef_residual` is the int8 trainer's error-feedback residual.
+
+Per-leaf syncs inside the backward (``DPTrainer(overlap=True)``):
+:func:`backward_psum_sync`, :func:`backward_sync_ef` and
+:func:`backward_ring_sync` each return a ``sync`` that hands one parameter
+leaf to the n ranks (its forward broadcasts ``p`` to ``(n, *p.shape)``) and
+whose backward takes that leaf's whole ``(n, *p.shape)`` cotangent stack,
+masks it, syncs it and returns the synced gradient, so leaf k's sync
+depends only on leaf k's part of the backward. Unlike the JAX functions,
+which return the masked SUM and leave the division to the trainer, these
+return the masked AVERAGE ``sum_r v_r g_r / max(count, 1)``: in f32 that
+is K1 (``ops.local_reduce.masked_average``, one launch a leaf on the card),
+which divides inside the kernel. The sharded-tree helpers of the JAX module
+(``localize_tree``, ``grouped_tree_psum``, ``backward_tree_sync``,
+``overlap_value_and_grad``, ``compressed_value_and_grad``,
+``validate_trainer_compress``) serve trainers with sharded parameters and
+arrive with them.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from akka_allreduce_tpu_torch.ops.local_reduce import masked_average
 from akka_allreduce_tpu_torch.ops.ring import (
     _DEF_SEG_ROWS,
     COMPRESS_MODES,
@@ -405,6 +418,172 @@ def ring_ef_residual(
     return_residual=True)``). ``c`` and ``hop_err`` are ``(n, data)`` rank
     stacks, ``v`` the ``(n,)`` mask."""
     return c * (1.0 - v.to(c.dtype))[:, None] + hop_err.reshape(c.shape)
+
+
+# -- per-leaf syncs inside the backward ------------------------------------------
+
+
+def _row0(rows: torch.Tensor) -> torch.Tensor:
+    """What every rank takes from a sync's per-rank rows: rank 0's."""
+    return rows[0]
+
+
+class _LeafSync(torch.autograd.Function):
+    """Hands a parameter leaf to the n ranks: the forward broadcasts ``p`` to
+    ``(n, *p.shape)``; the backward gives ``reduce`` that leaf's whole
+    ``(n, *p.shape)`` cotangent stack and returns its result as ``p``'s
+    gradient.
+
+    A plain ``expand`` would make autograd sum the ranks' cotangents before
+    any mask could be applied (the implicit psum the JAX trainer avoids with
+    ``pcast``). ``reduce`` is a closure that holds the mask and, with error
+    feedback, the residual view it rewrites in place; a residual saved
+    through ``ctx.save_for_backward`` would trip autograd's version check
+    once another leaf's backward had written the shared ``(n, P)`` buffer.
+    """
+
+    @staticmethod
+    def forward(ctx, p, n, reduce):
+        ctx.reduce = reduce
+        return p.unsqueeze(0).expand(n, *p.shape)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.reduce(ct), None, None
+
+
+def _rows(ct: torch.Tensor) -> torch.Tensor:
+    """A cotangent stack as contiguous ``(n, leaf)`` rows: the layout K1
+    reads (vmap's backward may hand over a strided or expanded stack)."""
+    return ct.reshape(ct.shape[0], -1).contiguous()
+
+
+def _k1_axes(mesh: RankMesh, names: Axes, wire_dtype) -> bool:
+    """Whether a sync is K1's: f32 on the wire, over every rank."""
+    return wire_dtype is None and set(names) == set(mesh.axis_names)
+
+
+def _psum_average(mesh, c, v, names, wire_dtype, hand_out):
+    """``masked_psum`` of the ``(n, leaf)`` rows ``c`` under the ``(n,)``
+    mask: rank 0's row of the per-rank sums (handed out through
+    ``hand_out``) over its count."""
+    total, cnt = masked_psum(mesh, c, v, names, wire_dtype=wire_dtype)
+    return hand_out(total) / torch.clamp_min(cnt[0], 1.0)
+
+
+def backward_psum_sync(
+    mesh: RankMesh,
+    axis_names: str | Axes | None = None,
+    wire_dtype: torch.dtype | None = None,
+):
+    """A leaf's sync with the masked psum in its backward: ``sync(p, v, *,
+    hand_out=row 0)`` returns ``p`` broadcast to ``(n, *p.shape)``; the
+    backward returns ``sum_r v_r g_r / max(count, 1)`` of the leaf's
+    cotangent stack ``g`` as ``p``'s gradient.
+
+    f32 over every rank is K1 (``masked_average``, one launch a leaf on the
+    card, every rank reading one shared buffer); ``wire_dtype`` (e.g. bf16)
+    or a partial axis set takes ``masked_psum`` (mask, then cast), whose
+    per-rank rows go through ``hand_out`` before rank 0's is taken. ``v`` is
+    the ``(n,)`` f32 contributor mask.
+    """
+    names = _normalize_axes(mesh, axis_names)
+    n = mesh.size
+
+    def sync(p, v, *, hand_out=_row0):
+        def reduce(ct):
+            c = _rows(ct)
+            if _k1_axes(mesh, names, wire_dtype):
+                avg = masked_average(c, v)[0]
+            else:
+                avg = _psum_average(mesh, c, v, names, wire_dtype, hand_out)
+            return avg.view(p.shape)
+
+        return _LeafSync.apply(p, n, reduce)
+
+    return sync
+
+
+def backward_sync_ef(
+    mesh: RankMesh,
+    axis_names: str | Axes | None = None,
+    wire_dtype: torch.dtype | None = None,
+):
+    """:func:`backward_psum_sync` with error feedback: ``sync(p, e, v, *,
+    hand_out=row 0)``, where ``e`` is the leaf's ``(n, *p.shape)`` residual
+    (a view into the trainer's ``(n, P)`` buffer). The backward folds it in,
+    ``c = g + e``, syncs ``c`` under the mask and writes the new residual
+    into ``e`` in place: ``c - cast(c v)`` (``c - c v`` on a lossless wire),
+    so a masked rank's whole ``c`` carries forward. The JAX function hands
+    the new residual back as the cotangent of ``e`` instead."""
+    names = _normalize_axes(mesh, axis_names)
+    n = mesh.size
+
+    def sync(p, e, v, *, hand_out=_row0):
+        def reduce(ct):
+            c = _rows(ct) + e.reshape(n, -1)
+            if _k1_axes(mesh, names, wire_dtype):
+                avg = masked_average(c, v)[0]
+            else:
+                avg = _psum_average(mesh, c, v, names, wire_dtype, hand_out)
+            sent = c * v.to(c.dtype)[:, None]
+            if wire_dtype is not None and c.dtype != wire_dtype:
+                sent = sent.to(wire_dtype).to(c.dtype)
+            e.copy_((c - sent).view(e.shape))
+            return avg.view(p.shape)
+
+        return _LeafSync.apply(p, n, reduce)
+
+    return sync
+
+
+def backward_ring_sync(
+    mesh: RankMesh, *, compress: str = "int8", error_feedback: bool = False
+):
+    """A leaf's sync with a compressed ring inside its backward: the leaf's
+    masked cotangent rows ride :func:`ring_allreduce_sum` (the plain ring,
+    the JAX trainer's XLA ring), whose all-gather rows go through
+    ``hand_out`` before rank 0's is divided by the count.
+
+    Without EF: ``sync(p, v, *, hand_out=row 0)``. With EF: ``sync(p, e, v,
+    *, hand_out=row 0)``, ``c = g + e`` on the wire and the new residual
+    ``ring_ef_residual(c, v, hop errors)`` written into ``e`` in place.
+    The ring reduces over every rank, so the mesh must have one axis.
+    """
+    if compress not in ("bf16", "int8"):
+        raise ValueError(f"ring sync needs a compress mode, got {compress!r}")
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"the ring reduces over ONE mesh axis; got axes {mesh.axis_names}")
+    n = mesh.size
+
+    def ring_average(c, v, e, hand_out):
+        m = c * v.to(c.dtype)[:, None]
+        if e is None:
+            total = ring_allreduce_sum(m, compress=compress)
+        else:
+            total, hop_err = ring_allreduce_sum(m, compress=compress, return_residual=True)
+            e.copy_(ring_ef_residual(c, v, hop_err).view(e.shape))
+        return hand_out(total) / torch.clamp_min(v.sum(), 1.0)
+
+    if not error_feedback:
+
+        def sync(p, v, *, hand_out=_row0):
+            def reduce(ct):
+                return ring_average(_rows(ct), v, None, hand_out).view(p.shape)
+
+            return _LeafSync.apply(p, n, reduce)
+
+        return sync
+
+    def sync_ef(p, e, v, *, hand_out=_row0):
+        def reduce(ct):
+            c = _rows(ct) + e.reshape(n, -1)
+            return ring_average(c, v, e, hand_out).view(p.shape)
+
+        return _LeafSync.apply(p, n, reduce)
+
+    return sync_ef
 
 
 def ring_reduce_scatter_sum(

@@ -1,19 +1,23 @@
 """The models of the port on one device: the Transformer LM and its
-decoder, the MLP of config 3, their synthetic data and the carrying-over of
-flax weights."""
+decoder, the MLP of config 3, ResNet-50 of config 4, their data and the
+carrying-over of flax weights."""
 
 from akka_allreduce_tpu_torch.models.convert import (
     mlp_state_dict_from_flax,
+    resnet_state_dict_from_flax,
     transformer_state_dict_from_flax,
 )
 from akka_allreduce_tpu_torch.models.data import (
+    FileDataset,
     SyntheticClassification,
     SyntheticCopyLM,
+    imagenet_like,
     lm_copy_task,
     mnist_like,
 )
 from akka_allreduce_tpu_torch.models.generate import LMGenerator
 from akka_allreduce_tpu_torch.models.mlp import MLP
+from akka_allreduce_tpu_torch.models.resnet import ResNet, ResNet50, resnet_fwd_flops
 from akka_allreduce_tpu_torch.models.transformer import (
     Attention,
     Block,
@@ -25,15 +29,21 @@ from akka_allreduce_tpu_torch.models.transformer import (
 __all__ = [
     "Attention",
     "Block",
+    "FileDataset",
     "KVCache",
     "LMGenerator",
     "MLP",
+    "ResNet",
+    "ResNet50",
     "SyntheticClassification",
     "SyntheticCopyLM",
     "TransformerLM",
+    "imagenet_like",
     "lm_copy_task",
     "mlp_state_dict_from_flax",
     "mnist_like",
+    "resnet_fwd_flops",
+    "resnet_state_dict_from_flax",
     "rope",
     "transformer_state_dict_from_flax",
 ]

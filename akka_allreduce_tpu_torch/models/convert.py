@@ -1,12 +1,14 @@
 """Weights carried across from the JAX package's flax parameter trees.
 
-:func:`transformer_state_dict_from_flax` and :func:`mlp_state_dict_from_flax`
-map a ``TransformerLM`` or ``MLP`` flax tree, given as nested dicts of numpy
-arrays (``{"params": {...}}`` or the inner dict), to the ``state_dict`` of
-:class:`.transformer.TransformerLM` or :class:`.mlp.MLP`. The port keeps the
-flax shapes, so each leaf is renamed, never transposed. An unknown or a
+:func:`transformer_state_dict_from_flax`, :func:`mlp_state_dict_from_flax`
+and :func:`resnet_state_dict_from_flax` map a ``TransformerLM``, ``MLP`` or
+``ResNet`` flax tree, given as nested dicts of numpy arrays (``{"params":
+{...}}`` or the inner dict), to the ``state_dict`` of
+:class:`.transformer.TransformerLM`, :class:`.mlp.MLP` or
+:class:`.resnet.ResNet`. The port keeps the flax shapes (a conv kernel
+stays HWIO), so each leaf is renamed, never transposed. An unknown or a
 missing leaf raises ``ValueError``. :func:`flax_path` maps the other way,
-one port parameter name of either model to its flax path (the binder orders
+one port parameter name of any of them to its flax path (the binder orders
 a flat parameter vector by it).
 """
 
@@ -62,16 +64,35 @@ _BLOCK_PATHS = {name: tuple(path.split("/")) for path, name in _BLOCK_LEAVES.ite
 _PORT_BLOCK = re.compile(r"blocks\.(\d+)\.(.+)")
 _DENSE = re.compile(r"Dense_(\d+)/(kernel|bias)")
 _PORT_DENSE = re.compile(r"dense\.(\d+)\.(kernel|bias)")
+# ResNet: the stem, the head, and Bottleneck_i's Conv_j / GroupNorm_j
+_RESNET_TOP = {
+    "Conv_0/kernel": "conv.kernel",
+    "GroupNorm_0/scale": "norm.scale",
+    "GroupNorm_0/bias": "norm.bias",
+    "Dense_0/kernel": "head.kernel",
+    "Dense_0/bias": "head.bias",
+}
+_RESNET_TOP_PATHS = {name: tuple(path.split("/")) for path, name in _RESNET_TOP.items()}
+_BOTTLENECK = re.compile(r"Bottleneck_(\d+)/(Conv|GroupNorm)_(\d+)/(kernel|scale|bias)")
+_PORT_BOTTLENECK = re.compile(r"blocks\.(\d+)\.(conv|norm)\.(\d+)\.(kernel|scale|bias)")
+_LAYER = {"Conv": "conv", "GroupNorm": "norm", "conv": "Conv", "norm": "GroupNorm"}
 
 
 def flax_path(name: str) -> tuple[str, ...]:
-    """The flax path (inside ``params``) of the port's ``TransformerLM`` or
-    ``MLP`` parameter ``name``, e.g. ``blocks.1.attn.q_kernel`` ->
-    ``("Block_1", "Attention_0", "q", "kernel")`` or ``dense.2.bias`` ->
-    ``("Dense_2", "bias")``; ``ValueError`` for a name with no flax
-    counterpart."""
+    """The flax path (inside ``params``) of the port's ``TransformerLM``,
+    ``MLP`` or ``ResNet`` parameter ``name``, e.g. ``blocks.1.attn.q_kernel``
+    -> ``("Block_1", "Attention_0", "q", "kernel")``, ``dense.2.bias`` ->
+    ``("Dense_2", "bias")`` or ``blocks.10.norm.3.scale`` ->
+    ``("Bottleneck_10", "GroupNorm_3", "scale")``; ``ValueError`` for a name
+    with no flax counterpart."""
     if name in _TOP_PATHS:
         return _TOP_PATHS[name]
+    if name in _RESNET_TOP_PATHS:
+        return _RESNET_TOP_PATHS[name]
+    m = _PORT_BOTTLENECK.fullmatch(name)
+    if m is not None:
+        block, layer, j, leaf = m.groups()
+        return (f"Bottleneck_{block}", f"{_LAYER[layer]}_{j}", leaf)
     m = _PORT_DENSE.fullmatch(name)
     if m is not None:
         return (f"Dense_{m.group(1)}", m.group(2))
@@ -142,6 +163,53 @@ def mlp_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
                for leaf in ("kernel", "bias") if f"dense.{i}.{leaf}" not in out]
     if not out:
         missing.append("Dense_0/kernel, Dense_0/bias")
+    if missing:
+        raise ValueError(f"flax tree lacks leaves: {missing}")
+    return out
+
+
+def resnet_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ``ResNet`` ``state_dict`` from a flax tree:
+    ``Bottleneck_i/Conv_j/kernel`` -> ``blocks.i.conv.j.kernel`` (HWIO, as
+    flax stores it), ``Bottleneck_i/GroupNorm_j/{scale,bias}`` ->
+    ``blocks.i.norm.j.*``, and the stem's ``Conv_0``/``GroupNorm_0`` and the
+    head's ``Dense_0`` -> ``conv``, ``norm`` and ``head``.
+
+    Raises ``ValueError`` on a leaf with no counterpart in the port and on
+    a leaf the port needs that the tree lacks (the stem and the head whole;
+    blocks numbered from 0 with no gap, each with convs and norms 0-2 and
+    the projection's 3 either whole or absent).
+    """
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, torch.Tensor] = {}
+    blocks: dict[int, set[str]] = {}
+    unknown = []
+    for path, arr in _flatten(tree).items():
+        name = _RESNET_TOP.get(path)
+        m = _BOTTLENECK.fullmatch(path)
+        if name is None and m is not None:
+            block, layer, j, leaf = m.groups()
+            if (layer == "Conv") == (leaf == "kernel") and int(j) <= 3:
+                blocks.setdefault(int(block), set()).add(f"{layer}_{j}/{leaf}")
+                name = f"blocks.{block}.{_LAYER[layer]}.{j}.{leaf}"
+        if name is None:
+            unknown.append(path)
+            continue
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if unknown:
+        raise ValueError(f"flax leaves with no counterpart in the port: {sorted(unknown)}")
+    missing = [p for p, n in _RESNET_TOP.items() if n not in out]
+    if blocks and sorted(blocks) != list(range(len(blocks))):
+        missing.append(
+            f"Bottleneck_i for i in {sorted(set(range(max(blocks) + 1)) - set(blocks))}")
+    for i, leaves in sorted(blocks.items()):
+        need = [f"Conv_{j}/kernel" for j in range(3)] + [
+            f"GroupNorm_{j}/{leaf}" for j in range(3) for leaf in ("scale", "bias")]
+        projection = ["Conv_3/kernel", "GroupNorm_3/scale", "GroupNorm_3/bias"]
+        if leaves & set(projection):
+            need += projection
+        missing += [f"Bottleneck_{i}/{p}" for p in need if p not in leaves]
     if missing:
         raise ValueError(f"flax tree lacks leaves: {missing}")
     return out

@@ -1,15 +1,17 @@
-"""Synthetic data: the classification stream and the LM copy task.
+"""Training data: the classification stream, the LM copy task and ``.npz``
+files.
 
 The port's copy of ``SyntheticClassification``, ``mnist_like``,
-``SyntheticCopyLM`` and ``lm_copy_task`` from
-``akka_allreduce_tpu/models/data.py``. ``batches`` is numpy only and gives
-the same batches as the JAX package's for the same seed (held bit for bit in
-the tests). ``device_sampler`` draws batches on the device with a
+``imagenet_like``, ``SyntheticCopyLM``, ``lm_copy_task`` and ``FileDataset``
+from ``akka_allreduce_tpu/models/data.py``. ``batches`` is numpy only and
+gives the same batches as the JAX package's for the same seed (held bit for
+bit in the tests). ``device_sampler`` draws batches on the device with a
 ``torch.Generator``: the same task, but not ``jax.random``'s numbers.
-``imagenet_like`` and ``FileDataset`` arrive with ResNet-50.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -68,6 +70,81 @@ class SyntheticClassification:
 def mnist_like(seed: int = 0) -> SyntheticClassification:
     """28x28x1, 10 classes: the MLP/MNIST workload's shape."""
     return SyntheticClassification((28, 28, 1), 10, seed=seed)
+
+
+def imagenet_like(size: int = 64, classes: int = 1000, seed: int = 0) -> SyntheticClassification:
+    """NHWC images for the ResNet-50 workload (64 px by default; 224 for
+    full-size runs)."""
+    return SyntheticClassification((size, size, 3), classes, seed=seed)
+
+
+class FileDataset:
+    """A ``.npz`` file, or a directory of ``.npz`` shards, each holding
+    arrays ``x`` and ``y``: real data in place of a synthetic stream.
+
+    ``batches`` yields shuffled minibatches (reshuffled on every pass through
+    the data), the JAX package's for the same seed; ``device_sampler`` keeps
+    the arrays on the device and draws rows (with replacement) there. Labels
+    become int32; inputs keep their stored dtype. A missing shard, a missing
+    array or mismatched row counts raise here, and a batch larger than the
+    data raises when ``batches`` is called, not at the first ``next()``.
+    """
+
+    def __init__(self, path, *, x_key: str = "x", y_key: str = "y", seed: int = 0) -> None:
+        p = Path(path)
+        files = sorted(p.glob("*.npz")) if p.is_dir() else [p]
+        if not files:
+            raise FileNotFoundError(f"no .npz shards under {p}")
+        xs, ys = [], []
+        for f in files:
+            with np.load(f, allow_pickle=False) as z:
+                if x_key not in z or y_key not in z:
+                    raise KeyError(f"{f} lacks arrays {x_key!r}/{y_key!r} (has {sorted(z.files)})")
+                xs.append(np.asarray(z[x_key]))
+                ys.append(np.asarray(z[y_key]))
+        self.x = np.concatenate(xs, axis=0)
+        self.y = np.concatenate(ys, axis=0).astype(np.int32)
+        if self.x.shape[0] != self.y.shape[0]:
+            raise ValueError(f"x rows {self.x.shape[0]} != y rows {self.y.shape[0]}")
+        self.n = self.x.shape[0]
+        self._seed = seed
+
+    def batches(self, batch_size: int, steps: int, *, seed_offset: int = 1):
+        """Yield ``steps`` minibatches, without replacement within a pass."""
+        if batch_size > self.n:
+            raise ValueError(f"batch {batch_size} exceeds dataset rows {self.n}")
+
+        def gen():
+            rng = np.random.default_rng(self._seed + seed_offset)
+            order = rng.permutation(self.n)
+            at = 0
+            for _ in range(steps):
+                if at + batch_size > self.n:
+                    order = rng.permutation(self.n)
+                    at = 0
+                idx = order[at:at + batch_size]
+                at += batch_size
+                yield self.x[idx], self.y[idx]
+
+        return gen()
+
+    def device_sampler(self):
+        """``(generator, rows) -> (x, y int64)``: rows drawn with
+        ``generator`` on its device from a copy of the arrays uploaded once a
+        device."""
+        host = (torch.from_numpy(self.x), torch.from_numpy(self.y).long())
+        uploaded: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+        n = self.n
+
+        def sample(generator: torch.Generator, rows: int):
+            dev = generator.device
+            if dev not in uploaded:
+                uploaded[dev] = (host[0].to(dev), host[1].to(dev))
+            x, y = uploaded[dev]
+            idx = torch.randint(0, n, (rows,), generator=generator, device=dev)
+            return x[idx], y[idx]
+
+        return sample
 
 
 class SyntheticCopyLM:

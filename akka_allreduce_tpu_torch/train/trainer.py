@@ -33,16 +33,31 @@ With ``error_feedback`` each rank keeps an f32 residual row (the ``(n, P)``
 state ``_ef``): ``c = g + e`` goes on the wire and what the compression
 withheld, or the whole of ``c`` for a masked rank, is re-sent next step.
 
+``overlap=True`` syncs each parameter leaf inside the backward instead
+(``overlapped_step``, ``akka_allreduce_tpu/train/trainer.py:473``): every
+leaf reaches the model through its sync (``comm.allreduce.backward_*_sync``),
+which hands it to the n ranks as an ``(n, *leaf)`` broadcast, the loss is
+the unmasked sum of the ranks' mean losses, and in ``backward()`` each
+leaf's ``(n, *leaf)`` cotangent stack is masked and synced as soon as it is
+ready: K1 once a leaf in f32, a bf16 ``masked_psum`` or the int8 ring per
+leaf, with the leaf's EF residual (a view into ``_ef``) rewritten in place.
+
+``train_step_accum`` splits each rank's rows into ``accum_steps``
+consecutive microbatches, sums their gradient stacks, divides by
+``accum_steps`` and runs the sum through the one sync of the plain step.
+
 ``train_chain`` draws its batches on the device with a ``torch.Generator``
 and keeps the losses there until the chain ends: one host read a chain.
 
-``overlap`` (per-leaf collectives inside the backward) and
-``train_step_accum`` are not ported yet and are refused.
+Each step's forward and backward run under ``_device.ieee_f32``, so a
+model's f32 convolutions (ResNet's) train in f32, not in cuDNN's default
+TF32.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
@@ -51,10 +66,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call, grad_and_value, vmap
 
-from akka_allreduce_tpu_torch._device import resolve_device
+from akka_allreduce_tpu_torch._device import ieee_f32, resolve_device
 from akka_allreduce_tpu_torch.binder.api import flatten_params, leaf_order
 from akka_allreduce_tpu_torch.comm.allreduce import (
     _num_buckets,
+    backward_psum_sync,
+    backward_ring_sync,
+    backward_sync_ef,
     expand_counts,
     masked_psum,
     ring_allreduce_sum,
@@ -125,7 +143,8 @@ class DPTrainer:
         one mesh axis only). Counts stay f32.
       error_feedback: carry each rank's compression residual into its next
         contribution; requires ``compress``.
-      overlap: not ported yet (refused).
+      overlap: sync each parameter leaf inside the backward, one sync a leaf
+        (no ``bucket_size``: the leaf is the bucket).
       device: the mesh's device unless given; a different one raises.
 
     The JAX trainer's ``example_input`` and ``seed`` have no counterpart:
@@ -162,9 +181,6 @@ class DPTrainer:
                 "sync has no residual to carry)")
         if bucket_size is not None and bucket_size <= 0:
             raise ValueError(f"bucket_size must be positive, got {bucket_size}")
-        if overlap:
-            raise NotImplementedError(
-                "overlap is not ported yet (per-leaf collectives inside the backward)")
         if device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
         self.mesh = mesh
@@ -176,6 +192,7 @@ class DPTrainer:
         self.bucket_size = bucket_size
         self.compress = compress
         self.error_feedback = error_feedback
+        self.overlap = overlap
         self._loss = loss_fn or default_classification_loss()
         named = dict(self.model.named_parameters())
         self._names = leaf_order(self.model)
@@ -188,11 +205,24 @@ class DPTrainer:
                     if error_feedback else None)
         self.step_num = 0
         self._unflatten = None
+        # name -> the per-rank rows of the latest sync (utils.verify), or None
+        self._replica_log: dict[str, torch.Tensor] | None = None
 
         def rank_loss(params, x, y):
             return self._loss(functional_call(self.model, params, (x,)), y)
 
         self._rank_grads = vmap(grad_and_value(rank_loss), in_dims=(None, 0, 0))
+        # overlap: every rank's loss on its own (n, *leaf) broadcast of each leaf
+        self._rank_losses = vmap(rank_loss, in_dims=(0, 0, 0))
+        if not overlap:
+            self._leaf_sync = None
+        elif compress == "int8":
+            self._leaf_sync = backward_ring_sync(mesh, compress="int8",
+                                                 error_feedback=error_feedback)
+        else:
+            make = backward_sync_ef if error_feedback else backward_psum_sync
+            self._leaf_sync = make(mesh, self.axis_names,
+                                   torch.bfloat16 if compress == "bf16" else None)
 
     # -- the three stages of a step ------------------------------------------
 
@@ -200,13 +230,29 @@ class DPTrainer:
         """Every rank's gradient of its mean loss on its rows of the global
         batch ``x``/``y`` (device tensors, ``n·b`` rows): the ``(n, P)`` f32
         stack in flat-vector order and the ``(n,)`` losses."""
+        return self._rank_stack(*self._split(x, y))
+
+    def _split(self, x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The global batch as ``(n, b, ...)``: rank r's rows ``[r·b, (r+1)·b)``."""
         n = self.n_devices
-        xs = x.reshape(n, x.shape[0] // n, *x.shape[1:])
-        ys = y.reshape(n, y.shape[0] // n, *y.shape[1:])
+        return (x.reshape(n, x.shape[0] // n, *x.shape[1:]),
+                y.reshape(n, y.shape[0] // n, *y.shape[1:]))
+
+    def _rank_stack(self, xs: torch.Tensor, ys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        n = self.n_devices
         params = {name: p.detach() for name, p in zip(self._names, self._params)}
-        grads, losses = self._rank_grads(params, xs, ys)
+        with ieee_f32():  # the backward's convs too
+            grads, losses = self._rank_grads(params, xs, ys)
         stack = torch.cat([grads[name].reshape(n, -1).float() for name in self._names], dim=1)
         return stack, losses.float()
+
+    def _hand_out(self, name: str, rows: torch.Tensor) -> torch.Tensor:
+        """What a sync hands the ranks: the ``(n, ...)`` per-rank rows, of
+        which every rank takes rank 0's. Kept for ``utils.verify`` while
+        it watches the trainer."""
+        if self._replica_log is not None:
+            self._replica_log[name] = rows
+        return rows[0]
 
     def sync(self, stack: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The threshold-masked average of the rank stack under the ``(n,)``
@@ -223,7 +269,7 @@ class DPTrainer:
                 total, hop_err = ring_allreduce_sum(masked, compress="int8",
                                                     return_residual=True)
                 self._ef = ring_ef_residual(c, v, hop_err)
-            return total[0] / torch.clamp_min(count, 1.0), count
+            return self._hand_out("grad_sum", total) / torch.clamp_min(count, 1.0), count
         p = stack.shape[1]
         b = self.bucket_size or p
         per_bucket = v[:, None].expand(self.n_devices, _num_buckets(p, b))
@@ -231,12 +277,18 @@ class DPTrainer:
                                  bucket_size=b, wire_dtype=torch.bfloat16)
         if self._ef is not None:
             self._ef = ef_residual(c, v)
-        return total[0] / torch.clamp_min(expand_counts(cnt[0], p, b), 1.0), count
+        cnt0 = self._hand_out("grad_count", cnt)
+        return (self._hand_out("grad_sum", total)
+                / torch.clamp_min(expand_counts(cnt0, p, b), 1.0)), count
 
     def apply_gradients(self, average: torch.Tensor) -> None:
         """One optimizer step from the averaged flat gradient ``(P,)``."""
         for p, g in zip(self._params, torch.split(average, self._sizes)):
             p.grad = g.view(p.shape)
+        self._optimizer_step()
+
+    def _optimizer_step(self) -> None:
+        """The optimizer's step from the leaves' ``.grad``, which it drops."""
         self.optimizer.step()
         for p in self._params:
             p.grad = None
@@ -246,11 +298,43 @@ class DPTrainer:
     def _step(self, x: torch.Tensor, y: torch.Tensor, v: torch.Tensor):
         """One step on device tensors; returns the (loss, contributors)
         device scalars (no host read)."""
-        stack, losses = self.rank_gradients(x, y)
-        average, count = self.sync(stack, v)
-        del stack
-        self.apply_gradients(average)
+        if self.overlap:
+            losses, count = self._overlapped_step(*self._split(x, y), v), v.sum()
+        else:
+            stack, losses = self.rank_gradients(x, y)
+            average, count = self.sync(stack, v)
+            del stack
+            self.apply_gradients(average)
         return (losses * v).sum() / torch.clamp_min(count, 1.0), count
+
+    def _ef_leaves(self) -> list[torch.Tensor | None]:
+        """Each leaf's ``(n, *leaf)`` view into the ``(n, P)`` EF residual,
+        cut in flat order (None without EF)."""
+        if self._ef is None:
+            return [None] * len(self._params)
+        views, start = [], 0
+        for p, size in zip(self._params, self._sizes):
+            views.append(self._ef[:, start:start + size].view(self.n_devices, *p.shape))
+            start += size
+        return views
+
+    def _overlapped_step(self, xs: torch.Tensor, ys: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Per-leaf syncs inside the backward: each leaf reaches the ranks
+        through its sync, ``backward()`` of the unmasked sum of the ranks'
+        mean losses runs each leaf's sync once its cotangent stack is ready
+        (the sync masks it: a mask in the loss too would square it) and
+        leaves the synced average in the leaf's ``.grad``; then the
+        optimizer steps. Returns the ``(n,)`` rank losses."""
+        handed = {}
+        for name, p, e in zip(self._names, self._params, self._ef_leaves()):
+            hand_out = functools.partial(self._hand_out, name)
+            args = (p, v) if e is None else (p, e, v)
+            handed[name] = self._leaf_sync(*args, hand_out=hand_out)
+        with ieee_f32():  # the backward's convs too
+            losses = self._rank_losses(handed, xs, ys)
+            losses.sum().backward()
+        self._optimizer_step()
+        return losses.detach().float()
 
     def _valid(self, valid: Sequence[float] | None) -> torch.Tensor:
         return torch.from_numpy(normalize_valid(valid, self.n_devices)).to(self.device)
@@ -267,9 +351,12 @@ class DPTrainer:
         contributor mask; None = every rank contributes."""
         v = self._valid(valid)
         xd, yd = self._place_batch(x, y)
-        loss, cnt = self._step(xd, yd, v)
+        return self._finish_step(*self._step(xd, yd, v))
+
+    def _finish_step(self, loss: torch.Tensor, count: torch.Tensor) -> TrainStepMetrics:
+        """Count the step and read its (loss, contributors) device scalars."""
         self.step_num += 1
-        loss, cnt = torch.stack([loss, cnt]).tolist()
+        loss, cnt = torch.stack([loss, count]).tolist()
         return TrainStepMetrics(step=self.step_num, loss=loss, contributors=cnt)
 
     def train(
@@ -283,8 +370,45 @@ class DPTrainer:
             history.append(self.train_step(x, y, valid))
         return history
 
-    def train_step_accum(self, *args, **kwargs):
-        raise NotImplementedError("train_step_accum is not ported yet (gradient accumulation)")
+    def train_step_accum(self, x, y, accum_steps: int,
+                         valid: Sequence[float] | None = None) -> TrainStepMetrics:
+        """One optimizer step over the global batch ``x``/``y`` split into
+        ``accum_steps`` microbatches a rank (the row count divisible by
+        ``n · accum_steps``): rank r's rows ``[r·b, (r+1)·b)`` in
+        ``accum_steps`` consecutive microbatches, their gradient stacks
+        summed and divided by ``accum_steps``, then the ONE sync of the plain
+        step (K1 in f32, bucketed or not; the bf16 ``masked_psum``; the int8
+        ring with its per-hop EF). The loss is ``sum_r v_r (lsum_r /
+        accum_steps) / max(count, 1)``."""
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if accum_steps == 1:  # the same arithmetic: the plain step
+            return self.train_step(x, y, valid)
+        if self.overlap:
+            raise NotImplementedError(
+                "overlap is pointless under gradient accumulation: every leaf's "
+                "gradient depends on the whole accumulation, so per-leaf syncs "
+                "could never run behind the backward; use accumulation without overlap")
+        n = self.n_devices * accum_steps
+        if x.shape[0] % n:
+            raise ValueError(f"global batch {x.shape[0]} not divisible by {self.n_devices} "
+                             f"ranks x {accum_steps} accumulation steps")
+        v = self._valid(valid)
+        xd, yd = self._place_batch(x, y)
+        micro = x.shape[0] // n
+        xs = xd.reshape(self.n_devices, accum_steps, micro, *xd.shape[1:])
+        ys = yd.reshape(self.n_devices, accum_steps, micro, *yd.shape[1:])
+        gsum = lsum = None
+        for a in range(accum_steps):
+            stack, losses = self._rank_stack(xs[:, a], ys[:, a])
+            gsum = stack if gsum is None else gsum.add_(stack)
+            lsum = losses if lsum is None else lsum + losses
+        del stack
+        average, count = self.sync(gsum.div_(accum_steps), v)
+        del gsum
+        self.apply_gradients(average)
+        return self._finish_step((lsum * v / accum_steps).sum() / torch.clamp_min(count, 1.0),
+                                 count)
 
     def accuracy(self, x, y) -> float:
         xd, yd = self._place_batch(x, y)

@@ -1,4 +1,5 @@
-"""Timing, card-description and per-round metrics helpers."""
+"""Timing, card-description and per-round metrics helpers, and the replica
+checks over virtual ranks."""
 
 from akka_allreduce_tpu_torch.utils.benchmarking import (  # noqa: F401
     SlopeEstimate,
@@ -14,4 +15,9 @@ from akka_allreduce_tpu_torch.utils.benchmarking import (  # noqa: F401
 from akka_allreduce_tpu_torch.utils.metrics import (  # noqa: F401
     MetricsLogger,
     RoundMetrics,
+)
+from akka_allreduce_tpu_torch.utils.verify import (  # noqa: F401
+    assert_replica_consistent,
+    assert_trainer_replicas,
+    record_replicas,
 )

@@ -95,8 +95,31 @@ Phases, each printed as it ends:
    bit-identical) and of both with error feedback under a masked rank (its
    bf16 residual row more than 50x any other's; the int8 residual equal to
    the ring's per-hop errors plus the masked rank's whole gradient), none
-   launching K1; ``train_chain`` for 2 steps on card-drawn batches,
-   ``train-mlp`` for 5 steps and the ``bench-mfu --workload mlp`` record;
+   launching K1; an overlapped f32 step with rank 7 masked (K1 once a leaf,
+   6 launches, each leaf's K1 output equal to the matching slice of one
+   fused K1 average of all the leaves' cotangent rows, bit for bit; the
+   parameters within rtol 1e-5, atol 1e-7 of the fused step's); an
+   overlapped bf16 + EF and int8 + EF step each under a masked rank (no K1;
+   every leaf's new residual equal to its formula on the folded rows, bit for
+   bit; the bf16 masked row more than 10x any other's); an accumulated step
+   of 4 microbatches (one K1 launch; loss within 1e-5 and parameters within
+   2e-5 of a plain step on the same batch); ``train_chain`` for 2 steps on
+   card-drawn batches, ``train-mlp`` for 5 steps, the ``bench-mfu
+   --workload mlp`` record and ``train-mlp --overlap`` / ``--accum 2`` for 3
+   steps each (6 and 1 K1 launches a step); (g) ``DPTrainer`` on ResNet-50
+   (``ResNet50(classes=1000)``, 25,557,032 parameters, 161 leaves) over
+   ``line_mesh(8)``, 64 px ``imagenet_like`` images, 2 rows a rank: the f32
+   forward against the same seed's model on the CPU within 1e-4 of
+   max|logit|, under PyTorch's default cuDNN setting (the model turns TF32
+   off for its convs and hands the setting back); K1 against ``masked_average_reference`` on a step's ``(8,
+   25557032)`` stack (the float4 path), with every rank and with rank 7
+   masked, and the update from either, bit for bit; then, counted, 3 f32
+   steps with ``bucket_size=262,144`` on one batch (loss finite and
+   falling), an overlapped f32 step (161 K1 launches, each equal to the
+   fused average's slice), an accumulated step (one), a bf16-compute step
+   (one) and an int8 + EF step (none); ``train-resnet`` for 3 steps (its
+   ``(8, 23528522)`` stack, the scalar path), ``bench-mfu --workload
+   resnet`` and ``graft_entry.entry()`` / ``dryrun_multichip(8)``;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -116,7 +139,10 @@ Phases, each printed as it ends:
    ``MLP(2048, 2048)`` (median of 5, host clock ended by a synchronize),
    K1 by CUDA events on its ``(8, 5824522)`` stack beside its plain
    version, ``torch.mv`` and its bound, K1's share of the step, and two
-   steps under ``torch.profiler``;
+   steps under ``torch.profiler``; the same for the ResNet-50 step, with K1
+   on its ``(8, 25557032)`` stack and ``bench-mfu --workload resnet``'s
+   ms/step and MFU; at both widths the overlapped step's time and K1 once a
+   leaf against its one fused launch;
 6. one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -174,8 +200,15 @@ TRAIN_LM_SEQ, TRAIN_LM_STEPS = 1024, 40
 DP_RANKS, DP_HIDDEN, DP_ROWS, DP_STEPS = 8, (2048, 2048), 16, 20
 DP_PARAMS = 784 * 2048 + 2048 + 2048 * 2048 + 2048 + 2048 * 10 + 10
 # a masked rank's bf16 EF row against every other's norm (the JAX package's
-# band, tests/test_train.py)
+# band, tests/test_train.py); under overlap, tests/test_overlap.py's
 EF_BF16_RATIO = 50.0
+EF_OVERLAP_RATIO = 10.0
+DP_LEAVES = 6  # MLP(2048, 2048): three kernels and three biases
+# ResNet-50 (BASELINE config 4) over the same ranks: 64 px imagenet_like
+# images, 2 rows a rank; train-resnet's default model has 10 classes
+RESNET_CLASSES, RESNET_SIZE, RESNET_ROWS, RESNET_STEPS = 1000, 64, 2, 3
+RESNET_PARAMS, RESNET10_PARAMS, RESNET_LEAVES = 25_557_032, 23_528_522, 161
+RESNET_LR = 0.01  # at 0.1 the third step on one batch diverges (7.8, 3.1, 38.8)
 
 
 def ring_name(mode: str | None) -> str:
@@ -633,6 +666,88 @@ def lm_train_path(dev) -> dict:
     }
 
 
+@contextlib.contextmanager
+def watch_leaf_syncs(trainer):
+    """Keep what the trainer's per-leaf syncs see in an overlapped step, in
+    backward order: each leaf's ``(n, leaf)`` cotangent rows (a hook on the
+    leaf's broadcast fires just before its sync), with EF its residual before
+    the step and its view into ``_ef``; and each K1 output."""
+    from akka_allreduce_tpu_torch.comm import allreduce as ar
+
+    seen = {"ct": [], "e": [], "k1": []}
+    sync, k1 = trainer._leaf_sync, ar.masked_average
+
+    def watched(p, *args, **kw):
+        out = sync(p, *args, **kw)
+        # (p, e, v) with EF: keep the residual before the step, and its view
+        e = (args[0].detach().clone(), args[0]) if len(args) == 2 else None
+
+        def hook(g):
+            seen["ct"].append(g.detach().reshape(g.shape[0], -1).clone())
+            seen["e"].append(e)
+
+        out.register_hook(hook)
+        return out
+
+    def k1_kept(x, valid):
+        avg, cnt = k1(x, valid)
+        seen["k1"].append(avg)
+        return avg, cnt
+
+    trainer._leaf_sync, ar.masked_average = watched, k1_kept
+    try:
+        yield seen
+    finally:
+        trainer._leaf_sync, ar.masked_average = sync, k1
+
+
+def check_overlap_k1(seen: dict, valid, what: str) -> int:
+    """Each leaf's K1 output against the matching slice of one fused K1
+    average of all the leaves' cotangent rows, bit for bit (K1 is independent
+    per column). Returns the leaves compared."""
+    import torch
+
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+
+    require(len(seen["k1"]) == len(seen["ct"]) > 0, f"{what}: a K1 output a leaf")
+    whole, _ = lr.masked_average(torch.cat(seen["ct"], dim=1), valid)
+    start = 0
+    for ct, out in zip(seen["ct"], seen["k1"]):
+        require(torch.equal(out.reshape(-1), whole[start:start + ct.shape[1]]),
+                f"{what}: a leaf's K1 output differs from the fused average's slice")
+        start += ct.shape[1]
+    return len(seen["k1"])
+
+
+def check_overlap_ef(seen: dict, v, compress: str, what: str) -> None:
+    """Every leaf's new residual against its formula on the folded rows
+    ``c = g + e``: ``c - bf16(c v)`` or ``ring_ef_residual(c, v, hop errors)``,
+    bit for bit."""
+    import torch
+
+    from akka_allreduce_tpu_torch.comm.allreduce import ring_allreduce_sum, ring_ef_residual
+
+    require(len(seen["e"]) == len(seen["ct"]) > 0, f"{what}: every leaf seen")
+    for ct, (e0, view) in zip(seen["ct"], seen["e"]):
+        c = ct + e0.reshape(ct.shape)
+        if compress == "int8":
+            _, hop = ring_allreduce_sum(c * v[:, None], compress="int8", return_residual=True)
+            want = ring_ef_residual(c, v, hop)
+        else:
+            want = c - (c * v[:, None]).to(torch.bfloat16).float()
+        require(torch.equal(view.reshape(c.shape), want), f"{what}: a leaf's residual")
+
+
+def run_cli(argv: list[str]) -> tuple[int, str]:
+    """The port's CLI in this process: (exit code, its standard output)."""
+    from akka_allreduce_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
 def dp_train_path(dev) -> dict:
     """``DPTrainer`` on the MLP over virtual ranks: (a) bench-suite config 3,
     its K1 launches equal to its steps; (b) at bench-mfu's width
@@ -645,14 +760,10 @@ def dp_train_path(dev) -> dict:
     ``train-mlp`` for 5 and the ``bench-mfu --workload mlp`` record.
     Returns the launches and figures of each part, with the trainer and a
     step's stack for the timings."""
-    import contextlib
-    import io
-
     import numpy as np
     import torch
 
     from akka_allreduce_tpu_torch import bench_suite
-    from akka_allreduce_tpu_torch.__main__ import main as cli_main
     from akka_allreduce_tpu_torch.comm.allreduce import ring_allreduce_sum, ring_ef_residual
     from akka_allreduce_tpu_torch.models import MLP, mnist_like
     from akka_allreduce_tpu_torch.ops import local_reduce as lr
@@ -769,67 +880,333 @@ def dp_train_path(dev) -> dict:
     require(count["masked_average"] == k1(DP_STEPS + 2), "a compressed sync launched K1")
     launches_b = dict(count)
 
+    # (b2) overlap and accumulation at the same width, rank 7 masked
+    zero(count)
+    x, y = on_dev(*batches[0])
+    v7 = torch.tensor(masked7, device=dev)
+    t_o, t_f = trainer(overlap=True), trainer()
+    with watch_leaf_syncs(t_o) as seen:
+        m_o = t_o.train_step(x, y, valid=masked7)
+        sync()
+    overlap_launches = count["masked_average"]
+    require(overlap_launches == k1(DP_LEAVES) and m_o.contributors == DP_RANKS - 1,
+            f"overlapped f32 step: one K1 launch a leaf, {dict(count)}, {m_o}")
+    if on_card:
+        check_overlap_k1(seen, v7, "MLP overlap")
+    del seen
+    m_f = t_f.train_step(x, y, valid=masked7)
+    overlap_err = float(np.abs(t_o.get_flat_params() - t_f.get_flat_params()).max())
+    require(np.allclose(t_o.get_flat_params(), t_f.get_flat_params(), rtol=1e-5, atol=1e-7)
+            and abs(m_o.loss - m_f.loss) < 1e-5,
+            f"overlapped vs fused step: max abs {overlap_err}, losses {m_o.loss} {m_f.loss}")
+    zero(count)
+    overlap_ef = {}
+    v3 = torch.tensor(masked3, device=dev)
+    for compress in ("bf16", "int8"):
+        te = trainer(overlap=True, compress=compress, error_feedback=True)
+        with watch_leaf_syncs(te) as seen:
+            m = te.train_step(x, y, valid=masked3)
+        check_overlap_ef(seen, v3, compress, f"overlap {compress} + EF")
+        del seen
+        norms = te._ef.norm(dim=1)
+        ratio = float(norms[3]) / float(torch.cat([norms[:3], norms[4:]]).max())
+        require(m.contributors == DP_RANKS - 1 and math.isfinite(m.loss)
+                and (compress == "int8" or ratio > EF_OVERLAP_RATIO),
+                f"overlap {compress} + EF: {m}, masked row {ratio:.1f}x the others'")
+        overlap_ef[compress] = {"loss": m.loss, "masked_ef_ratio": ratio}
+        del te
+    require(count["masked_average"] == 0, f"compressed overlap launched K1: {dict(count)}")
+    t_a, t_p = trainer(), trainer()
+    m_a = t_a.train_step_accum(x, y, 4)
+    accum_launches = count["masked_average"]
+    m_p = t_p.train_step(x, y)
+    accum_err = float(np.abs(t_a.get_flat_params() - t_p.get_flat_params()).max())
+    require(accum_launches == k1(1) and abs(m_a.loss - m_p.loss) < 1e-5 and accum_err <= 2e-5,
+            f"accumulated step (4 microbatches): {accum_launches} K1 launches, losses "
+            f"{m_a.loss} {m_p.loss}, params max abs {accum_err}")
+    del t_a, t_p, t_f
+    sync()
+
     # (c) the entry points
     zero(count)
     chain = t.train_chain(mnist_like(seed=SEED).device_sampler(), 2, DP_ROWS)
     sync()
     require(len(chain) == 2 and all(math.isfinite(m.loss) for m in chain)
             and count["masked_average"] == k1(2), f"train_chain {chain}, {dict(count)}")
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli_main(["train-mlp", "--steps", "5", "--batch", str(DP_RANKS * DP_ROWS),
+    rc, out = run_cli(["train-mlp", "--steps", "5", "--batch", str(DP_RANKS * DP_ROWS),
                        "--hidden", *map(str, DP_HIDDEN),
                        *([] if on_card else ["--device", "cpu"])])
     sync()
-    cli_line = buf.getvalue().strip().splitlines()[-1]
+    cli_line = out.strip().splitlines()[-1]
     print(cli_line, flush=True)
     require(rc == 0 and count["masked_average"] == k1(2 + 5),
             f"train-mlp: rc {rc}, {dict(count)}")
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli_main(["bench-mfu", "--workload", "mlp", "--batch", str(DP_RANKS * DP_ROWS),
+    rc, out = run_cli(["bench-mfu", "--workload", "mlp", "--batch", str(DP_RANKS * DP_ROWS),
                        "--hidden", *map(str, DP_HIDDEN),
                        *([] if on_card else ["--device", "cpu"])])
     sync()
-    mfu_rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    mfu_rec = json.loads(out.strip().splitlines()[-1])
     print(json.dumps(mfu_rec), flush=True)
     require(rc == 0 and mfu_rec["ms_per_step"] > 0 and mfu_rec["hidden"] == list(DP_HIDDEN)
             and count["masked_average"] >= k1(2 + 5 + 1), f"bench-mfu --workload mlp {mfu_rec}")
+    cli_lines = {}
+    for flags, per_step in ((["--overlap"], DP_LEAVES), (["--accum", "2"], 1)):
+        before = count["masked_average"]
+        rc, out = run_cli(["train-mlp", "--steps", "3", "--batch", str(DP_RANKS * DP_ROWS),
+                           "--hidden", *map(str, DP_HIDDEN), *flags,
+                           *([] if on_card else ["--device", "cpu"])])
+        sync()
+        cli_lines[flags[0]] = out.strip().splitlines()[-1]
+        print(cli_lines[flags[0]], flush=True)
+        require(rc == 0 and count["masked_average"] - before == k1(3 * per_step),
+                f"train-mlp {flags}: rc {rc}, {count['masked_average'] - before} K1 launches")
     launches_c = dict(count)
     return {
         "launches": launches_a["masked_average"] + launches_b["masked_average"]
-        + launches_c["masked_average"],
+        + overlap_launches + accum_launches + launches_c["masked_average"],
         "per_part": {"a_config3": launches_a["masked_average"],
                      "b_width_2048": launches_b["masked_average"],
+                     "b2_overlap_step": overlap_launches, "b2_accum_step": accum_launches,
                      "c_entry_points": launches_c["masked_average"]},
         "config3": rec3, "losses": losses, "masked_step": m_7.loss,
         "compressed": compressed, "bench_mfu": mfu_rec, "train_mlp": cli_line,
-        "trainer": t, "batches": batches, "stack": stack,
+        "overlap": {"max_abs_vs_fused": overlap_err, "loss": m_o.loss, "ef": overlap_ef},
+        "accum": {"max_abs_vs_plain": accum_err, "loss": m_a.loss, "plain_loss": m_p.loss},
+        "train_mlp_overlap_accum": cli_lines,
+        "trainer": t, "overlap_trainer": t_o, "batches": batches, "stack": stack,
+        "accum_steps": 4,
     }
 
 
-def time_dp_step(dp: dict, steps: int = 5) -> dict:
-    """The DP step at bench-mfu's width: median host-clock ms over ``steps``
-    f32 steps (each ended by a synchronize), after one warm-up step; K1 by
-    CUDA events on a step's ``(8, P)`` gradient stack with all ranks, beside
-    its plain version and ``torch.mv`` + sum + clamp + div; two steps under
-    ``torch.profiler``."""
+def resnet_train_path(dev) -> dict:
+    """``DPTrainer`` on ResNet-50 (``ResNet50(classes=1000)``, 25,557,032
+    parameters) over ``line_mesh(8)``, 64 px ``imagenet_like`` images, 2 rows
+    a rank, f32: the forward on the card against the same seed's model on
+    the CPU (1e-4 of max|logit|); K1 against ``masked_average_reference`` on
+    a step's ``(8, 25557032)`` stack and the update from either, bit for bit,
+    with every rank and with rank 7 masked; then, counted, a few bucketed
+    steps on one batch (its loss finite and falling: the batch's 16 images
+    are learnt), one overlapped step (K1 once a leaf, each equal to the
+    fused average's slice), one accumulated step (one K1 launch), one bf16
+    compute step (one) and one int8 + EF step (none); then ``train-resnet``
+    (its ``(8, 23528522)`` stack through K1), ``bench-mfu --workload resnet``
+    and ``graft_entry.entry()`` / ``dryrun_multichip(8)``."""
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch import graft_entry
+    from akka_allreduce_tpu_torch.models import ResNet50, imagenet_like
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import DPTrainer
+
+    count = lr.LAUNCHES
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def k1(n: int) -> int:
+        return n if on_card else 0
+
+    def model(**kw):
+        return ResNet50(RESNET_CLASSES, seed=SEED, device=dev, **kw)
+
+    data = imagenet_like(RESNET_SIZE, RESNET_CLASSES, seed=SEED)
+    x, y = next(data.batches(DP_RANKS * RESNET_ROWS, 1))
+    xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev).long()
+    masked7 = [1.0] * (DP_RANKS - 1) + [0.0]
+    v7 = torch.tensor(masked7, device=dev)
+
+    # (a) the f32 forward against the same seed's model on the CPU, under
+    # PyTorch's own cuDNN setting (TF32 allowed): the model turns it off
+    # for its convs and hands it back
+    tf32 = torch.backends.cudnn.allow_tf32
+    with torch.no_grad():
+        got = model()(xd[:4]).cpu()
+        want = ResNet50(RESNET_CLASSES, seed=SEED, device="cpu")(torch.from_numpy(x[:4]))
+    forward_err = float((got - want).abs().max() / want.abs().max())
+    require(forward_err <= LOGIT_TOL and torch.backends.cudnn.allow_tf32 == tf32,
+            f"ResNet-50 f32 logits vs the CPU: {forward_err} (cuDNN TF32 {tf32} -> "
+            f"{torch.backends.cudnn.allow_tf32})")
+
+    # (b) K1 on a step's stack, and the update from either average
+    mesh = line_mesh(DP_RANKS, device=dev)
+    t = DPTrainer(model(), mesh, learning_rate=RESNET_LR, bucket_size=262_144)
+    require(t.param_count == RESNET_PARAMS and len(t._params) == RESNET_LEAVES,
+            f"ResNet-50 params {t.param_count}, leaves {len(t._params)}")
+    stack, _ = t.rank_gradients(xd, yd)
+    require(stack.shape == (DP_RANKS, RESNET_PARAMS) and bool(torch.isfinite(stack).all()),
+            f"ResNet-50 gradient stack {tuple(stack.shape)}")
+    p0 = t.get_flat_params()
+    for bits in ([1.0] * DP_RANKS, masked7):
+        v = torch.tensor(bits, device=dev)
+        avg, cnt = lr.masked_average(stack, v)
+        ref, ref_cnt = lr.masked_average_reference(stack, v)
+        require(torch.equal(avg, ref) and float(cnt) == float(ref_cnt) == sum(bits),
+                f"K1 on ResNet-50's stack, mask {bits}: max abs err "
+                f"{float((avg - ref).abs().max())}")
+        t.apply_gradients(ref)
+        p_plain = t.get_flat_params()
+        t.set_flat_params(p0)
+        t.apply_gradients(avg)
+        require(np.array_equal(t.get_flat_params(), p_plain),
+                f"ResNet-50 parameters after the update from K1's average, mask {bits}")
+        t.set_flat_params(p0)
+    del avg, ref
+    sync()
+
+    # (c) counted steps
+    zero(count)
+    losses = [t.train_step(xd, yd, valid=masked7 if i == 1 else None).loss
+              for i in range(RESNET_STEPS)]
+    sync()
+    steps_launches = count["masked_average"]
+    require(all(math.isfinite(loss) for loss in losses) and losses[-1] < losses[0]
+            and steps_launches == k1(RESNET_STEPS),
+            f"ResNet-50 f32 steps: losses {losses}, {steps_launches} K1 launches")
+    zero(count)
+    t_o = DPTrainer(model(), mesh, learning_rate=RESNET_LR, overlap=True)
+    with watch_leaf_syncs(t_o) as seen:
+        m_o = t_o.train_step(xd, yd, valid=masked7)
+        sync()
+    overlap_launches = count["masked_average"]
+    require(overlap_launches == k1(RESNET_LEAVES) and m_o.contributors == DP_RANKS - 1
+            and math.isfinite(m_o.loss),
+            f"ResNet-50 overlapped step: {overlap_launches} K1 launches, {m_o}")
+    if on_card:
+        check_overlap_k1(seen, v7, "ResNet-50 overlap")
+    del seen
+    zero(count)
+    t_a = DPTrainer(model(), mesh, learning_rate=RESNET_LR, bucket_size=262_144)
+    m_a = t_a.train_step_accum(x, y, RESNET_ROWS)
+    accum_launches = count["masked_average"]
+    del t_a
+    zero(count)
+    t_b = DPTrainer(model(compute_dtype=torch.bfloat16), mesh, learning_rate=RESNET_LR,
+                    bucket_size=262_144)
+    m_b = t_b.train_step(xd, yd)
+    bf16_launches = count["masked_average"]
+    del t_b
+    zero(count)
+    t_8 = DPTrainer(model(), mesh, learning_rate=RESNET_LR, compress="int8",
+                    error_feedback=True)
+    m_8 = t_8.train_step(xd, yd, valid=masked7)
+    int8_launches = count["masked_average"]
+    require(bool(torch.isfinite(t_8._ef).all()), "ResNet-50 int8 EF residual finite")
+    del t_8
+    sync()
+    require(accum_launches == k1(1) and bf16_launches == k1(1) and int8_launches == 0
+            and all(math.isfinite(m.loss) for m in (m_a, m_b, m_8))
+            and m_8.contributors == DP_RANKS - 1,
+            f"ResNet-50: accum {accum_launches} / bf16 {bf16_launches} / int8 EF "
+            f"{int8_launches} K1 launches, losses {m_a.loss} {m_b.loss} {m_8.loss}")
+
+    # (d) the entry points
+    zero(count)
+    rc, out = run_cli(["train-resnet", *(["--steps", "3"] if on_card else [
+        "--steps", "1", "--device", "cpu", "--image-size", "8", "--batch", "8"])])
+    sync()
+    train_lines = out.strip().splitlines()
+    print("\n".join(train_lines), flush=True)
+    require(rc == 0 and train_lines[0].startswith(
+        "ResNet params: 23.5M" if on_card else "ResNet params: ")
+        and count["masked_average"] == k1(3),
+        f"train-resnet: rc {rc}, {dict(count)}")
+    train_launches = count["masked_average"]
+    zero(count)
+    rc, out = run_cli(["bench-mfu", "--workload", "resnet", *([] if on_card else [
+        "--device", "cpu", "--image-size", "8"])])
+    sync()
+    mfu_rec = json.loads(out.strip().splitlines()[-1])
+    print(json.dumps(mfu_rec), flush=True)
+    require(rc == 0 and mfu_rec["ms_per_step"] > 0 and mfu_rec["batch"] == DP_RANKS
+            and (mfu_rec["params_m"] == 25.6 or not on_card)
+            and (not on_card or 0 < mfu_rec["value"] < 1)
+            and count["masked_average"] >= k1(1), f"bench-mfu --workload resnet {mfu_rec}")
+    mfu_launches = count["masked_average"]
+    zero(count)
+    fn, args = graft_entry.entry(device=dev)
+    logits = fn(*args)
+    require(tuple(logits.shape) == (4, RESNET_CLASSES) and bool(torch.isfinite(logits).all()),
+            f"graft_entry.entry(): {tuple(logits.shape)}")
+    del fn, args, logits
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        graft_entry.dryrun_multichip(DP_RANKS, device=dev)
+    sync()
+    dry = buf.getvalue().strip().splitlines()
+    print("\n".join(dry), flush=True)
+    require(any(ln.startswith("dryrun train_chain ok") for ln in dry)
+            and count["masked_average"] == k1(4), f"dryrun_multichip(8): {dict(count)}")
+    dry_launches = count["masked_average"]
+    return {
+        "launches": steps_launches + overlap_launches + accum_launches + bf16_launches
+        + train_launches + mfu_launches + dry_launches,
+        "per_part": {"steps": steps_launches, "overlap_step": overlap_launches,
+                     "accum_step": accum_launches, "bf16_step": bf16_launches,
+                     "int8_ef_step": int8_launches, "train_resnet": train_launches,
+                     "bench_mfu": mfu_launches, "dryrun_multichip": dry_launches},
+        "forward_err": forward_err, "losses": losses, "overlap_loss": m_o.loss,
+        "accum_loss": m_a.loss, "bf16_loss": m_b.loss, "int8_ef_loss": m_8.loss,
+        "train_resnet": train_lines[-1], "bench_mfu": mfu_rec,
+        "trainer": t, "overlap_trainer": t_o, "batch": (xd, yd), "stack": stack,
+        "accum_steps": RESNET_ROWS,
+    }
+
+
+def median_step_ms(step, batches, steps: int = 5) -> tuple[float, list[float]]:
+    """Median host-clock ms of ``steps`` calls ``step(x, y)`` (each ended by
+    a synchronize) on ``batches``, after one warm-up call."""
     import statistics
 
+    import torch
+
+    step(*batches[0])
+    times = []
+    for x, y in batches[1:steps + 1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def time_overlap_k1(trainer, stack, v) -> dict:
+    """K1 by CUDA events: once a leaf over the leaves' ``(n, leaf)`` rows
+    (an overlapped step's launches) against one launch on the whole stack."""
     import torch
 
     from akka_allreduce_tpu_torch.ops import local_reduce as lr
     from akka_allreduce_tpu_torch.utils import cuda_event_ms
 
-    t, batches, stack = dp["trainer"], dp["batches"], dp["stack"]
-    t.train_step(*batches[0])
-    times = []
-    for x, y in batches[1:steps + 1]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t.train_step(x, y)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    rows = [r.contiguous() for r in torch.split(stack, trainer._sizes, dim=1)]
+    return {"per_leaf_total_ms": cuda_event_ms(
+                lambda: [lr.masked_average(r, v) for r in rows], 20),
+            "fused_ms": cuda_event_ms(lambda: lr.masked_average(stack, v), 20),
+            "leaves": len(rows)}
+
+
+def time_dp_step(path: dict, steps: int = 5) -> dict:
+    """A DP path's step (MLP or ResNet-50): the fused, the overlapped and
+    the accumulated step's median host-clock ms over ``steps`` steps (each
+    ended by a synchronize), after one warm-up step; K1 by CUDA events on a step's
+    ``(8, P)`` gradient stack with all ranks, beside its plain version,
+    ``torch.mv`` + sum + clamp + div and its bound; K1 once a leaf (an
+    overlapped step's launches) against its one fused launch; two fused
+    steps under ``torch.profiler``."""
+    import torch
+
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.utils import cuda_event_ms
+
+    t, stack = path["trainer"], path["stack"]
+    batches = path.get("batches") or [path["batch"]] * (steps + 3)
+    step_ms, times = median_step_ms(t.train_step, batches, steps)
+    overlap_ms, overlap_times = median_step_ms(path["overlap_trainer"].train_step, batches,
+                                               steps)
+    accum = path["accum_steps"]
+    accum_ms, accum_times = median_step_ms(
+        lambda x, y: t.train_step_accum(x, y, accum), batches, steps)
     v = torch.ones(DP_RANKS, device=stack.device)
     k, p = stack.shape
     k1 = {
@@ -844,8 +1221,16 @@ def time_dp_step(dp: dict, steps: int = 5) -> dict:
         for x, y in batches[steps + 1:steps + 3]:
             t.train_step(x, y)
 
-    return {"step_ms": statistics.median(times), "step_ms_all": times, "k1": k1,
-            "k1_share": k1["ms"] / statistics.median(times),
+    overlap_profile = profile_window(
+        lambda: path["overlap_trainer"].train_step(*batches[steps + 1]), top=8)
+    return {"step_ms": step_ms, "step_ms_all": times, "k1": k1,
+            "k1_share": k1["ms"] / step_ms,
+            "overlap_step_ms": overlap_ms, "overlap_step_ms_all": overlap_times,
+            "accum_step_ms": accum_ms, "accum_step_ms_all": accum_times, "accum_steps": accum,
+            "overlap_k1": {**time_overlap_k1(t, stack, v),
+                           "device_ms_in_step": sum(e[1] for e in overlap_profile["k1"]),
+                           "launches_in_step": sum(e[2] for e in overlap_profile["k1"])},
+            "overlap_profile": overlap_profile,
             "profile": {**profile_window(two_steps, top=8), "steps": 2}}
 
 
@@ -897,7 +1282,8 @@ def profile_window(fn, top: int = 6) -> dict:
     ``Optimizer.step#Adam.step`` left out: they would count their kernels
     twice; kernel names may hold ``#`` too, as in ``{lambda(float)#1}``),
     the device's busy share, the ``top`` kernels by device time and every
-    K4 kernel (``flash_*``) with its device time."""
+    K4 kernel (``flash_*``) and K1 kernel (``masked_average_kernel``) with
+    its device time and launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -916,7 +1302,9 @@ def profile_window(fn, top: int = 6) -> dict:
             "busy_share": device_ms / wall_ms,
             "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in ranked],
             "flash": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                      for e in kernels if "flash_" in e.key]}
+                      for e in kernels if "flash_" in e.key],
+            "k1": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                   for e in kernels if "masked_average_kernel" in e.key]}
 
 
 def profile_lm(model, tokens, steps: int = 8) -> dict:
@@ -1316,7 +1704,20 @@ def main() -> int:
           compressed=dp["compressed"], config3={k: dp["config3"][k] for k in (
               "step_ms", "device_step_ms", "loss_first", "loss_last", "steps_taken")},
           bench_mfu={k: dp["bench_mfu"][k] for k in ("value", "ms_per_step", "spread_pct")},
-          k1_vs_plain="bit-identical on the step's (8, 5824522) stack, and the update")
+          k1_vs_plain="bit-identical on the step's (8, 5824522) stack, and the update",
+          overlap=dp["overlap"], accum=dp["accum"],
+          train_mlp_overlap_accum=dp["train_mlp_overlap_accum"])
+
+    # -- 4g. main path: the DP trainer on ResNet-50 over virtual ranks ------------
+    t0 = time.perf_counter()
+    rn = resnet_train_path(dev)
+    phase("resnet_train_path", t0, launches={"masked_average": rn["launches"]},
+          launches_by_part=rn["per_part"], forward_f32_vs_cpu_of_max_logit=rn["forward_err"],
+          losses=rn["losses"], overlap_loss=rn["overlap_loss"], accum_loss=rn["accum_loss"],
+          bf16_loss=rn["bf16_loss"], int8_ef_loss=rn["int8_ef_loss"],
+          train_resnet=rn["train_resnet"],
+          bench_mfu={k: rn["bench_mfu"][k] for k in ("value", "ms_per_step", "spread_pct")},
+          k1_vs_plain=f"bit-identical on the step's (8, {RESNET_PARAMS}) stack, and the update")
 
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
@@ -1472,6 +1873,13 @@ def main() -> int:
     dp_launches = dp["launches"]
     del dp
     torch.cuda.empty_cache()
+    rn_time = time_dp_step(rn)
+    print(json.dumps({"resnet_profile": rn_time["profile"],
+                      "resnet_overlap_profile": rn_time["overlap_profile"]}), flush=True)
+    dp_launches += rn["launches"]
+    rn_mfu = rn["bench_mfu"]
+    del rn
+    torch.cuda.empty_cache()
 
     path_launches = {**launches, **ring_launches}
     path_launches["masked_average"] += dp_launches
@@ -1532,6 +1940,27 @@ def main() -> int:
           f"of its {k1['bound_ms']:.4f} ms bound; plain {k1['plain_ms']:.4f} ms, library "
           f"{k1['library_ms']:.4f} ms) = {dp_time['k1_share'] * 100:.2f}% of the step; "
           f"device busy {dp_time['profile']['busy_share'] * 100:.1f}%", flush=True)
+    for label, tm, p in (("MLP(2048, 2048)", dp_time, DP_PARAMS),
+                         ("ResNet-50", rn_time, RESNET_PARAMS)):
+        ok1 = tm["overlap_k1"]
+        print(f"DP {label}, {card['name']}, {card['power_limit']}: fused step "
+              f"{tm['step_ms']:.3f} ms, overlapped {tm['overlap_step_ms']:.3f} ms, accumulated "
+              f"over {tm['accum_steps']} microbatches {tm['accum_step_ms']:.3f} ms (medians of "
+              f"{len(tm['step_ms_all'])}, host clock); K1 over an overlapped step's "
+              f"{ok1['leaves']} leaves {ok1['per_leaf_total_ms']:.4f} ms by CUDA events "
+              f"({ok1['device_ms_in_step']:.4f} ms of device time over "
+              f"{ok1['launches_in_step']} launches in a profiled step; the overlapped step "
+              f"{tm['overlap_profile']['busy_share'] * 100:.1f}% busy) against one fused "
+              f"launch on (8, {p}) {ok1['fused_ms']:.4f} ms", flush=True)
+    k1r = rn_time["k1"]
+    print(f"ResNet-50 DP step (8 virtual ranks x {RESNET_ROWS} rows, {RESNET_SIZE} px, f32, "
+          f"{card['name']}, {card['power_limit']}): {rn_time['step_ms']:.3f} ms; device busy "
+          f"{rn_time['profile']['busy_share'] * 100:.1f}%; K1 on the ({DP_RANKS}, "
+          f"{RESNET_PARAMS}) stack {k1r['ms']:.4f} ms ({k1r['bound_ms'] / k1r['ms'] * 100:.1f}% "
+          f"of its {k1r['bound_ms']:.4f} ms bound; plain {k1r['plain_ms']:.4f} ms, library "
+          f"{k1r['library_ms']:.4f} ms) = {rn_time['k1_share'] * 100:.2f}% of the step; "
+          f"bench-mfu --workload resnet {rn_mfu['ms_per_step']} ms/step, MFU "
+          f"{rn_mfu['value']}", flush=True)
     phase("timings", t0, library_note="masked_average: torch.mv + sum + clamp + "
           "div; elastic_average_step: the same plus Tensor.addr_; "
           "ring_allreduce_f32: xs.sum(0, keepdim=True).expand_as(xs).contiguous(); "
@@ -1552,7 +1981,18 @@ def main() -> int:
                      "spread_pct": mfu_rec["spread_pct"]},
           dp_step_ms=dp_time["step_ms"], dp_step_ms_all=dp_time["step_ms_all"],
           dp_k1=dp_time["k1"], dp_k1_share=dp_time["k1_share"],
+          dp_overlap_step_ms=dp_time["overlap_step_ms"], dp_overlap_k1=dp_time["overlap_k1"],
+          dp_accum_step_ms=dp_time["accum_step_ms"],
+          resnet_accum_step_ms=rn_time["accum_step_ms"],
+          resnet_step_ms=rn_time["step_ms"], resnet_step_ms_all=rn_time["step_ms_all"],
+          resnet_overlap_step_ms=rn_time["overlap_step_ms"],
+          resnet_overlap_step_ms_all=rn_time["overlap_step_ms_all"],
+          resnet_k1=rn_time["k1"], resnet_k1_share=rn_time["k1_share"],
+          resnet_overlap_k1=rn_time["overlap_k1"],
+          resnet_bench_mfu={"mfu": rn_mfu["value"], "ms_per_step": rn_mfu["ms_per_step"],
+                            "spread_pct": rn_mfu["spread_pct"]},
           busy_share={"dp_step": dp_time["profile"]["busy_share"],
+                      "resnet_step": rn_time["profile"]["busy_share"],
                       "prefill": prof["prefill"]["busy_share"],
                       "decode": prof["decode"]["busy_share"],
                       "train": step["profile"]["busy_share"],

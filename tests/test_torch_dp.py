@@ -19,7 +19,8 @@ both see the same numpy batches (``mnist_like``), ``MLP(hidden=(32,))``:
   bf16 with EF 1e-2, int8 5e-2 of max|param|) and of the JAX trainer in the
   same mode; a masked rank carries its whole contribution in its EF row;
 - ``train_chain`` against the port's own steps on the same generator's
-  batches; the guards and the refusals; ``dense_train_flops``;
+  batches; the guards and the refusals (overlap and accumulation are held
+  in ``tests/test_torch_overlap.py``); ``dense_train_flops``;
   ``train-mlp``, ``bench-suite`` config 3 and ``bench-mfu --workload mlp``
   on the CPU at a tiny size.
 
@@ -354,10 +355,10 @@ def test_guards_and_refusals():
         make(error_feedback=True)
     with pytest.raises(ValueError, match="bucket_size"):
         make(overlap=True, bucket_size=100)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make(overlap=True)
+    with pytest.raises(NotImplementedError, match="overlap"):
+        make(overlap=True).train_step_accum(np.zeros((16, 784), np.float32), np.zeros(16), 2)
     t = make()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="divisible"):
         t.train_step_accum(np.zeros((8, 784), np.float32), np.zeros(8), 2)
     x, y = next(mnist_like().batches(60, 1))
     with pytest.raises(ValueError, match="divisible"):
@@ -407,9 +408,8 @@ def test_train_mlp_on_the_cpu(capsys, tmp_path, extra):
     assert len(steps) == 4 and all(e["contributors"] == 8.0 for e in steps)
 
 
-@pytest.mark.parametrize("flag", [["--overlap"], ["--accum", "2"], ["--checkpoint-dir", "ck"],
-                                  ["--checkpoint-every", "5"], ["--async-checkpoint"],
-                                  ["--delta-checkpoint"]])
+@pytest.mark.parametrize("flag", [["--checkpoint-dir", "ck"], ["--checkpoint-every", "5"],
+                                  ["--async-checkpoint"], ["--delta-checkpoint"]])
 def test_train_mlp_refuses_what_is_not_ported(capsys, flag):
     with pytest.raises(SystemExit):
         cli_main(["train-mlp", "--device", "cpu", *flag])

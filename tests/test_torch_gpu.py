@@ -21,11 +21,14 @@ to bit equality, and the bf16 kernel's di to 1e-5 of PyTorch's reduction.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 from akka_allreduce_tpu_torch.comm import allreduce as ar
+from chip_smoke import check_overlap_k1, watch_leaf_syncs
 from akka_allreduce_tpu_torch.models import (
     MLP,
     LMGenerator,
@@ -788,3 +791,108 @@ def test_dp_int8_rows_agree_bit_for_bit(card):
     _, hop = ar.ring_allreduce_sum(stack * v[:, None], compress="int8", return_residual=True)
     # the masked rank banks its whole gradient beside its own per-hop errors
     assert torch.equal(t._ef, ar.ring_ef_residual(stack, v, hop))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_bwd_dq_holds_long_runs_of_keys(card, d, seed):
+    """dQ sums over every key tile of a query row: 16,384 keys at the last
+    rows of T 16,384, causal, one head. The f32 backward holds dq, dk and dv
+    within 1e-4 of max|grad| of the plain version."""
+    q, k, v = _qkv(1, 16384, 1, 1, d, torch.float32, card, seed=seed)
+    do = _qkv(1, 16384, 1, 1, d, torch.float32, card, seed=seed + 100)[0]
+    o, lse = fa._forward(q, k, v, True, d ** -0.5)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= 1e-4, (name, _rel_err(g, w))
+
+
+def test_dp_overlap_launches_k1_once_a_leaf_equal_to_the_fused_average(card):
+    """Under overlap each f32 step launches K1 once a leaf, and each leaf's
+    K1 output equals the matching slice of one fused K1 average of all the
+    leaves' cotangent stacks, bit for bit (K1 is independent per column);
+    the step lands within rtol 1e-5, atol 1e-7 of the fused step."""
+    t = _dp(card, overlap=True)
+    fused = _dp(card)
+    x, y = next(mnist_like().batches(64, 1))
+    valid = [1, 1, 1, 1, 1, 1, 1, 0]
+    before = lr.LAUNCHES["masked_average"]
+    with watch_leaf_syncs(t) as seen:
+        m = t.train_step(x, y, valid)
+    assert lr.LAUNCHES["masked_average"] == before + len(t._params) == before + 6
+    assert m.contributors == 7.0
+    assert sorted(c.shape[1] for c in seen["ct"]) == sorted(t._sizes)
+    assert check_overlap_k1(seen, _mask(valid, card), "MLP overlap") == 6
+    fused.train_step(x, y, valid)
+    np.testing.assert_allclose(t.get_flat_params(), fused.get_flat_params(), rtol=1e-5,
+                               atol=1e-7)
+
+
+def test_dp_accum_step_launches_k1_once(card):
+    a, b = _dp(card), _dp(card)
+    x, y = next(mnist_like().batches(64, 1))
+    before = lr.LAUNCHES["masked_average"]
+    m_acc = b.train_step_accum(x, y, 4)
+    assert lr.LAUNCHES["masked_average"] == before + 1
+    m_full = a.train_step(x, y)
+    assert abs(m_full.loss - m_acc.loss) < 1e-5
+    np.testing.assert_allclose(a.get_flat_params(), b.get_flat_params(), atol=2e-5)
+
+
+@pytest.mark.parametrize("p", [25_557_032, 23_528_522])
+def test_k1_at_resnet50_stack_shapes(card, p):
+    """K1 on ResNet-50's (8, P) gradient stacks (1000 and 10 classes: the
+    float4 and the scalar path) equals its plain version bit for bit, with
+    every rank and with rank 7 masked."""
+    x = _stack(8, p, card, seed=p % 97)
+    for bits in ([1.0] * 8, [1.0] * 7 + [0.0]):
+        valid = _mask(bits, card)
+        got, count = lr.masked_average(x, valid)
+        want, want_count = lr.masked_average_reference(x, valid)
+        assert torch.equal(got, want) and float(count) == float(want_count) == sum(bits)
+
+
+def test_resnet_f32_convs_stay_f32_under_the_default_cudnn_setting(card, monkeypatch):
+    """PyTorch lets cuDNN run f32 convs in TF32 by default; the port holds
+    them to f32 (``_device.ieee_f32``) in the model's forward and across a
+    ``DPTrainer`` step, and hands the setting back. ResNet-50's f32 logits on
+    the card within 1e-4 of max|logit| of the same weights on the CPU; the
+    trainer's gradient stack within 1e-5 of max|grad| of the one taken with
+    TF32 off for the whole process (the same algorithms, up to the order of
+    cuDNN's weight-gradient sums). With the hold taken out, TF32 misses both
+    bands: they can see it."""
+    from akka_allreduce_tpu_torch.models import ResNet50
+    from akka_allreduce_tpu_torch.models import resnet as resnet_mod
+    from akka_allreduce_tpu_torch.train import trainer as trainer_mod
+
+    assert torch.backends.cudnn.allow_tf32  # PyTorch's default
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 1000, 8))
+    model = ResNet50(1000, device=card)
+    want = ResNet50(1000, device="cpu")(x[:4]).detach()
+    t = DPTrainer(model, line_mesh(8, device=card))
+
+    def logit_err():
+        with torch.no_grad():
+            got = model(x[:4].to(card)).cpu()
+        return float((got - want).abs().max() / want.abs().max())
+
+    def stack():
+        return t.rank_gradients(x.to(card), y.to(card))[0]
+
+    assert logit_err() <= 1e-4 and torch.backends.cudnn.allow_tf32
+    ours = stack()
+    assert torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ieee = stack()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    scale = float(ieee.abs().max())
+    assert float((ours - ieee).abs().max()) <= 1e-5 * scale
+    for mod in (resnet_mod, trainer_mod):
+        monkeypatch.setattr(mod, "ieee_f32", contextlib.nullcontext)
+    assert logit_err() > 1e-4
+    assert float((stack() - ieee).abs().max()) > 1e-5 * scale

@@ -85,7 +85,8 @@ def test_source_names_no_jax_package():
                 "ops.ring_attention", "ops.local_attention", "ops.flash_attention",
                 "models.transformer", "models.generate", "models.convert",
                 "models.data", "train", "train.trainer", "train.long_context",
-                "binder", "binder.api", "bench_mfu"):
+                "binder", "binder.api", "bench_mfu", "models.resnet", "utils.verify",
+                "graft_entry"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 

@@ -296,7 +296,7 @@ def test_bench_mfu_cli_on_the_cpu(capsys, monkeypatch):
     assert rec["metric"].startswith("lm_mfu") and rec["value"] is None  # no peak
     assert rec["platform"] == "cpu" and rec["device"] == "cpu" and rec["power_limit"] is None
     assert rec["ms_per_step"] > 0 and rec["batch"] == 2 and rec["seq_len"] == 16
-    for flag in (["--workload", "resnet"], ["--dp", "2"], ["--sp", "2"]):
+    for flag in (["--workload", "moe"], ["--dp", "2"], ["--sp", "2"]):
         with pytest.raises(SystemExit):
             cli_main(["bench-mfu", "--device", "cpu", *flag])
         assert "not ported yet" in capsys.readouterr().err
