@@ -9,7 +9,17 @@ timing helpers) it keeps as its own copy.
 
 Module names mirror the JAX package so each counterpart is easy to find:
 
-- ``config``        — ``ThresholdConfig`` and ``MetaDataConfig``
+- ``config``        — every config of the JAX package (``ThresholdConfig``,
+  ``MetaDataConfig``, ``WorkerConfig``, ..., ``AllreduceConfig`` with its
+  JSON form)
+- ``protocol``, ``buffers``, ``control``, ``tensor_reduce`` — the host
+  engine, BASELINE config 1: the round messages, the per-round buffers
+  (sums and output as tensors on the card, counts and flags on the host),
+  ``AllreduceWorker``, ``LineMaster``, ``GridMaster``, ``AllreduceNode`` and
+  ``LocalAllreduceSystem`` over an in-process router, and the four
+  reductions of the JAX package's ``native/`` as tensor ops
+- ``obs``           — metrics registry, spans, flight recorder, round
+  watchdog (stdlib copies)
 - ``parallel``      — meshes of n virtual ranks on one device
   (``line_mesh``, ``grid_mesh``, ``data_seq_mesh``)
 - ``comm``          — the threshold allreduce over those ranks (psum,
@@ -33,14 +43,17 @@ Module names mirror the JAX package so each counterpart is easy to find:
   ``LongContextTrainer``, the LM's trainer on one card, and the shared
   helpers
 - ``binder``        — parameters to and from one flat f32 vector in the JAX
-  trainers' leaf order (``flatten_params``)
+  trainers' leaf order (``flatten_params``), the ``AllreduceBinder``
+  protocol and the host engine's ``GradSyncBinder`` and
+  ``ElasticAverageBinder``
 - ``state``         — hand-over of the ``(K, data)`` replica state to and from
   numpy, in the JAX package's flat or packed layout
 - ``utils``         — slope timing, CUDA-event timing, card description,
   FLOP accounting, per-round metrics, replica checks over virtual ranks
-- ``bench_suite``   — the single-card branch of BASELINE configs 2 and 4,
-  and config 3
-- ``__main__``      — ``bench-suite``, ``bench`` (allreduce bandwidth),
+- ``bench_suite``   — BASELINE config 1 (the host engine), the single-card
+  branch of configs 2 and 4, and config 3
+- ``__main__``      — ``bench-suite``, ``local-demo`` (the host engine),
+  ``bench`` (allreduce bandwidth),
   ``lm-generate`` (KV-cache decoding, optionally after training),
   ``train-lm``, ``train-mlp``, ``train-resnet`` and ``bench-mfu``
 - ``graft_entry``   — ``entry()`` (the ResNet-50 forward) and

@@ -3,7 +3,13 @@
 Commands:
 
 - ``bench-suite [--quick] [--device cpu] [--floats N] [--out FILE]`` — the
-  BASELINE configs ported so far (2, 3 and 4), one JSON record each.
+  BASELINE configs ported so far (1, 2, 3 and 4), one JSON record each.
+- ``local-demo [--nodes N] [--size N] [--rounds N] [--chunk N] [--dims 1|2]
+  [--th X] [--chaos-seed N] [--chaos-spec S] [--device cpu]`` — the host
+  engine's config-1 demo (``control/local.py``): N nodes allreduce seeded
+  inputs in one process, their round buffers on the card; prints the
+  rounds, the time, the throughput and the engine's device. A non-empty
+  ``--chaos-spec`` is refused (the chaos injector is not ported yet).
 - ``bench [--floats N] [--iters N] [--schedule psum|butterfly|ring]
   [--bucket N] [--compress bf16|int8] [--devices N] [--mesh line|grid]
   [--device cpu]`` — threshold-allreduce bandwidth over N virtual ranks on
@@ -62,7 +68,7 @@ import sys
 def _cmd_bench_suite(argv: list[str]) -> int:
     p = argparse.ArgumentParser(
         "bench-suite",
-        description="run the ported BASELINE configs (2, 3 and 4), one JSON "
+        description="run the ported BASELINE configs (1, 2, 3 and 4), one JSON "
         "record each",
     )
     p.add_argument("--out", default=None, help="append records to this JSONL")
@@ -84,6 +90,12 @@ def _cmd_bench_suite(argv: list[str]) -> int:
 
     run_suite(quick=args.quick, out=args.out, device=args.device, floats=args.floats)
     return 0
+
+
+def _cmd_local_demo(argv: list[str]) -> int:
+    from akka_allreduce_tpu_torch.control.local import main as local_main
+
+    return local_main(argv)
 
 
 def _cmd_bench(argv: list[str]) -> int:
@@ -692,6 +704,7 @@ def _cmd_bench_mfu(argv: list[str]) -> int:
 
 COMMANDS = {
     "bench-suite": _cmd_bench_suite,
+    "local-demo": _cmd_local_demo,
     "bench": _cmd_bench,
     "lm-generate": _cmd_lm_generate,
     "train-lm": _cmd_train_lm,

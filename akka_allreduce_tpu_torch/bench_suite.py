@@ -1,17 +1,21 @@
-"""The BASELINE benchmark matrix on the port: the single-card branch of
-configs 2 and 4 and config 3 (``akka_allreduce_tpu/bench_suite.py``), one
-JSON record each.
+"""The BASELINE benchmark matrix on the port: config 1, the single-card
+branch of configs 2 and 4, and config 3 (``akka_allreduce_tpu/bench_suite.py``),
+one JSON record each.
 
-On one card the round's work of configs 2 and 4 is the fused threshold
-reduce over K = 8 virtual workers (the reference's "N local workers"
-shape): the payload is masked, averaged and folded back into every replica
-by the elastic-average kernel (K2), in a slope-timed loop. Config 3 is the
-MLP/MNIST data-parallel SGD step over 8 virtual ranks (``DPTrainer``, its
-gradient average through K1 on the card). Records carry the same fields as
-the JAX package's, plus ``device`` (the card's name, or ``"cpu"``) and
+Config 1 is the reference's local N-worker fixture on the host engine
+(``control.LocalAllreduceSystem``): a master and 4 workers in one process
+over the full protocol, their round buffers on the card, the bookkeeping
+on the host. On one card the round's work of configs 2 and 4 is the fused
+threshold reduce over K = 8 virtual workers (the reference's "N local
+workers" shape): the payload is masked, averaged and folded back into every
+replica by the elastic-average kernel (K2), in a slope-timed loop. Config 3
+is the MLP/MNIST data-parallel SGD step over 8 virtual ranks (``DPTrainer``,
+its gradient average through K1 on the card). Records carry the same fields
+as the JAX package's, plus ``device`` (the card's name, or ``"cpu"``) and
 ``power_limit`` (``nvidia-smi``'s, or null on the CPU).
 
-Configs 1 and 5 (host engine, elastic re-mesh) and the multi-rank
+Config 5 (dropout recovery: its host-engine tier runs in ``chip_smoke.py``,
+its re-mesh tier waits for the elastic trainer) and the multi-rank
 collective branch wait for later slices of the port; they are not stubbed.
 
 Usage: ``python -m akka_allreduce_tpu_torch bench-suite [--quick]
@@ -29,6 +33,7 @@ from typing import Any, Callable
 import torch
 
 from akka_allreduce_tpu_torch._device import resolve_device
+from akka_allreduce_tpu_torch.control.local import local_engine
 from akka_allreduce_tpu_torch.models import MLP, mnist_like
 from akka_allreduce_tpu_torch.ops import elastic_average_step, pack_tiles
 from akka_allreduce_tpu_torch.parallel import line_mesh
@@ -58,6 +63,36 @@ def _world_size() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return 1
+
+
+# -- config 1: fp32 allreduce on the host engine, 1M floats, 4 local workers --
+
+
+def config1_local_engine(
+    size: int = 1_000_000,
+    rounds: int = 30,
+    *,
+    device: str | torch.device | None = None,
+) -> dict:
+    """The reference's local N-worker fixture (BASELINE.json:6): a master
+    and 4 workers in one process, full protocol, chunk 262,144, thresholds
+    1.0, 30 rounds so per-run setup amortizes. ``engine`` names where the
+    round buffers lived (``"cuda"`` or ``"cpu"``), as the JAX record's
+    ``native_engine`` names its hot loop."""
+    dev = resolve_device(device)
+    run = local_engine(size, rounds=rounds, device=dev).run()
+    return _record(
+        1,
+        "local_engine_allreduce",
+        workers=4,
+        floats=size,
+        rounds=run.rounds,
+        seconds=round(run.seconds, 4),
+        throughput_mbs=round(run.rounds * size * 4 / run.seconds / 1e6, 1),
+        engine=dev.type,
+        path="host_engine",
+        **device_fields(dev),
+    )
 
 
 def elastic_rounds(
@@ -261,13 +296,14 @@ def run_suite(
     device: str | torch.device | None = None,
     floats: int | None = None,
 ) -> list[dict]:
-    """Configs 2, 3 and 4, one JSON line each. ``quick`` runs 1/8-size
+    """Configs 1, 2, 3 and 4, one JSON line each. ``quick`` runs 1/8-size
     payloads and short chains at fixed trip counts (no growing them to a
     timing signal, so its run time is bounded); ``floats`` sets the payload
-    sizes of configs 2 and 4."""
+    sizes of configs 1, 2 and 4."""
     scale = 8 if quick else 1
     signal = None if quick else 0.3
     configs: list[Callable[[], dict]] = [
+        lambda: config1_local_engine(floats or 1_000_000 // scale, device=device),
         lambda: config2_butterfly(
             floats or 64 * 1024 * 1024 // scale, device=device,
             target_signal_s=signal,

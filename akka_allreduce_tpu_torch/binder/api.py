@@ -1,6 +1,8 @@
-"""Module parameters <-> one flat host f32 vector.
+"""The binder protocol, and module parameters <-> one flat host f32 vector.
 
-Counterpart of ``akka_allreduce_tpu/binder/api.py::flatten_pytree``, the
+``AllreduceBinder`` is the port's copy of the JAX package's protocol of the
+same name (``akka_allreduce_tpu/binder/api.py``). ``flatten_params`` is the
+counterpart of ``akka_allreduce_tpu/binder/api.py::flatten_pytree``, the
 seam through which the host engine, elastic mode and checkpoints see a
 model as one buffer. The JAX trainers ravel their flax parameter tree
 (``jax.flatten_util.ravel_pytree``), whose leaves come in the order of their
@@ -13,13 +15,37 @@ one package therefore loads into the other.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Protocol
 
 import numpy as np
 import torch
 from torch import nn
 
 from akka_allreduce_tpu_torch.models.convert import flax_path
+from akka_allreduce_tpu_torch.protocol import (
+    AllReduceInput,
+    AllReduceInputRequest,
+    AllReduceOutput,
+)
+
+
+class AllreduceBinder(Protocol):
+    """What a worker needs from the ML side (reference ``AllreduceBinder``).
+
+    By default the engine clones each chunk of the source's tensor before
+    any delivery, so ``data_source`` may reuse one buffer. With
+    ``WorkerConfig(zero_copy_scatter=True)`` the engine scatters views
+    instead — then the returned tensor must stay unmutated until the round
+    completes (publish new values by replacing the tensor, not by writing
+    into it).
+    """
+
+    def data_source(self, req: AllReduceInputRequest) -> AllReduceInput: ...
+
+    def data_sink(self, out: AllReduceOutput) -> None: ...
+
+    @property
+    def data_size(self) -> int: ...
 
 
 def leaf_order(model: nn.Module) -> list[str]:

@@ -56,7 +56,7 @@ Phases, each printed as it ends:
    result from ``masked_average``, the fold from ``elastic_average_step`` on
    the packed form), checked against the same rounds through the plain
    versions, then the bench (the ``local_threshold_reduce_bw`` metric) and
-   ``bench_suite.run_suite`` for configs 2, 3 and 4; (b) for each compress
+   ``bench_suite.run_suite`` for configs 1, 2, 3 and 4; (b) for each compress
    mode, ``threshold_allreduce(line_mesh(8), ..., schedule="pallas_ring")``
    at 8 x 25M (the mask rides into K3: one launch a round, checked) against
    the same round through the plain K3, and one ``measure_allreduce``
@@ -119,7 +119,25 @@ Phases, each printed as it ends:
    fused average's slice), an accumulated step (one), a bf16-compute step
    (one) and an int8 + EF step (none); ``train-resnet`` for 3 steps (its
    ``(8, 23528522)`` stack, the scalar path), ``bench-mfu --workload
-   resnet`` and ``graft_entry.entry()`` / ``dryrun_multichip(8)``;
+   resnet`` and ``graft_entry.entry()`` / ``dryrun_multichip(8)``; (h) the
+   host engine (``control.LocalAllreduceSystem``, its round buffers on the
+   card, its bookkeeping on the host), each run against the same run on the
+   CPU, every node's every flush (data and counts) bit for bit: BASELINE
+   config 1 (``bench_suite.config1_local_engine()``, 4 workers x 1,000,000
+   floats, chunk 262,144, thresholds 1.0, 30 rounds; its record printed on
+   its own line; every round buffer seen as the messages go is on the
+   card); 3 rounds of it under ``torch.profiler``, with no copy between
+   host and card and no K1-K4 kernel; ResNet-50's gradient, 4 workers x 25,557,032
+   floats at the same chunk, 5 rounds (seconds, MB/s, the median round
+   time from Start to completion ended by a synchronize, and the device's
+   busy share under the profiler, printed); the host tier of config 5
+   (200,000 floats, chunk 16,384, thresholds 0.75, 10 rounds, every message
+   of worker 3 lost: all 10 rounds at node 0, counts in {0, 3}); the 2-D
+   butterfly at 1M floats (counts 4); ``ElasticAverageBinder`` with the
+   weights on the card (4 nodes, alpha 0.5, 5 rounds: the spread between the
+   nodes' weights falls every round, the weights within rtol 1e-6 of the
+   CPU run's); ``local-demo --size 1000000 --rounds 5`` naming the card; no
+   K1-K4 launch in the whole phase;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -209,6 +227,14 @@ DP_LEAVES = 6  # MLP(2048, 2048): three kernels and three biases
 RESNET_CLASSES, RESNET_SIZE, RESNET_ROWS, RESNET_STEPS = 1000, 64, 2, 3
 RESNET_PARAMS, RESNET10_PARAMS, RESNET_LEAVES = 25_557_032, 23_528_522, 161
 RESNET_LR = 0.01  # at 0.1 the third step on one batch diverges (7.8, 3.1, 38.8)
+# the host engine (phase h): BASELINE config 1 (4 workers x 1M floats, chunk
+# 262,144, thresholds 1.0, 30 rounds), ResNet-50's gradient at the same chunk,
+# the host tier of config 5 (200,000 floats, chunk 16,384, thresholds 0.75,
+# 10 rounds, worker 3's messages lost), the 2-D butterfly and the elastic
+# binder (alpha 0.5), each against the same run on the CPU
+ENGINE_FLOATS, ENGINE_CHUNK, ENGINE_ROUNDS, ENGINE_BIG_ROUNDS = 1_000_000, 262_144, 30, 5
+DROPOUT_FLOATS, DROPOUT_CHUNK, DROPOUT_ROUNDS = 200_000, 16_384, 10
+BUTTERFLY_ROUNDS, ELASTIC_ROUNDS, ELASTIC_ALPHA, ELASTIC_RTOL = 5, 5, 0.5, 1e-6
 
 
 def ring_name(mode: str | None) -> str:
@@ -1153,6 +1179,257 @@ def resnet_train_path(dev) -> dict:
     }
 
 
+def engine_flushes_equal(card_run, cpu_run) -> int:
+    """Every node's every flush of two engine runs (kept outputs): the same
+    rounds in the same order, data and counts bit for bit. Returns the
+    number of flushes compared."""
+    import torch
+
+    n = 0
+    for node, (a, b) in enumerate(zip(card_run.outputs, cpu_run.outputs)):
+        require([o.iteration for o in a] == [o.iteration for o in b],
+                f"node {node} flushed rounds {[o.iteration for o in a]} against "
+                f"the CPU's {[o.iteration for o in b]}")
+        for x, y in zip(a, b):
+            require(x.data.is_cuda and x.count.is_cuda, "the outputs lie on the card")
+            require(torch.equal(x.data.cpu(), y.data) and torch.equal(x.count.cpu(), y.count),
+                    f"node {node} round {x.iteration}: the card's flush equals the CPU's")
+            n += 1
+    return n
+
+
+def engine_buffers(system) -> list:
+    """Every live round buffer's storage in a local engine system."""
+    out = []
+    for node in system.nodes.values():
+        for worker in node.workers.values():
+            if worker.rounds is not None:
+                out += [b._sums for b in worker.rounds._scattered.values()]
+                out += [b._data for b in worker.rounds._reduced.values()]
+    return out
+
+
+def kernel_counts() -> dict:
+    """The launch counters of K1-K4, keyed by module and kernel."""
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.ops import ring as rk
+
+    return {f"{mod.__name__.rsplit('.', 1)[-1]}.{k}": v
+            for mod in (lr, rk, fa) for k, v in mod.LAUNCHES.items()}
+
+
+def profile_engine(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: ``profile_window``'s busy share
+    and top kernels, plus the copies it saw from device to host, host to
+    device and device to device (``copy_`` between two tensors on the card is
+    a ``cudaMemcpyAsync``, not a kernel), the kernel launches, and the K1-K4
+    kernels among them by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not getattr(e, "is_user_annotation", False)
+              and not re.fullmatch(r"[\w.]+#[\w.]+", e.key)]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernels = [e for e in events if not e.key.startswith(("Memcpy", "Memset"))]
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+        "dtoh": sum(e.count for e in events if e.key.startswith("Memcpy DtoH")),
+        "htod": sum(e.count for e in events if e.key.startswith("Memcpy HtoD")),
+        "dtod": sum(e.count for e in events if e.key.startswith("Memcpy DtoD")),
+        "launches": sum(e.count for e in kernels),
+        "k1_k4": [e.key[:60] for e in kernels if re.search(
+            r"masked_average|elastic|ring|flash", e.key)],
+        "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]],
+    }
+
+
+def host_engine_path(dev, card: dict) -> dict:
+    """Phase (h): the host engine, its round buffers on the card, each run
+    against the same run on the CPU; no K1-K4 launch anywhere in it."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch import bench_suite
+    from akka_allreduce_tpu_torch.binder import ElasticAverageBinder
+    from akka_allreduce_tpu_torch.config import (
+        AllreduceConfig,
+        LineMasterConfig,
+        MasterConfig,
+        MetaDataConfig,
+    )
+    from akka_allreduce_tpu_torch.control import LocalAllreduceSystem
+    from akka_allreduce_tpu_torch.control.local import local_engine
+
+    def run(size, **kw):
+        return local_engine(size, **kw).run()
+
+    before = kernel_counts()
+    out: dict = {}
+
+    # BASELINE config 1: the record, then the same rounds kept and checked
+    rec = bench_suite.config1_local_engine(device=dev)
+    print(json.dumps(rec), flush=True)
+    require(rec["rounds"] == ENGINE_ROUNDS and rec["engine"] == "cuda"
+            and rec["device"] == card["name"] and rec["throughput_mbs"] > 0,
+            f"config 1 record {rec}")
+    card_run = local_engine(ENGINE_FLOATS, rounds=ENGINE_ROUNDS, device=dev,
+                                        keep_outputs=True)
+    seen: dict = {}  # every live round buffer, looked at as each message is sent
+
+    def look(env) -> bool:
+        seen.update((t.data_ptr(), t.is_cuda) for t in engine_buffers(card_run.system))
+        return False  # drops nothing
+
+    card_run.system.router.drop_filter = look
+    card_run.run()
+    cpu_run = run(ENGINE_FLOATS, rounds=ENGINE_ROUNDS, device="cpu", keep_outputs=True)
+    require(seen and all(seen.values()), f"every round buffer on the card ({len(seen)} seen)")
+    out["config1"] = {"record": rec, "flushes_equal": engine_flushes_equal(card_run, cpu_run),
+                      "buffers_seen_on_card": len(seen),
+                      "cpu_throughput_mbs": round(
+                          cpu_run.rounds * ENGINE_FLOATS * 4 / cpu_run.seconds / 1e6, 1)}
+    require(all((o.count == 4).all() for o in card_run.outputs[0]), "config 1 counts 4")
+    del card_run, cpu_run
+
+    # a profiled window over 3 rounds of config 1: no copy back to the host
+    prof = profile_engine(local_engine(ENGINE_FLOATS, rounds=3, device=dev).run)
+    require(prof["dtoh"] == prof["htod"] == 0,
+            f"no copy between host and card in a round: {prof['dtoh']}, {prof['htod']}")
+    require(not prof["k1_k4"], f"no K1-K4 kernel on the engine's path: {prof['k1_k4']}")
+    prof["launches_per_round"] = prof["launches"] / 3
+    prof["dtod_per_round"] = prof["dtod"] / 3
+    out["config1_profile"] = prof
+
+    # ResNet-50's gradient at the size a deployment syncs
+    card_run = run(RESNET_PARAMS, rounds=ENGINE_BIG_ROUNDS, device=dev, keep_outputs=True)
+    cpu_run = run(RESNET_PARAMS, rounds=ENGINE_BIG_ROUNDS, device="cpu", keep_outputs=True)
+    big = {"flushes_equal": engine_flushes_equal(card_run, cpu_run),
+           "rounds": card_run.rounds, "seconds": card_run.seconds,
+           "throughput_mbs": card_run.rounds * RESNET_PARAMS * 4 / card_run.seconds / 1e6,
+           "cpu_seconds": cpu_run.seconds,
+           "cpu_throughput_mbs": cpu_run.rounds * RESNET_PARAMS * 4 / cpu_run.seconds / 1e6}
+    require(big["rounds"] == ENGINE_BIG_ROUNDS, f"25.5M rounds {big['rounds']}")
+    del card_run, cpu_run
+    torch.cuda.empty_cache()
+    rounds_ms = []
+
+    def round_done(line, r, latency, done, workers):
+        # the line master's latency runs from the round's Start to this
+        # completion; the synchronize ends it when the card has finished too
+        started = time.monotonic() - latency
+        torch.cuda.synchronize()
+        rounds_ms.append((time.monotonic() - started) * 1e3)
+
+    timed = local_engine(RESNET_PARAMS, rounds=ENGINE_BIG_ROUNDS, device=dev)
+    timed.system.master.on_round_complete = round_done
+    timed.run()
+    del timed
+    big["round_ms_median"] = statistics.median(rounds_ms)
+    big["round_ms"] = rounds_ms
+    prof = profile_engine(local_engine(RESNET_PARAMS, rounds=ENGINE_BIG_ROUNDS,
+                                                   device=dev).run)
+    require(prof["dtoh"] == prof["htod"] == 0 and not prof["k1_k4"], f"25.5M profile {prof}")
+    big["profile"] = prof
+    out["resnet_grad"] = big
+    print(f"host engine, 4 workers x {RESNET_PARAMS} floats, chunk {ENGINE_CHUNK}, "
+          f"{ENGINE_BIG_ROUNDS} rounds ({card['name']}, {card['power_limit']}): "
+          f"{big['seconds']:.4f} s, {big['throughput_mbs']:.1f} MB/s, median round "
+          f"(Start to completion) {big['round_ms_median']:.3f} ms, device busy "
+          f"{prof['busy_share'] * 100:.1f}%, "
+          f"{prof['launches'] / ENGINE_BIG_ROUNDS:.0f} kernels and "
+          f"{prof['dtod'] / ENGINE_BIG_ROUNDS:.0f} device-to-device copies a round; CPU "
+          f"{big['cpu_seconds']:.4f} s", flush=True)
+
+    # dropout: the host tier of config 5, every message of worker 3 lost
+    drop = dict(chunk=DROPOUT_CHUNK, th=0.75, rounds=DROPOUT_ROUNDS, drop_worker=3,
+                keep_outputs=True)
+    card_run = run(DROPOUT_FLOATS, device=dev, **drop)
+    cpu_run = run(DROPOUT_FLOATS, device="cpu", **drop)
+    node0 = card_run.outputs[0]
+    require(len(node0) == DROPOUT_ROUNDS, f"dropout: node 0 flushed {len(node0)} rounds")
+    counts = sorted({int(c) for o in node0 for c in torch.unique(o.count).tolist()})
+    require(set(counts) <= {0, 3}, f"dropout counts {counts}")
+    out["dropout"] = {"flushes_equal": engine_flushes_equal(card_run, cpu_run),
+                      "node0_rounds": len(node0), "counts": counts,
+                      "dropped": card_run.system.router.dropped,
+                      "seconds": card_run.seconds}
+    del card_run, cpu_run
+
+    # the 2-D butterfly: dim 0's concat(sum, counts) feeds dim 1
+    card_run = run(ENGINE_FLOATS, dims=2, rounds=BUTTERFLY_ROUNDS, device=dev,
+                   keep_outputs=True)
+    cpu_run = run(ENGINE_FLOATS, dims=2, rounds=BUTTERFLY_ROUNDS, device="cpu",
+                  keep_outputs=True)
+    require(all((o.count == 4).all() for outs in card_run.outputs for o in outs),
+            "2-D counts 4")
+    out["butterfly_2d"] = {"flushes_equal": engine_flushes_equal(card_run, cpu_run),
+                           "seconds": card_run.seconds}
+    del card_run, cpu_run
+
+    # ElasticAverageBinder with the weights on the card
+    def elastic(device) -> list:
+        rng = np.random.default_rng(SEED)
+        weights = {i: torch.from_numpy(rng.standard_normal(ENGINE_FLOATS).astype(
+            np.float32)).to(device) for i in range(4)}
+        history: dict[int, list] = {i: [] for i in range(4)}
+
+        def setter(i):
+            def set_weights(w):
+                weights[i] = w
+                history[i].append(w)
+            return set_weights
+
+        binders = [ElasticAverageBinder(lambda i=i: weights[i], setter(i), ELASTIC_ALPHA)
+                   for i in range(4)]
+        cfg = AllreduceConfig(
+            metadata=MetaDataConfig(data_size=ENGINE_FLOATS, max_chunk_size=ENGINE_CHUNK),
+            line_master=LineMasterConfig(round_window=2, max_rounds=ELASTIC_ROUNDS),
+            master=MasterConfig(node_num=4))
+        system = LocalAllreduceSystem(4, [b.data_source for b in binders],
+                                      [b.data_sink for b in binders], cfg, device=device)
+        system.start()
+        system.run_until_quiescent()
+        require(all(b.rounds_applied == ELASTIC_ROUNDS for b in binders), "elastic rounds")
+        spread = [float((torch.stack([history[i][r] for i in range(4)]).amax(0)
+                         - torch.stack([history[i][r] for i in range(4)]).amin(0)).max())
+                  for r in range(ELASTIC_ROUNDS)]
+        return [weights[i] for i in range(4)], spread
+
+    w_card, spread = elastic(dev)
+    w_cpu, spread_cpu = elastic("cpu")
+    require(all(w.is_cuda for w in w_card), "the binder's weights stay on the card")
+    require(all(b < a for a, b in zip(spread, spread[1:])),
+            f"the spread falls every round: {spread}")
+    err = max(float(((a.cpu() - b).abs() / b.abs().clamp_min(1e-30)).max())
+              for a, b in zip(w_card, w_cpu))
+    require(all(torch.allclose(a.cpu(), b, rtol=ELASTIC_RTOL, atol=0)
+                for a, b in zip(w_card, w_cpu)), f"elastic weights vs the CPU's: {err}")
+    out["elastic"] = {"spread": spread, "spread_cpu": spread_cpu, "max_rel_err": err}
+
+    # the CLI on the card
+    rc, text = run_cli(["local-demo", "--size", str(ENGINE_FLOATS), "--rounds", "5"])
+    line = text.strip().splitlines()[-1]
+    require(rc == 0 and "rounds_completed=5" in line and "engine=cuda" in line
+            and card["name"] in line, f"local-demo: {line}")
+    out["local_demo"] = line
+    print(line, flush=True)
+
+    require(kernel_counts() == before, "no K1-K4 launch on the host engine's path")
+    out["k1_k4_launches"] = 0
+    return out
+
+
 def median_step_ms(step, batches, steps: int = 5) -> tuple[float, list[float]]:
     """Median host-clock ms of ``steps`` calls ``step(x, y)`` (each ended by
     a synchronize) on ``batches``, after one warm-up call."""
@@ -1602,7 +1879,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     require(bench_rec["metric"].startswith("local_threshold_reduce_bw_64Mfloat")
             and bench_rec["value"] > 0, f"bench record {bench_rec}")
-    require([r["config"] for r in records] == [2, 3, 4], "configs 2, 3 and 4")
+    require([r["config"] for r in records] == [1, 2, 3, 4], "configs 1, 2, 3 and 4")
+    engine_rec = records.pop(0)
+    require(engine_rec["engine"] == "cuda" and engine_rec["throughput_mbs"] > 0
+            and engine_rec["device"] == card["name"], f"record {engine_rec}")
     for rec in records:
         require(math.isfinite(rec.get("seconds_per_iter", rec.get("device_step_ms")))
                 and rec.get("seconds_per_iter", rec.get("device_step_ms")) > 0
@@ -1718,6 +1998,27 @@ def main() -> int:
           train_resnet=rn["train_resnet"],
           bench_mfu={k: rn["bench_mfu"][k] for k in ("value", "ms_per_step", "spread_pct")},
           k1_vs_plain=f"bit-identical on the step's (8, {RESNET_PARAMS}) stack, and the update")
+
+    # -- 4h. the host engine, its round buffers on the card -----------------------
+    t0 = time.perf_counter()
+    eng = host_engine_path(dev, card)
+    big = eng["resnet_grad"]
+    phase("host_engine_path", t0, k1_k4_launches=eng["k1_k4_launches"],
+          config1={"throughput_mbs": eng["config1"]["record"]["throughput_mbs"],
+                   "seconds": eng["config1"]["record"]["seconds"],
+                   "cpu_throughput_mbs": eng["config1"]["cpu_throughput_mbs"],
+                   "flushes_equal_to_cpu": eng["config1"]["flushes_equal"],
+                   "buffers_seen_on_card": eng["config1"]["buffers_seen_on_card"]},
+          config1_profile={k: eng["config1_profile"][k] for k in (
+              "dtoh", "htod", "launches_per_round", "dtod_per_round", "busy_share",
+              "wall_ms", "device_ms", "top")},
+          resnet_grad={k: big[k] for k in (
+              "seconds", "throughput_mbs", "round_ms_median", "round_ms", "cpu_seconds",
+              "cpu_throughput_mbs", "flushes_equal")},
+          resnet_grad_profile={k: big["profile"][k] for k in (
+              "dtoh", "htod", "dtod", "launches", "busy_share", "wall_ms", "device_ms",
+              "top")},
+          dropout=eng["dropout"], butterfly_2d=eng["butterfly_2d"], elastic=eng["elastic"])
 
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()

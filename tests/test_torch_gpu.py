@@ -1,7 +1,10 @@
 """The port's CUDA kernels (K1 masked_average, K2 elastic_average_step, K3
 the ring allreduce, K4 the flash-attention forward and backward) against
 their plain PyTorch versions on the card, and the LM's training path
-through them.
+through them; and the host engine with its round buffers on the card
+against the same runs on the CPU, bit for bit (config 1's shape, the
+dropout tier of config 5, the 2-D butterfly), with no copy between host and
+card inside a round and no K1-K4 launch.
 
 Marked ``gpu``; without a card every test skips (decided in the ``card``
 fixture, never at import). Run on the card with
@@ -28,7 +31,15 @@ import pytest
 import torch
 
 from akka_allreduce_tpu_torch.comm import allreduce as ar
-from chip_smoke import check_overlap_k1, watch_leaf_syncs
+from akka_allreduce_tpu_torch.control.local import local_engine
+from chip_smoke import (
+    check_overlap_k1,
+    engine_buffers,
+    engine_flushes_equal,
+    kernel_counts,
+    profile_engine,
+    watch_leaf_syncs,
+)
 from akka_allreduce_tpu_torch.models import (
     MLP,
     LMGenerator,
@@ -896,3 +907,41 @@ def test_resnet_f32_convs_stay_f32_under_the_default_cudnn_setting(card, monkeyp
         monkeypatch.setattr(mod, "ieee_f32", contextlib.nullcontext)
     assert logit_err() > 1e-4
     assert float((stack() - ieee).abs().max()) > 1e-5 * scale
+
+
+# -- the host engine, its round buffers on the card ---------------------------
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [dict(size=1_000_000, rounds=30),  # BASELINE config 1
+     dict(size=200_000, chunk=16_384, th=0.75, rounds=10, drop_worker=3),  # config 5
+     dict(size=100_003, chunk=4_096, dims=2, rounds=4)],
+    ids=["config1", "dropout", "butterfly"],
+)
+def test_engine_on_the_card_equals_its_cpu_run(card, shape):
+    """Every node's every flush, data and counts, bit for bit: the same
+    order of messages gives the same f32 adds on either device."""
+    before = kernel_counts()
+    on_card = local_engine(device=card, keep_outputs=True, **shape)
+    seen = {}
+
+    def look(env):
+        seen.update((t.data_ptr(), t.is_cuda) for t in engine_buffers(on_card.system))
+        return False
+
+    if "drop_worker" not in shape:
+        on_card.system.router.drop_filter = look
+    on_card.run()
+    on_cpu = local_engine(device="cpu", keep_outputs=True, **shape).run()
+    assert engine_flushes_equal(on_card, on_cpu) == sum(map(len, on_cpu.outputs)) > 0
+    assert len(on_card.outputs[0]) == shape["rounds"]
+    assert all(seen.values())
+    assert kernel_counts() == before  # no K1-K4 on the engine's path
+
+
+def test_engine_round_copies_nothing_back_to_the_host(card):
+    engine = local_engine(1_000_000, rounds=3, device=card)  # inputs on the card
+    prof = profile_engine(engine.run)
+    assert prof["dtoh"] == 0 and prof["htod"] == 0
+    assert not prof["k1_k4"] and prof["launches"] > 0

@@ -6,8 +6,9 @@
   they raise instead of running on the CPU.
 - The CPU path launches no kernel (the threshold reduce, the ring, and a
   gated attention forward and backward alike).
-- The ``bench-suite`` and ``bench`` commands print parseable records at a
-  tiny size.
+- The ``bench-suite`` (config 1, the host engine, first), ``bench`` and
+  ``local-demo`` commands print parseable records at a tiny size, and the
+  host engine's dev-mode chaos is refused.
 - Its copies of the configs and of the per-round metrics behave as the JAX
   package's.
 """
@@ -34,6 +35,8 @@ from akka_allreduce_tpu_torch import bench, bench_suite, config, state
 from akka_allreduce_tpu_torch.__main__ import main as cli_main
 from akka_allreduce_tpu_torch._device import resolve_device, use_kernel
 from akka_allreduce_tpu_torch.comm import measure_allreduce, threshold_allreduce
+from akka_allreduce_tpu_torch.config import AllreduceConfig
+from akka_allreduce_tpu_torch.control import LocalAllreduceSystem
 from akka_allreduce_tpu_torch.models import TransformerLM
 from akka_allreduce_tpu_torch.ops import flash_attention as tflash
 from akka_allreduce_tpu_torch.ops import local_reduce as tlr
@@ -86,7 +89,11 @@ def test_source_names_no_jax_package():
                 "models.transformer", "models.generate", "models.convert",
                 "models.data", "train", "train.trainer", "train.long_context",
                 "binder", "binder.api", "bench_mfu", "models.resnet", "utils.verify",
-                "graft_entry"):
+                "graft_entry", "protocol", "buffers", "tensor_reduce", "control",
+                "control.envelope", "control.pod", "control.wire", "control.worker",
+                "control.line_master", "control.grid_master", "control.node",
+                "control.local", "obs", "obs.metrics", "obs.flight", "obs.trace",
+                "obs.watchdog", "binder.grad_sync", "binder.elastic"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
@@ -136,6 +143,12 @@ def test_entry_points_raise_without_cuda(monkeypatch, capsys):
         cli_main(["lm-generate", "--train-steps", "2", "--layers", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["bench-mfu", "--d-model", "32", "--layers", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LocalAllreduceSystem(1, [None], [None], AllreduceConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_suite.config1_local_engine(1024, rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["local-demo", "--size", "1024", "--rounds", "1"])
     assert capsys.readouterr().out == ""  # nothing was measured or printed
 
 
@@ -192,8 +205,14 @@ def test_bench_suite_cli_prints_records(capsys, tmp_path, one_torch_thread):
     assert rc == 0
     lines = capsys.readouterr().out.strip().splitlines()
     records = [json.loads(line) for line in lines]
-    assert [r["config"] for r in records] == [2, 3, 4]
+    assert [r["config"] for r in records] == [1, 2, 3, 4]
     assert out.read_text().strip().splitlines() == lines
+    engine = records.pop(0)  # config 1: the host engine, 4 workers
+    assert engine["name"] == "local_engine_allreduce" and engine["workers"] == 4
+    assert engine["floats"] == 4096 and engine["rounds"] == 30
+    assert engine["engine"] == engine["device"] == "cpu"
+    assert engine["path"] == "host_engine" and engine["power_limit"] is None
+    assert engine["seconds"] > 0 and engine["throughput_mbs"] > 0
     mlp = records.pop(1)  # config 3: the MLP's DP step, at its own size
     assert mlp["name"] == "mlp_mnist_dp_sgd" and mlp["virtual_workers"] == 8
     assert mlp["device"] == "cpu" and mlp["path"] == "plain_masked_average"
@@ -232,6 +251,29 @@ def test_bench_cli_prints_one_record(capsys, one_torch_thread, extra, schedule, 
     assert rec["device"] == "cpu" and rec["power_limit"] is None
     assert rec["path"] == "virtual_ranks_one_card"
     assert math.isfinite(rec["bus_gbps_median"]) and rec["bus_gbps_best"] > 0
+
+
+def test_local_demo_cli_prints_one_line(capsys):
+    rc = cli_main(["local-demo", "--device", "cpu", "--size", "1000", "--chunk", "64",
+                   "--rounds", "3", "--dims", "2"])
+    assert rc == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    fields = dict(f.split("=", 1) for f in line.split() if "=" in f)
+    assert fields["nodes"] == "4" and fields["size"] == "1000"
+    assert fields["rounds_completed"] == "3" and fields["engine"] == "cpu"
+    assert float(fields["elapsed"].rstrip("s")) > 0
+    assert "per-node flushes: [3, 3, 3, 3]" in line
+
+
+def test_chaos_is_refused(capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        cli_main(["local-demo", "--device", "cpu", "--chaos-spec", "drop:p=0.1"])
+    assert exit_info.value.code == 2
+    assert "--chaos-spec is not ported yet" in capsys.readouterr().err
+    chaos = AllreduceConfig(chaos=config.ChaosConfig(seed=1, spec="drop:p=0.1"))
+    assert chaos.chaos.enabled
+    with pytest.raises(NotImplementedError, match="chaos injector"):
+        LocalAllreduceSystem(1, [None], [None], chaos, device="cpu")
 
 
 def test_bench_cli_keeps_the_jax_schedule_choices():
