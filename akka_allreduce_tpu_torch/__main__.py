@@ -31,30 +31,45 @@ Commands:
 - ``train-lm [--steps N] [--batch N] [--lr X] [--seq-len N] [--impl
   ring|ulysses] [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
   [--layers N] [--metrics-out FILE] [--device-data] [--bf16] [--remat]
-  [--device cpu]`` — trains the LM on the copy task with
+  [checkpoint flags] [--device cpu]`` — trains the LM on the copy task with
   ``LongContextTrainer`` on one card: the host loop (one ``train_step``
-  event a step in the metrics JSONL) or, with ``--device-data``, one chain
-  with batches drawn on the card. Prints the parameter count and mesh, then
-  the step time, TFLOP/s, MFU and the loss trend. ``--dp/--sp/--tp`` above
-  1, ``--compress``, ``--overlap`` and the checkpoint flags are not ported
-  yet and are refused.
+  event a step in the metrics JSONL) or, with ``--device-data``, chains with
+  batches drawn on the card. Prints the parameter count and mesh, then the
+  step time, TFLOP/s, MFU and the loss trend. ``--dp/--sp/--tp`` above 1,
+  ``--compress`` and ``--overlap`` are not ported yet and are refused.
 - ``train-mlp [--steps N] [--batch N] [--lr X] [--hidden N ...] [--bucket N]
   [--compress bf16|int8] [--error-feedback] [--overlap] [--accum N] [--bf16]
   [--devices N] [--mesh line|grid] [--device-data] [--metrics-out FILE]
-  [--device cpu]`` — the MLP/MNIST data-parallel SGD of config 3:
-  ``DPTrainer`` over ``--devices`` virtual ranks (default 8) on one card,
-  the f32 gradient average through K1 (once a step; once a leaf with
+  [checkpoint flags] [--device cpu]`` — the MLP/MNIST data-parallel SGD of
+  config 3: ``DPTrainer`` over ``--devices`` virtual ranks (default 8) on one
+  card, the f32 gradient average through K1 (once a step; once a leaf with
   ``--overlap``). The host loop (one ``train_step`` event a step in the
   metrics JSONL; ``train_step_accum`` with ``--accum``) or, with
-  ``--device-data`` (not with ``--accum``), one chain with batches drawn on
-  the card. Prints the parameter count and mesh, then the step time,
-  TFLOP/s and the loss trend. The checkpoint flags are not ported yet and
-  are refused.
+  ``--device-data`` (not with ``--accum``), chains with batches drawn on the
+  card. Prints the parameter count and mesh, then the step time, TFLOP/s and
+  the loss trend.
 - ``train-resnet [--image-size N] [--classes N]`` and the flags
   of ``train-mlp`` but ``--hidden`` — ResNet-50 (config 4) the same way, 32
   px images and 10 classes by default, the gradient bucketed at 262,144
   (no bucket with ``--overlap``); prints ``ResNet params: ...M`` and the MFU
   of ``3 · resnet_fwd_flops``.
+- ``train-zero1 [--devices N] [--steps N] [--batch N] [--lr X] [--hidden N
+  ...] [--compress bf16] [--error-feedback] [--metrics-out FILE]
+  [checkpoint flags] [--device cpu]`` — the same MLP SGD through
+  ``Zero1DPTrainer``: the optimizer state in one shard a rank, the f32
+  reduce-scatter through K1 once a step.
+- The checkpoint flags of every training command: ``--checkpoint-dir D
+  [--checkpoint-every K] [--async-checkpoint] [--delta-checkpoint]``. A run
+  resumes from the newest checkpoint in D (``resumed from step N``), saves
+  every K steps (between chains of K steps with ``--device-data``) and once
+  at the end; ``--delta-checkpoint`` takes the content-addressed store,
+  ``--async-checkpoint`` moves the save off the step loop.
+- ``bench-checkpoint [--trainer lm|zero1] [--store orbax|delta] [--d-model
+  N] [--layers N] [--seq-len N] [--batch N] [--bf16] [--skip-sync]
+  [--device cpu]`` — one ``checkpoint_stall`` JSON record: the synchronous
+  save's stall against the async save's capture stall, its wall time and
+  the step time while it drains (the flagship LM by default; ``orbax`` names
+  the port's full store, as the JAX CLI names its Orbax one).
 - ``bench-mfu [--workload lm|mlp|resnet] ...`` — the slope-timed MFU record
   of ``bench_mfu.py`` (the flagship LM by default).
 """
@@ -388,10 +403,7 @@ def _cmd_train_lm(argv: list[str]) -> int:
     p.add_argument("--tp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--compress", default=None, help=argparse.SUPPRESS)
     p.add_argument("--overlap", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--checkpoint-every", type=int, default=0, help=argparse.SUPPRESS)
-    for flag in ("--async-checkpoint", "--delta-checkpoint"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    _checkpoint_flags(p)
     args = p.parse_args(argv)
     for flag, value, ok, what in (
         ("--dp", args.dp, (None, 1), "data parallelism needs several ranks"),
@@ -399,17 +411,10 @@ def _cmd_train_lm(argv: list[str]) -> int:
         ("--tp", args.tp, (1,), "tensor parallelism needs several ranks"),
         ("--compress", args.compress, (None,), "gradient wire compression"),
         ("--overlap", args.overlap, (False,), "per-leaf gradient collectives"),
-        ("--checkpoint-dir", args.checkpoint_dir, (None,), "checkpoints"),
-        ("--checkpoint-every", args.checkpoint_every, (0,), "checkpoints"),
-        ("--async-checkpoint", args.async_checkpoint, (False,), "checkpoints"),
-        ("--delta-checkpoint", args.delta_checkpoint, (False,), "checkpoints"),
     ):
         if value not in ok:
             p.error(f"{flag} is not ported yet ({what})")
 
-    import time
-
-    import numpy as np
     import torch
 
     from akka_allreduce_tpu_torch._device import resolve_device
@@ -417,7 +422,6 @@ def _cmd_train_lm(argv: list[str]) -> int:
     from akka_allreduce_tpu_torch.parallel import data_seq_mesh
     from akka_allreduce_tpu_torch.train import LongContextTrainer
     from akka_allreduce_tpu_torch.utils.benchmarking import transformer_train_flops
-    from akka_allreduce_tpu_torch.utils.metrics import MetricsLogger
 
     dev = resolve_device(args.device)
     trainer = LongContextTrainer(
@@ -432,31 +436,107 @@ def _cmd_train_lm(argv: list[str]) -> int:
         f"dp={trainer.dp} x sp={trainer.sp} x tp={trainer.tp}, "
         f"seq_len={args.seq_len} ({args.impl}), device {dev}"
     )
-    label = f"lm_{args.impl}"
     flops = transformer_train_flops(
         n_params=trainer.param_count, batch=args.batch, seq=args.seq_len,
         d_model=args.d_model, n_layers=args.layers,
     )
-    ds = lm_copy_task(args.seq_len, vocab=args.vocab)
+    return _run_training(p, trainer, lm_copy_task(args.seq_len, vocab=args.vocab), args,
+                         label=f"lm_{args.impl}", flops=flops,
+                         where=f"on {trainer.n_devices} device", ms_digits=1)
+
+
+def _checkpoint_flags(p: argparse.ArgumentParser) -> None:
+    """The ``--checkpoint-*`` flags every training command carries."""
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument(
+        "--async-checkpoint", action="store_true",
+        help="save checkpoints without stalling the step loop: the capture is a "
+        "clone a leaf on the card, the copy to pinned host memory and the write "
+        "run on a thread (a save still in flight at the next interval is "
+        "skipped, not queued)",
+    )
+    p.add_argument(
+        "--delta-checkpoint", action="store_true",
+        help="per-leaf content-addressed store: a save writes only the leaves "
+        "whose bytes changed since any kept checkpoint; composes with "
+        "--async-checkpoint",
+    )
+
+
+def _make_checkpointer(args):
+    """The checkpointer the ``--checkpoint-*`` flags ask for."""
+    from akka_allreduce_tpu_torch.train import (
+        AsyncDeltaCheckpointer,
+        AsyncTrainerCheckpointer,
+        DeltaCheckpointer,
+        TrainerCheckpointer,
+    )
+
+    if args.delta_checkpoint:
+        cls = AsyncDeltaCheckpointer if args.async_checkpoint else DeltaCheckpointer
+    else:
+        cls = AsyncTrainerCheckpointer if args.async_checkpoint else TrainerCheckpointer
+    return cls(args.checkpoint_dir)
+
+
+def _run_training(p, trainer, ds, args, *, label: str, flops: float, where: str,
+                  ms_digits: int = 2) -> int:
+    """Train ``trainer`` on ``ds``: the host loop (one ``train_step`` event a
+    step in the metrics JSONL; ``train_step_accum`` with ``--accum``) or,
+    with ``--device-data``, chains with batches drawn on the device. With
+    ``--checkpoint-dir`` it first resumes from the newest checkpoint there,
+    saves every ``--checkpoint-every`` steps (between chains of that many
+    steps with ``--device-data``) and once more at the end. Then the step
+    time, TFLOP/s (MFU on a card with a known peak) and the loss trend."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.utils.metrics import MetricsLogger
+
+    if args.batch % trainer.data_shards:
+        p.error(f"global batch {args.batch} not divisible by {trainer.data_shards} ranks")
+    dev = trainer.device
     logger = MetricsLogger(args.metrics_out)
+    ckpt = None
+    if args.checkpoint_dir:
+        ckpt = _make_checkpointer(args)
+        if ckpt.latest_step() is not None:
+            print(f"resumed from step {ckpt.restore(trainer)}", flush=True)
 
     def sync() -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    device_data = getattr(args, "device_data", False)
     sync()
     t0 = time.perf_counter()
-    if args.device_data:
-        history = trainer.train_chain(ds.device_sampler(), args.steps, args.batch)
+    if device_data:
+        sampler, rows = ds.device_sampler(), args.batch // trainer.data_shards
+        block = args.checkpoint_every if ckpt and args.checkpoint_every else args.steps
+        history, remaining = [], args.steps
+        while remaining > 0:
+            n = min(block, remaining)
+            history.extend(trainer.train_chain(sampler, n, rows))
+            remaining -= n
+            if ckpt and remaining > 0:
+                ckpt.save(trainer)
         total = time.perf_counter() - t0
         for m in history:
             logger.log_event(kind="train_step", workload=label, step=m.step,
                              loss=m.loss, contributors=m.contributors)
     else:
+        accum = getattr(args, "accum", 1)
         history = []
         for x, y in ds.batches(args.batch, args.steps):
             st = time.perf_counter()
-            m = trainer.train_step(x, y)  # ends in the loss's host read
+            # each ends in its loss's host read
+            if accum > 1:
+                m = trainer.train_step_accum(x, y, accum)
+            else:
+                m = trainer.train_step(x, y)
             dt = time.perf_counter() - st
             history.append(m)
             logger.log_event(
@@ -464,32 +544,49 @@ def _cmd_train_lm(argv: list[str]) -> int:
                 contributors=m.contributors, step_time_s=round(dt, 6),
                 **_mfu_fields(flops, dt, dev),
             )
+            if ckpt and args.checkpoint_every and m.step % args.checkpoint_every == 0:
+                ckpt.save(trainer)
         total = time.perf_counter() - t0
+    if ckpt:
+        ckpt.save(trainer, force=True, block=True)
+        ckpt.close()
     losses = [m.loss for m in history]
     # the first steps' warm-up is included, so this MFU is a floor;
     # bench-mfu is the slope-timed measurement
     perf = _mfu_fields(flops, total / max(len(losses), 1), dev)
     if perf:
         logger.log_event(kind="train_summary", workload=label, steps=len(losses),
-                         host_loop=not args.device_data, **perf)
+                         host_loop=not device_data, **perf)
     logger.close()
     trend = (f"loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f}"
              if losses else "no steps taken")
-    mode = "on-device " if args.device_data else ""
+    mode = "on-device " if device_data else ""
     print(
-        f"{label}: {len(losses)} {mode}steps on {trainer.n_devices} device in "
-        f"{total:.2f}s ({total / max(len(losses), 1) * 1e3:.1f} ms/step)"
+        f"{label}: {len(losses)} {mode}steps {where} in {total:.2f}s "
+        f"({total / max(len(losses), 1) * 1e3:.{ms_digits}f} ms/step)"
         f"{_mfu_note(perf)}; {trend}", flush=True,
     )
     return 0
 
 
-def _dp_train_flags(p: argparse.ArgumentParser, *, lr: float = 0.1) -> None:
-    """The flags ``train-mlp`` and ``train-resnet`` share (the JAX CLI's
-    ``_train_flags``, less those not ported yet)."""
+def _basic_train_flags(p: argparse.ArgumentParser) -> None:
+    """The core every DP training command carries (``train-zero1`` exactly
+    this set, so its defaults cannot drift from ``train-mlp``'s)."""
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--batch", type=int, default=64, help="global batch size")
-    p.add_argument("--lr", type=float, default=lr)
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--metrics-out", default=None, help="JSONL metrics path")
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' runs the plain PyTorch path; default: the CUDA card",
+    )
+    _checkpoint_flags(p)
+
+
+def _dp_train_flags(p: argparse.ArgumentParser) -> None:
+    """The flags ``train-mlp`` and ``train-resnet`` share (the JAX CLI's
+    ``_train_flags``, less those not ported yet)."""
+    _basic_train_flags(p)
     p.add_argument("--bucket", type=int, default=None, help="grad bucket (elements)")
     p.add_argument(
         "--compress", choices=("bf16", "int8"), default=None,
@@ -519,32 +616,14 @@ def _dp_train_flags(p: argparse.ArgumentParser, *, lr: float = 0.1) -> None:
         "--mesh", choices=("line", "grid"), default="line",
         help="1D line or 2D butterfly grid of the ranks",
     )
-    p.add_argument("--metrics-out", default=None, help="JSONL metrics path")
     p.add_argument(
         "--device-data", action="store_true",
         help="sample batches on the device inside one chain",
     )
-    p.add_argument(
-        "--device", default=None,
-        help="'cpu' runs the plain PyTorch path; default: the CUDA card",
-    )
-    # the JAX command's options that need parts not ported yet
-    p.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--checkpoint-every", type=int, default=0, help=argparse.SUPPRESS)
-    for flag in ("--async-checkpoint", "--delta-checkpoint"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
 
 
 def _parse_dp_args(p: argparse.ArgumentParser, argv: list[str]):
     args = p.parse_args(argv)
-    for flag, value, ok in (
-        ("--checkpoint-dir", args.checkpoint_dir, (None,)),
-        ("--checkpoint-every", args.checkpoint_every, (0,)),
-        ("--async-checkpoint", args.async_checkpoint, (False,)),
-        ("--delta-checkpoint", args.delta_checkpoint, (False,)),
-    ):
-        if value not in ok:
-            p.error(f"{flag} is not ported yet (checkpoints)")
     if args.accum < 1:
         p.error(f"--accum must be >= 1, got {args.accum}")
     if args.accum > 1 and args.device_data:
@@ -559,73 +638,6 @@ def _dp_mesh(args):
     if args.mesh == "grid":
         return grid_mesh(n=args.devices, device=args.device)
     return line_mesh(args.devices, device=args.device)
-
-
-def _run_dp_training(p, trainer, ds, args, *, label: str, flops: float) -> int:
-    """Train ``trainer`` on ``ds``: the host loop (one ``train_step`` event a
-    step in the metrics JSONL; ``train_step_accum`` with ``--accum``) or,
-    with ``--device-data``, one chain with batches drawn on the device. Then
-    the step time, TFLOP/s (MFU on a card with a known peak) and the loss
-    trend."""
-    import time
-
-    import numpy as np
-    import torch
-
-    from akka_allreduce_tpu_torch.utils.metrics import MetricsLogger
-
-    if args.batch % trainer.data_shards:
-        p.error(f"global batch {args.batch} not divisible by {trainer.data_shards} ranks")
-    dev = trainer.device
-    logger = MetricsLogger(args.metrics_out)
-
-    def sync() -> None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    sync()
-    t0 = time.perf_counter()
-    if args.device_data:
-        history = trainer.train_chain(ds.device_sampler(), args.steps,
-                                      args.batch // trainer.data_shards)
-        total = time.perf_counter() - t0
-        for m in history:
-            logger.log_event(kind="train_step", workload=label, step=m.step,
-                             loss=m.loss, contributors=m.contributors)
-    else:
-        history = []
-        for x, y in ds.batches(args.batch, args.steps):
-            st = time.perf_counter()
-            # each ends in its loss's host read
-            if args.accum > 1:
-                m = trainer.train_step_accum(x, y, args.accum)
-            else:
-                m = trainer.train_step(x, y)
-            dt = time.perf_counter() - st
-            history.append(m)
-            logger.log_event(
-                kind="train_step", workload=label, step=m.step, loss=m.loss,
-                contributors=m.contributors, step_time_s=round(dt, 6),
-                **_mfu_fields(flops, dt, dev),
-            )
-        total = time.perf_counter() - t0
-    losses = [m.loss for m in history]
-    # the first steps' warm-up is included, so this MFU is a floor;
-    # bench-mfu is the slope-timed measurement
-    perf = _mfu_fields(flops, total / max(len(losses), 1), dev)
-    if perf:
-        logger.log_event(kind="train_summary", workload=label, steps=len(losses),
-                         host_loop=not args.device_data, **perf)
-    logger.close()
-    trend = (f"loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f}"
-             if losses else "no steps taken")
-    mode = "on-device " if args.device_data else ""
-    print(
-        f"{label}: {len(losses)} {mode}steps over {trainer.n_devices} virtual ranks "
-        f"in {total:.2f}s ({total / max(len(losses), 1) * 1e3:.2f} ms/step)"
-        f"{_mfu_note(perf)}; {trend}", flush=True,
-    )
-    return 0
 
 
 def _cmd_train_mlp(argv: list[str]) -> int:
@@ -653,8 +665,9 @@ def _cmd_train_mlp(argv: list[str]) -> int:
     )
     print(f"MLP params: {trainer.param_count / 1e6:.3f}M, mesh {mesh.shape}, "
           f"device {mesh.device}")
-    return _run_dp_training(p, trainer, mnist_like(), args, label="mlp_mnist",
-                            flops=dense_train_flops(trainer.param_count, args.batch))
+    return _run_training(p, trainer, mnist_like(), args, label="mlp_mnist",
+                         flops=dense_train_flops(trainer.param_count, args.batch),
+                         where=f"over {trainer.n_devices} virtual ranks")
 
 
 def _cmd_train_resnet(argv: list[str]) -> int:
@@ -693,7 +706,197 @@ def _cmd_train_resnet(argv: list[str]) -> int:
     # conv FLOPs from the architecture, x3 for forward + backward: the
     # convention bench-mfu uses, so both report the same MFU
     fwd = resnet_fwd_flops(trainer.model, args.image_size, args.batch)
-    return _run_dp_training(p, trainer, ds, args, label="resnet50", flops=3 * fwd)
+    return _run_training(p, trainer, ds, args, label="resnet50", flops=3 * fwd,
+                         where=f"over {trainer.n_devices} virtual ranks")
+
+
+def _cmd_train_zero1(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "train-zero1",
+        description="MLP/MNIST DP-SGD with ZeRO-1 sharded optimizer state over "
+        "virtual ranks on one card (optimizer state / ranks; the same weights as "
+        "train-mlp with the same optimizer)",
+    )
+    p.add_argument("--devices", type=int, default=8, help="virtual ranks (one axis)")
+    _basic_train_flags(p)
+    p.add_argument("--hidden", type=int, nargs="+", default=[128])
+    p.add_argument(
+        "--compress", choices=("bf16",), default=None,
+        help="bf16 wire on the gradient reduce-scatter (the weights stay f32)",
+    )
+    p.add_argument(
+        "--error-feedback", action="store_true",
+        help="carry each rank's bf16 cast residual into its next contribution "
+        "(requires --compress bf16)",
+    )
+    args = p.parse_args(argv)
+
+    import torch
+
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import Zero1DPTrainer
+    from akka_allreduce_tpu_torch.utils.benchmarking import dense_train_flops
+
+    mesh = line_mesh(args.devices, device=args.device)
+    trainer = Zero1DPTrainer(
+        MLP(hidden=tuple(args.hidden), classes=10, device=mesh.device), mesh,
+        # SGD, as train-mlp's default (the trainer's own default is Adam, which
+        # the lr 0.1 default would destabilize)
+        optimizer=lambda ps: torch.optim.SGD(ps, lr=args.lr),
+        compress=args.compress, error_feedback=args.error_feedback,
+    )
+    print(f"ZeRO-1: {trainer.param_count / 1e3:.1f}K params, optimizer shard "
+          f"{trainer.optimizer_shard_elems} elems/rank on {trainer.n_devices} virtual "
+          f"ranks, device {mesh.device}")
+    return _run_training(p, trainer, mnist_like(), args, label="zero1_mnist",
+                         flops=dense_train_flops(trainer.param_count, args.batch),
+                         where=f"over {trainer.n_devices} virtual ranks")
+
+
+#: virtual ranks of bench-checkpoint's zero1 trainer (the JAX CPU mesh's 8)
+_BENCH_CKPT_RANKS = 8
+
+
+def _cmd_bench_checkpoint(argv: list[str]) -> int:
+    """The step loop's stall under a checkpoint save: the synchronous save's
+    wall time (the loop is frozen for all of it) against the async save's
+    capture stall and the step time while its writer drains."""
+    p = argparse.ArgumentParser(
+        "bench-checkpoint",
+        description="step-loop stall of sync vs async checkpointing on a "
+        "Transformer LM (or the ZeRO-1 MLP), one card",
+    )
+    p.add_argument("--d-model", type=int, default=2048)
+    p.add_argument("--layers", type=int, default=8)
+    p.add_argument("--heads", type=int, default=None, help="default d/128")
+    p.add_argument("--seq-len", type=int, default=2048)
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument(
+        "--trainer", choices=("lm", "fsdp", "zero1", "pipeline"), default="lm",
+        help="lm: LongContextTrainer; zero1: Zero1DPTrainer on MLP(hidden=(d,) x "
+        "layers) over 8 virtual ranks, its shard-local capture (fsdp and "
+        "pipeline are not ported yet)",
+    )
+    p.add_argument(
+        "--store", choices=("orbax", "delta"), default="orbax",
+        help="orbax: the full store (one directory a step; the JAX CLI's name "
+        "for it); delta: the content-addressed per-leaf store",
+    )
+    p.add_argument("--remat", choices=("full", "params"), default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--baseline-steps", type=int, default=5)
+    p.add_argument("--max-steps-during", type=int, default=200)
+    p.add_argument("--dir", default=None, help="parent of the scratch store; default a temp dir")
+    p.add_argument("--skip-sync", action="store_true",
+                   help="skip the (slow) synchronous-save comparison")
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' runs the plain PyTorch path; default: the CUDA card",
+    )
+    args = p.parse_args(argv)
+    if args.trainer in ("fsdp", "pipeline"):
+        p.error(f"--trainer {args.trainer} is not ported yet (FSDP and pipelines)")
+    if args.remat is not None:
+        p.error("--remat is not ported yet (FSDP's rematerialization)")
+
+    import json
+    import shutil
+    import statistics
+    import tempfile
+    import time
+
+    import torch
+
+    from akka_allreduce_tpu_torch._device import resolve_device
+    from akka_allreduce_tpu_torch.models import MLP, lm_copy_task, mnist_like
+    from akka_allreduce_tpu_torch.parallel import data_seq_mesh, line_mesh
+    from akka_allreduce_tpu_torch.train import (
+        AsyncDeltaCheckpointer,
+        AsyncTrainerCheckpointer,
+        DeltaCheckpointer,
+        LongContextTrainer,
+        TrainerCheckpointer,
+        Zero1DPTrainer,
+    )
+    from akka_allreduce_tpu_torch.utils.benchmarking import device_fields
+
+    dev = resolve_device(args.device)
+    if args.trainer == "lm":
+        trainer = LongContextTrainer(
+            data_seq_mesh(1, 1, device=dev), learning_rate=1e-3, vocab=args.vocab,
+            d_model=args.d_model, n_heads=args.heads or max(1, args.d_model // 128),
+            n_layers=args.layers, seq_len=args.seq_len,
+            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        )
+        batches = lm_copy_task(args.seq_len, vocab=args.vocab).batches(args.batch, 10_000)
+    else:  # the MLP classification family, its width from --d-model
+        trainer = Zero1DPTrainer(
+            MLP(hidden=(args.d_model,) * args.layers, classes=10, device=dev),
+            line_mesh(_BENCH_CKPT_RANKS, device=dev),
+            optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-3),
+        )
+        # rows spread over every rank
+        batch = -(-args.batch // _BENCH_CKPT_RANKS) * _BENCH_CKPT_RANKS
+        batches = mnist_like().batches(batch, 10_000)
+    state_gb = trainer.param_count * 4 * 3 / 1e9  # f32 params and Adam's two moments
+
+    def step() -> float:
+        t0 = time.perf_counter()
+        trainer.train_step(*next(batches))  # ends in the loss's host read
+        return time.perf_counter() - t0
+
+    step()  # warm-up
+    base_ms = statistics.median(step() for _ in range(args.baseline_steps)) * 1e3
+    sync_cls, async_cls = ((DeltaCheckpointer, AsyncDeltaCheckpointer) if args.store == "delta"
+                           else (TrainerCheckpointer, AsyncTrainerCheckpointer))
+    # a fresh scratch store: against an existing one the step dedup would
+    # skip the save; removed at the end (it holds the whole state twice)
+    d = tempfile.mkdtemp(prefix="ckpt_bench_", dir=args.dir)
+    try:
+        sync_s = None
+        if not args.skip_sync:
+            with sync_cls(f"{d}/sync") as ck:
+                t0 = time.perf_counter()
+                ck.save(trainer)
+                sync_s = time.perf_counter() - t0
+        with async_cls(f"{d}/async") as ck:
+            t0 = time.perf_counter()
+            ck.save(trainer)
+            capture_s = time.perf_counter() - t0  # the only stall the loop sees
+            during = []
+            while ck.busy() and len(during) < args.max_steps_during:
+                during.append(step())
+            ck.wait_until_finished()
+            # past the step cap the loop only waits, so this can exceed the steps
+            save_wall_s = time.perf_counter() - t0
+            saved_step = ck.latest_step()
+            delta_stats = getattr(ck, "last_stats", None)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    fields = device_fields(dev)
+    rec = {
+        "metric": "checkpoint_stall",
+        "trainer": args.trainer,
+        "store": args.store,
+        "delta_stats": delta_stats,
+        "params_m": round(trainer.param_count / 1e6, 1),
+        "state_gb": round(state_gb, 2),
+        "baseline_ms_per_step": base_ms,
+        "async_capture_stall_s": capture_s,
+        "async_save_wall_s": save_wall_s,
+        "steps_during_async_save": len(during),
+        "ms_per_step_during_save": statistics.median(during) * 1e3 if during else None,
+        "sync_save_stall_s": sync_s,
+        "saved_step": saved_step,
+        # the card's name (the JAX record's platform is the backend's)
+        "platform": fields["device"],
+        **fields,
+    }
+    print(json.dumps(rec), flush=True)
+    return 0
 
 
 def _cmd_bench_mfu(argv: list[str]) -> int:
@@ -710,6 +913,8 @@ COMMANDS = {
     "train-lm": _cmd_train_lm,
     "train-mlp": _cmd_train_mlp,
     "train-resnet": _cmd_train_resnet,
+    "train-zero1": _cmd_train_zero1,
+    "bench-checkpoint": _cmd_bench_checkpoint,
     "bench-mfu": _cmd_bench_mfu,
 }
 

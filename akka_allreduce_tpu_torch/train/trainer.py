@@ -125,6 +125,16 @@ def default_classification_loss() -> Callable[[torch.Tensor, torch.Tensor], torc
     return lambda logits, y: F.cross_entropy(logits, y.long())
 
 
+def rank_loss_fn(model: nn.Module, loss: Callable) -> Callable:
+    """``(params, x, y) -> loss`` of one rank's rows under the parameters
+    ``params`` (by name), for ``torch.func`` to differentiate and batch."""
+
+    def rank_loss(params, x, y):
+        return loss(functional_call(model, params, (x,)), y)
+
+    return rank_loss
+
+
 class DPTrainer:
     """Data-parallel trainer over every axis of ``mesh``.
 
@@ -208,9 +218,7 @@ class DPTrainer:
         # name -> the per-rank rows of the latest sync (utils.verify), or None
         self._replica_log: dict[str, torch.Tensor] | None = None
 
-        def rank_loss(params, x, y):
-            return self._loss(functional_call(self.model, params, (x,)), y)
-
+        rank_loss = rank_loss_fn(self.model, self._loss)
         self._rank_grads = vmap(grad_and_value(rank_loss), in_dims=(None, 0, 0))
         # overlap: every rank's loss on its own (n, *leaf) broadcast of each leaf
         self._rank_losses = vmap(rank_loss, in_dims=(0, 0, 0))

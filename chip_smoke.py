@@ -137,7 +137,28 @@ Phases, each printed as it ends:
    weights on the card (4 nodes, alpha 0.5, 5 rounds: the spread between the
    nodes' weights falls every round, the weights within rtol 1e-6 of the
    CPU run's); ``local-demo --size 1000000 --rounds 5`` naming the card; no
-   K1-K4 launch in the whole phase;
+   K1-K4 launch in the whole phase; (i) checkpoints and resume:
+   ``Zero1DPTrainer`` at the JAX ``bench-checkpoint --trainer zero1`` width
+   (``MLP(hidden=(2048,) * 8)``, 31,002,634 parameters, Adam 1e-3,
+   ``line_mesh(8)``, 16 rows a rank): 3 f32 steps (the second with rank 3
+   masked), K1 once each, the flat weights bit-equal to ``DPTrainer``'s over
+   the same steps; a bf16 + EF step in its stages, the residual equal to
+   ``c - bf16(c·v)`` bit for bit, the masked row more than 50x any other's,
+   no K1; that trainer saved over 8 ranks and restored over 4 (weights and
+   Adam's state equal, the residual's sum within rtol 1e-6); then, for each
+   of the four stores (``TrainerCheckpointer``, ``DeltaCheckpointer`` and
+   their async forms) and each of ZeRO-1 (f32), ``DPTrainer`` on
+   ``MLP(2048, 2048)`` with int8 + EF (the plain ring: no K1) and the
+   flagship LM in bf16 at B 2 (K4's forward and backward once a layer a
+   step): save, 2 more steps (for the async stores while the writer
+   drains), restore into a second trainer whose state must be the one of
+   the moment of the save, the same 2 steps, every tensor equal to the
+   saver's bit for bit; the async stores' host buffers pinned; then
+   ``bench-checkpoint`` at the flagship in bf16 for the full and the delta
+   store (``--skip-sync``) and with ``--trainer zero1``, each record printed
+   on its own line
+   (capture stall, save wall, step time during the save, sync stall, delta
+   stats), its K1 or K4 launches equal to its steps;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -235,6 +256,14 @@ RESNET_LR = 0.01  # at 0.1 the third step on one batch diverges (7.8, 3.1, 38.8)
 ENGINE_FLOATS, ENGINE_CHUNK, ENGINE_ROUNDS, ENGINE_BIG_ROUNDS = 1_000_000, 262_144, 30, 5
 DROPOUT_FLOATS, DROPOUT_CHUNK, DROPOUT_ROUNDS = 200_000, 16_384, 10
 BUTTERFLY_ROUNDS, ELASTIC_ROUNDS, ELASTIC_ALPHA, ELASTIC_RTOL = 5, 5, 0.5, 1e-6
+# checkpoints (phase i): ZeRO-1 at the JAX bench-checkpoint --trainer zero1
+# width, MLP(hidden=(2048,) * 8) over 8 virtual ranks, Adam 1e-3; steps between
+# a save and the comparison of a resume; bench-checkpoint's batch at the
+# flagship and its baseline steps; the disk the flagship stores need (a sync
+# and an async store of 4.85 GB each at once, and room)
+ZERO1_HIDDEN, ZERO1_PARAMS, ZERO1_ROWS, ZERO1_STEPS = (2048,) * 8, 31_002_634, 16, 3
+CKPT_STEPS_AFTER, CKPT_LM_BATCH, CKPT_BENCH_BASELINE, CKPT_FREE_BYTES = 2, 2, 5, 12e9
+MASK3 = [1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0]  # rank 3 masked
 
 
 def ring_name(mode: str | None) -> str:
@@ -1430,6 +1459,312 @@ def host_engine_path(dev, card: dict) -> dict:
     return out
 
 
+def live_state(trainer, clone: bool = False) -> dict:
+    """Every tensor of a trainer's checkpoint state by key path, where it
+    lies (on the card; Adam's step counters on the host): the shard-local
+    capture of the trainer-defined protocol, or the pytree form. ``clone``
+    copies each where it lies."""
+    from akka_allreduce_tpu_torch.train import checkpoint as ckpt
+
+    tree = (trainer.checkpoint_capture() if hasattr(trainer, "checkpoint_capture")
+            else ckpt.capture_state(trainer)[0])
+    return {k: (v.detach().clone() if clone else v.detach()) for k, v in ckpt.tree_items(tree)}
+
+
+def states_equal(a: dict, b: dict) -> tuple[bool, float]:
+    """(bit-equal, max abs difference) of two ``live_state``s."""
+    import torch
+
+    if a.keys() != b.keys():
+        return False, math.inf
+    err = max((float((x.double() - b[k].double()).abs().max()) for k, x in a.items()
+               if x.numel()), default=0.0)
+    return all(torch.equal(x, b[k]) for k, x in a.items()), err
+
+
+def resume_cycles(name: str, a, b, batches, root) -> dict:
+    """For each of the four stores: save ``a``, step it on ``batches`` (for
+    the async stores while the writer drains), restore ``b``, whose state
+    must then be that of the moment of the save, and step ``b`` on the same
+    batches: every tensor equal to ``a``'s, bit for bit. The async stores'
+    host buffers must be pinned. Returns each store's seconds: the save call
+    (the step loop's stall), the save until durable, the restore."""
+    import shutil
+
+    import torch
+
+    from akka_allreduce_tpu_torch.train import (
+        AsyncDeltaCheckpointer,
+        AsyncTrainerCheckpointer,
+        DeltaCheckpointer,
+        TrainerCheckpointer,
+    )
+
+    on_card = a.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def steps(t):
+        for x, y in batches:
+            m = t.train_step(x, y)
+            require(math.isfinite(m.loss), f"{name} step {m}")
+
+    out = {}
+    for cls in (TrainerCheckpointer, DeltaCheckpointer, AsyncTrainerCheckpointer,
+                AsyncDeltaCheckpointer):
+        what = f"{name} {cls.__name__}"
+        ref, saved_step = live_state(a, clone=True), a.step_num
+        directory = root / f"{name}_{cls.__name__}"
+        sync()
+        t0 = time.perf_counter()
+        ck = cls(directory)
+        require(ck.save(a) is not False, f"{what}: save")
+        save_s = time.perf_counter() - t0
+        steps(a)  # for the async stores, while the writer drains
+        if hasattr(ck, "wait_until_finished"):
+            ck.wait_until_finished()
+            bufs = ck.host_buffers.buffers.values()
+            require(not on_card or (bufs and all(buf.is_pinned() for buf in bufs)),
+                    f"{what}: the capture's host buffers are pinned")
+        wall_s = time.perf_counter() - t0
+        require(not states_equal(live_state(a), ref)[0],
+                f"{what}: the steps after the save changed the live state")
+        t0 = time.perf_counter()
+        require(ck.restore(b) == saved_step, f"{what}: the restored step")
+        sync()
+        restore_s = time.perf_counter() - t0
+        equal, err = states_equal(live_state(b), ref)
+        require(equal, f"{what}: the restored state is the state at save (max abs {err})")
+        del ref
+        steps(b)
+        equal, err = states_equal(live_state(a), live_state(b))
+        require(equal, f"{what}: the resumed state bit-equal to the saver's (max abs {err})")
+        ck.close()
+        shutil.rmtree(directory)
+        out[cls.__name__] = {"save_call_s": save_s, "save_wall_s": wall_s,
+                             "restore_s": restore_s}
+    return out
+
+
+def checkpoint_path(dev, card: dict) -> dict:
+    """Phase (i): checkpoints and resume. ZeRO-1 at the JAX ``bench-checkpoint
+    --trainer zero1`` width (f32: K1 once a step, the flat weights bit-equal
+    to ``DPTrainer``'s; bf16 + EF: the residual formula; saved over 8 ranks,
+    restored over 4); resume equality through each of the four stores for
+    ZeRO-1 in f32, ``DPTrainer`` on ``MLP(2048, 2048)`` with int8 + EF (the
+    plain ring, no K1) and the flagship LM in bf16 (K4's forward and backward
+    in every step); ``bench-checkpoint`` at the flagship for both stores and
+    for ``--trainer zero1``. Returns the launches and figures."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.models import MLP, SyntheticCopyLM, mnist_like
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import (
+        DeltaCheckpointer,
+        DPTrainer,
+        LongContextTrainer,
+        Zero1DPTrainer,
+    )
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def launched(n: int) -> int:
+        """Kernel launches for n calls (the CPU, in a rehearsal, launches none)."""
+        return n if on_card else 0
+
+    k1, k4 = lr.LAUNCHES, fa.LAUNCHES
+    marks: dict[str, tuple[int, int, int]] = {}
+
+    def mark(part: str) -> None:
+        """The counts K1, K4's forward and its backward reached after ``part``."""
+        sync()
+        marks[part] = (k1["masked_average"], k4["flash_attention_wgmma"],
+                       k4["flash_attention_bwd_wgmma"])
+
+    def since(part: str) -> tuple[int, int, int]:
+        sync()
+        now = (k1["masked_average"], k4["flash_attention_wgmma"],
+               k4["flash_attention_bwd_wgmma"])
+        return tuple(n - m for n, m in zip(now, marks[part]))
+
+    def adam(ps):
+        return torch.optim.Adam(ps, lr=1e-3)
+
+    def zero1(n: int = DP_RANKS, seed: int = SEED, **kw):
+        return Zero1DPTrainer(MLP(hidden=ZERO1_HIDDEN, seed=seed, device=dev),
+                              line_mesh(n, device=dev), optimizer=adam, **kw)
+
+    out: dict = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        free = shutil.disk_usage(root).free
+        out["disk_free_gb"] = free / 1e9
+        require(free >= CKPT_FREE_BYTES, f"{free / 1e9:.1f} GB free under {root}; the "
+                f"flagship stores need {CKPT_FREE_BYTES / 1e9:.0f}")
+        zero(k1)
+        zero(k4)
+        mark("start")
+
+        # (a) ZeRO-1 in f32 against DPTrainer, K1 once a step
+        z = zero1()
+        d = DPTrainer(MLP(hidden=ZERO1_HIDDEN, seed=SEED, device=dev),
+                      line_mesh(DP_RANKS, device=dev), optimizer=adam)
+        require(z.param_count == ZERO1_PARAMS
+                and z.optimizer_shard_elems * DP_RANKS == z._padded,
+                f"ZeRO-1 at width: {z.param_count} params")
+        require(np.array_equal(z.get_flat_params(), d.get_flat_params()), "the same weights")
+        batches = list(mnist_like(seed=SEED).batches(DP_RANKS * ZERO1_ROWS,
+                                                     ZERO1_STEPS + CKPT_STEPS_AFTER))
+        losses = []
+        for i, (x, y) in enumerate(batches[:ZERO1_STEPS]):
+            valid = MASK3 if i == 1 else None
+            mark("zero1_step")
+            mz = z.train_step(x, y, valid)
+            require(since("zero1_step") == (launched(1), 0, 0), "one K1 launch a ZeRO-1 f32 step")
+            md = d.train_step(x, y, valid)
+            require(mz.loss == md.loss and mz.contributors == md.contributors
+                    == DP_RANKS - (i == 1), f"ZeRO-1 {mz} vs DPTrainer {md}")
+            losses.append(mz.loss)
+        require(np.array_equal(z.get_flat_params(), d.get_flat_params()),
+                "ZeRO-1's flat weights bit-equal to DPTrainer's")
+        require(since("start") == (launched(2 * ZERO1_STEPS), 0, 0), "K1 in (a)")
+        del d
+        out["zero1_f32"] = {"losses": losses}
+        mark("a")
+
+        # (b) bf16 + EF: e' = c - bf16(c v) with rank 3 masked; no K1
+        te = zero1(compress="bf16", error_feedback=True)
+        te.train_step(*batches[0])  # a nonzero residual to fold in
+        e0 = te._ef.clone()
+        v3 = torch.tensor(MASK3, device=dev)
+        stack, _ = te.rank_gradients(*te._place_batch(*batches[1]))
+        average, count = te.reduce_scatter(stack, v3)
+        c = stack + e0
+        require(torch.equal(te._ef, c - (c * v3[:, None]).to(torch.bfloat16).float()),
+                "ZeRO-1 bf16 EF: e' = c - bf16(c v)")
+        te.apply_shards(average)
+        te.step_num += 1
+        norms = te._ef.norm(dim=1)
+        ratio = float(norms[3]) / float(torch.cat([norms[:3], norms[4:]]).max())
+        require(float(count) == DP_RANKS - 1 and ratio > EF_BF16_RATIO
+                and since("a") == (0, 0, 0),
+                f"ZeRO-1 bf16 EF: masked row {ratio:.1f}x the others', count {float(count)}")
+        out["zero1_bf16_ef"] = {"masked_ef_ratio": ratio}
+        del stack, average, c, e0
+
+        # (c) ZeRO-1 saved over 8 ranks, restored over 4
+        with DeltaCheckpointer(root / "remesh") as ck:
+            ck.save(te)
+            t4 = zero1(4, compress="bf16", error_feedback=True)
+            require(ck.restore(t4) == te.step_num, "restored over 4 ranks")
+        s8, s4 = te.checkpoint_state(), t4.checkpoint_state()
+        require(np.array_equal(s8["flat_params"], s4["flat_params"])
+                and all(np.array_equal(p, q) for p, q in zip(s8["opt_state"][0],
+                                                             s4["opt_state"][0]))
+                and np.allclose(s4["ef_sum"], s8["ef_sum"], rtol=1e-6, atol=0)
+                and np.abs(s8["ef_sum"]).max() > 0, "8 -> 4 ranks: the v2 form kept")
+        out["remesh_8_to_4"] = {
+            "shard_elems": [te.optimizer_shard_elems, t4.optimizer_shard_elems],
+            "ef_sum_max_abs_err": float(np.abs(s4["ef_sum"] - s8["ef_sum"]).max())}
+        del te, t4, s8, s4
+        shutil.rmtree(root / "remesh")
+        torch.cuda.empty_cache()
+
+        # (d) resume equality through each store
+        mark("c")
+        out["resume_zero1"] = resume_cycles("zero1", z, zero1(seed=SEED + 1),
+                                            batches[ZERO1_STEPS:], root)
+        require(since("c") == (launched(8 * CKPT_STEPS_AFTER), 0, 0), "K1 in ZeRO-1's resumes")
+        del z
+        mark("d_zero1")
+
+        def dp_int8(seed: int):
+            return DPTrainer(MLP(hidden=DP_HIDDEN, seed=seed, device=dev),
+                             line_mesh(DP_RANKS, device=dev), optimizer=adam,
+                             compress="int8", error_feedback=True)
+
+        dp_batches = list(mnist_like(seed=SEED).batches(DP_RANKS * DP_ROWS,
+                                                        1 + CKPT_STEPS_AFTER))
+        da, db = dp_int8(SEED), dp_int8(SEED + 1)
+        da.train_step(*dp_batches[0], valid=MASK3)  # rank 3's gradient banked
+        db.train_step(*dp_batches[0])
+        out["resume_dp_int8_ef"] = resume_cycles("dp_int8_ef", da, db, dp_batches[1:], root)
+        require(since("d_zero1") == (0, 0, 0), "the int8 sync launched a kernel")
+        del da, db
+        torch.cuda.empty_cache()
+
+        lm_batches = list(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED).batches(
+            CKPT_LM_BATCH, 1 + CKPT_STEPS_AFTER))
+
+        def lm(seed: int):
+            return LongContextTrainer(**LM, seq_len=LM_SEQ, compute_dtype=torch.bfloat16,
+                                      learning_rate=1e-3, seed=seed, device=dev)
+
+        mark("d_dp")
+        la, lb = lm(SEED), lm(SEED + 1)
+        la.train_step(*lm_batches[0])
+        lb.train_step(*lm_batches[0])
+        out["resume_lm_bf16"] = resume_cycles("lm_bf16", la, lb, lm_batches[1:], root)
+        lm_steps = LM["n_layers"] * (2 + 8 * CKPT_STEPS_AFTER)
+        require(since("d_dp") == (0, launched(lm_steps), launched(lm_steps))
+                and k4["flash_attention_3xtf32"] == 0,
+                f"LM resumes: K4's forward and backward once a layer a step, {dict(k4)}")
+        del la, lb
+        torch.cuda.empty_cache()
+        mark("d")
+
+        # (e) bench-checkpoint at the flagship (both stores) and --trainer zero1
+        lm_flags = ["--d-model", str(LM["d_model"]), "--layers", str(LM["n_layers"]),
+                    "--seq-len", str(LM_SEQ), "--vocab", str(LM["vocab"]), "--bf16"]
+        zero1_flags = ["--trainer", "zero1", "--d-model", str(ZERO1_HIDDEN[0]),
+                       "--layers", str(len(ZERO1_HIDDEN))]
+        records = {}
+        # the delta store's synchronous save (about 12 s at the flagship on an
+        # H100) is skipped to keep the phase short; bench-checkpoint --store
+        # delta without --skip-sync measures it
+        for label, flags in (("lm_orbax", lm_flags),
+                             ("lm_delta", [*lm_flags, "--store", "delta", "--skip-sync"]),
+                             ("zero1_orbax", zero1_flags)):
+            mark(label)
+            rc, text = run_cli(["bench-checkpoint", "--dir", str(root), "--baseline-steps",
+                                str(CKPT_BENCH_BASELINE), *flags,
+                                *([] if on_card else ["--device", "cpu"])])
+            rec = json.loads(text.strip().splitlines()[-1])
+            print(json.dumps(rec), flush=True)
+            steps = 1 + CKPT_BENCH_BASELINE + rec["steps_during_async_save"]
+            want = ((0, launched(LM["n_layers"] * steps), launched(LM["n_layers"] * steps))
+                    if label.startswith("lm") else (launched(steps), 0, 0))
+            require(rc == 0 and rec["metric"] == "checkpoint_stall"
+                    and rec["platform"] == card["name"]
+                    and rec["saved_step"] == 1 + CKPT_BENCH_BASELINE
+                    and ((rec["sync_save_stall_s"] is None) == ("--skip-sync" in flags))
+                    and rec["async_save_wall_s"] >= rec["async_capture_stall_s"] > 0
+                    and (rec["delta_stats"] is None) == (label != "lm_delta")
+                    and since(label) == want and not any(root.iterdir()),
+                    f"bench-checkpoint {label}: {rec}, launches {since(label)} for {want}")
+            records[label] = rec
+            torch.cuda.empty_cache()
+        out["bench_checkpoint"] = records
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = since("start")
+    out["launches"] = {"masked_average": total[0], "flash_attention_bf16": total[1],
+                       "flash_attention_bwd_bf16": total[2]}
+    out["launches_by_part"] = {
+        "a_zero1_vs_dp": marks["a"][0],
+        "d_resume": [m - s for m, s in zip(marks["d"], marks["c"])],
+        "e_bench_checkpoint": [n - m for n, m in zip(total, marks["d"])],
+    }
+    return out
+
+
 def median_step_ms(step, batches, steps: int = 5) -> tuple[float, list[float]]:
     """Median host-clock ms of ``steps`` calls ``step(x, y)`` (each ended by
     a synchronize) on ``batches``, after one warm-up call."""
@@ -2020,6 +2355,21 @@ def main() -> int:
               "top")},
           dropout=eng["dropout"], butterfly_2d=eng["butterfly_2d"], elastic=eng["elastic"])
 
+    # -- 4i. checkpoints and resume, ZeRO-1 ----------------------------------------
+    t0 = time.perf_counter()
+    ck = checkpoint_path(dev, card)
+    phase("checkpoint_path", t0, launches=ck["launches"],
+          launches_by_part=ck["launches_by_part"], disk_free_gb=ck["disk_free_gb"],
+          zero1_f32=ck["zero1_f32"], zero1_bf16_ef=ck["zero1_bf16_ef"],
+          remesh_8_to_4=ck["remesh_8_to_4"], resume_zero1=ck["resume_zero1"],
+          resume_dp_int8_ef=ck["resume_dp_int8_ef"], resume_lm_bf16=ck["resume_lm_bf16"],
+          bench_checkpoint={k: {f: r[f] for f in (
+              "async_capture_stall_s", "async_save_wall_s", "steps_during_async_save",
+              "baseline_ms_per_step", "ms_per_step_during_save", "sync_save_stall_s",
+              "delta_stats", "state_gb", "params_m")} for k, r in ck["bench_checkpoint"].items()},
+          resume="every store, every trainer: the restored state is the state at save and "
+          "the resumed steps bit-equal to the saver's")
+
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
     k = K_WORKERS
@@ -2184,7 +2534,7 @@ def main() -> int:
 
     path_launches = {**launches, **ring_launches}
     path_launches["masked_average"] += dp_launches
-    for part in (lm["launches"], train["launches"]):
+    for part in (lm["launches"], train["launches"], ck["launches"]):
         for name, n in part.items():
             path_launches[name] = path_launches.get(name, 0) + n
     kernels = []

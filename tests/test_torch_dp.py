@@ -408,14 +408,6 @@ def test_train_mlp_on_the_cpu(capsys, tmp_path, extra):
     assert len(steps) == 4 and all(e["contributors"] == 8.0 for e in steps)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint-dir", "ck"], ["--checkpoint-every", "5"],
-                                  ["--async-checkpoint"], ["--delta-checkpoint"]])
-def test_train_mlp_refuses_what_is_not_ported(capsys, flag):
-    with pytest.raises(SystemExit):
-        cli_main(["train-mlp", "--device", "cpu", *flag])
-    assert "not ported yet" in capsys.readouterr().err
-
-
 def test_config3_record_on_the_cpu():
     rec = bench_suite.config3_mlp_step(steps=2, device="cpu", target_signal_s=None,
                                        chain_trips=(1, 3), outer=1)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (K1 masked_average, K2 elastic_average_step, K3
 the ring allreduce, K4 the flash-attention forward and backward) against
 their plain PyTorch versions on the card, and the LM's training path
-through them; and the host engine with its round buffers on the card
+through them; ZeRO-1's f32 step through K1 once, equal to ``DPTrainer``'s,
+and the async checkpoint capture (clones drained on a side stream into
+pinned buffers) holding capture-time values; and the host engine with its round buffers on the card
 against the same runs on the CPU, bit for bit (config 1's shape, the
 dropout tier of config 5, the 2-D butterfly), with no copy between host and
 card inside a round and no K1-K4 launch.
@@ -52,7 +54,12 @@ from akka_allreduce_tpu_torch.ops import local_attention as la
 from akka_allreduce_tpu_torch.ops import local_reduce as lr
 from akka_allreduce_tpu_torch.ops import ring as rk
 from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
-from akka_allreduce_tpu_torch.train import DPTrainer, LongContextTrainer
+from akka_allreduce_tpu_torch.train import (
+    AsyncDeltaCheckpointer,
+    DPTrainer,
+    LongContextTrainer,
+    Zero1DPTrainer,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -945,3 +952,61 @@ def test_engine_round_copies_nothing_back_to_the_host(card):
     prof = profile_engine(engine.run)
     assert prof["dtoh"] == 0 and prof["htod"] == 0
     assert not prof["k1_k4"] and prof["launches"] > 0
+
+
+def _zero1(card, n=8, **kw):
+    return Zero1DPTrainer(MLP(hidden=(256, 128), seed=1, device=card), line_mesh(n, device=card),
+                          optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-3), **kw)
+
+
+def test_zero1_f32_step_launches_k1_once_equal_to_dp_trainer(card):
+    """Each f32 ZeRO-1 step reduce-scatters through one K1 launch on its
+    ``(8, padded)`` stack, and its flat weights equal ``DPTrainer``'s with
+    the same optimizer, bit for bit."""
+    z = _zero1(card)
+    d = DPTrainer(MLP(hidden=(256, 128), seed=1, device=card), line_mesh(8, device=card),
+                  optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-3))
+    batches = list(mnist_like().batches(64, 3))
+    before = lr.LAUNCHES["masked_average"]
+    for (x, y), v in zip(batches, [None, [1, 1, 1, 0, 1, 1, 1, 1], None]):
+        mz = z.train_step(x, y, v)
+        assert lr.LAUNCHES["masked_average"] == before + 1
+        before += 1
+        md = d.train_step(x, y, v)
+        before += 1
+        assert mz.loss == md.loss and mz.contributors == md.contributors
+    np.testing.assert_array_equal(z.get_flat_params(), d.get_flat_params())
+    assert z.flat_params.is_cuda and z._padded % 8 == 0
+
+
+def test_async_capture_is_of_capture_time_through_pinned_buffers(card, tmp_path):
+    """The async save clones each leaf on the card and drains the clones on a
+    side stream into pinned host buffers while in-place Adam steps change the
+    live weights: the store holds the values of the moment of ``save``, the
+    buffers are pinned and reused by the next save, and the restored trainer
+    continues bit-equal to the one that saved."""
+    t = _zero1(card)
+    batches = list(mnist_like().batches(64, 6))
+    t.train_step(*batches[0], [1, 1, 1, 0, 1, 1, 1, 1])
+    ref = t.checkpoint_state()
+    with AsyncDeltaCheckpointer(tmp_path / "a") as ck:
+        assert ck.save(t)
+        for x, y in batches[1:4]:
+            t.train_step(x, y)
+        ck.wait_until_finished()
+        bufs = dict(ck.host_buffers.buffers)
+        assert bufs and all(b.is_pinned() for b in bufs.values())
+        live = t.checkpoint_state()
+        assert not np.array_equal(live["flat_params"], ref["flat_params"])
+        fresh = _zero1(card)
+        assert ck.restore(fresh) == 1
+        got = fresh.checkpoint_state()
+        for key in ("flat_params", "ef_sum", "format_version"):
+            np.testing.assert_array_equal(got[key], ref[key])
+        for a, b in zip(got["opt_state"][0], ref["opt_state"][0]):
+            np.testing.assert_array_equal(a, b)
+        for x, y in batches[1:4]:
+            fresh.train_step(x, y)
+        np.testing.assert_array_equal(fresh.get_flat_params(), t.get_flat_params())
+        assert ck.save(t, block=True)
+        assert all(ck.host_buffers.buffers[k] is b for k, b in bufs.items())

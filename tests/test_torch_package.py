@@ -37,12 +37,12 @@ from akka_allreduce_tpu_torch._device import resolve_device, use_kernel
 from akka_allreduce_tpu_torch.comm import measure_allreduce, threshold_allreduce
 from akka_allreduce_tpu_torch.config import AllreduceConfig
 from akka_allreduce_tpu_torch.control import LocalAllreduceSystem
-from akka_allreduce_tpu_torch.models import TransformerLM
+from akka_allreduce_tpu_torch.models import MLP, TransformerLM
 from akka_allreduce_tpu_torch.ops import flash_attention as tflash
 from akka_allreduce_tpu_torch.ops import local_reduce as tlr
 from akka_allreduce_tpu_torch.ops import ring as tring
 from akka_allreduce_tpu_torch.parallel import data_seq_mesh, grid_mesh, line_mesh
-from akka_allreduce_tpu_torch.train import LongContextTrainer
+from akka_allreduce_tpu_torch.train import LongContextTrainer, Zero1DPTrainer
 from akka_allreduce_tpu_torch.utils import metrics
 
 REPO = Path(__file__).resolve().parents[1]
@@ -93,7 +93,8 @@ def test_source_names_no_jax_package():
                 "control.envelope", "control.pod", "control.wire", "control.worker",
                 "control.line_master", "control.grid_master", "control.node",
                 "control.local", "obs", "obs.metrics", "obs.flight", "obs.trace",
-                "obs.watchdog", "binder.grad_sync", "binder.elastic"):
+                "obs.watchdog", "binder.grad_sync", "binder.elastic",
+                "control.statetransfer", "train.checkpoint", "train.zero1"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
@@ -149,6 +150,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, capsys):
         bench_suite.config1_local_engine(1024, rounds=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["local-demo", "--size", "1024", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Zero1DPTrainer(MLP(hidden=(8,), device="cpu"), line_mesh(4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["train-zero1", "--hidden", "8", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["bench-checkpoint", "--trainer", "zero1", "--d-model", "32", "--layers", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["bench-checkpoint", "--d-model", "32", "--layers", "1", "--seq-len", "16"])
     assert capsys.readouterr().out == ""  # nothing was measured or printed
 
 

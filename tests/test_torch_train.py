@@ -280,9 +280,7 @@ def test_train_lm_cli_on_the_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
-                                  ["--compress", "bf16"], ["--overlap"],
-                                  ["--checkpoint-dir", "ck"], ["--checkpoint-every", "5"],
-                                  ["--async-checkpoint"], ["--delta-checkpoint"]])
+                                  ["--compress", "bf16"], ["--overlap"]])
 def test_train_lm_refuses_what_is_not_ported(capsys, flag):
     with pytest.raises(SystemExit):
         cli_main(["train-lm", "--device", "cpu", *flag])
