@@ -17,7 +17,12 @@ Module names mirror the JAX package so each counterpart is easy to find:
   (sums and output as tensors on the card, counts and flags on the host),
   ``AllreduceWorker``, ``LineMaster``, ``GridMaster``, ``AllreduceNode`` and
   ``LocalAllreduceSystem`` over an in-process router, and the four
-  reductions of the JAX package's ``native/`` as tensor ops
+  reductions of the JAX package's ``native/`` as tensor ops; the TCP
+  control plane (``control/remote.py``, ``control/bootstrap.py``'s
+  ``MasterProcess`` and ``NodeProcess``, membership, gossip, failure
+  detection, the full wire codec and peer chunk transfer)
+- ``native``        — the wire codec's C++ hot loop (``wire.cpp``: frame
+  headers, checksums, ``sendmmsg``, io_uring), built by g++ at first use
 - ``obs``           — metrics registry, spans, flight recorder, round
   watchdog (stdlib copies)
 - ``parallel``      — meshes of n virtual ranks on one device
@@ -53,6 +58,8 @@ Module names mirror the JAX package so each counterpart is easy to find:
 - ``bench_suite``   — BASELINE config 1 (the host engine), the single-card
   branch of configs 2 and 4, and config 3
 - ``__main__``      — ``bench-suite``, ``local-demo`` (the host engine),
+  ``cluster-master``, ``cluster-node``, ``cluster-standby``, ``bench-wire``
+  and ``obs`` (the TCP control plane, in ``cluster_cli``),
   ``bench`` (allreduce bandwidth),
   ``lm-generate`` (KV-cache decoding, optionally after training),
   ``train-lm``, ``train-mlp``, ``train-resnet`` and ``bench-mfu``

@@ -72,12 +72,23 @@ Commands:
   the port's full store, as the JAX CLI names its Orbax one).
 - ``bench-mfu [--workload lm|mlp|resnet] ...`` — the slope-timed MFU record
   of ``bench_mfu.py`` (the flagship LM by default).
+- ``cluster-master``, ``cluster-node``, ``cluster-standby``, ``bench-wire``
+  and ``obs {demo,inspect,merge-trace}`` — the TCP control plane
+  (``cluster_cli.py``), with the JAX commands' flags and output lines:
+  ``cluster-master --nodes N --rounds R [--size N] [--chunk N] [--th X]
+  [--dims 2] [--wire-dtype f16] [--streams N] ...`` schedules rounds and
+  holds no payload; ``cluster-node --seed HOST:PORT [--device cpu]
+  [--flush-out FILE]`` joins it with its round buffers on the card;
+  ``cluster-standby --seed HOST:PORT`` takes over when the master dies.
+  ``--chaos-*`` and ``--adapt*`` are refused (not ported yet).
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+from akka_allreduce_tpu_torch import cluster_cli
 
 
 def _cmd_bench_suite(argv: list[str]) -> int:
@@ -916,6 +927,11 @@ COMMANDS = {
     "train-zero1": _cmd_train_zero1,
     "bench-checkpoint": _cmd_bench_checkpoint,
     "bench-mfu": _cmd_bench_mfu,
+    "cluster-master": cluster_cli.cmd_cluster_master,
+    "cluster-node": cluster_cli.cmd_cluster_node,
+    "cluster-standby": cluster_cli.cmd_cluster_standby,
+    "bench-wire": cluster_cli.cmd_bench_wire,
+    "obs": cluster_cli.cmd_obs,
 }
 
 

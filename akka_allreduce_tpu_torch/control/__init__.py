@@ -3,8 +3,12 @@ machines, the port's own copy of the JAX package's ``control/``.
 
 The reference's ``Master`` / ``LineMaster`` / ``AllreduceWorker`` actors
 become plain message handlers: each exposes ``handle(msg) -> list[Envelope]``
-and owns no thread. A router delivers envelopes; in-process that is
-``LocalRouter`` (the TCP control plane is not ported yet).
+and owns no thread. A router delivers envelopes: in-process that is
+``LocalRouter``; across processes it is the TCP control plane,
+``remote.RemoteTransport`` with ``bootstrap.MasterProcess`` and
+``bootstrap.NodeProcess`` (the wire codec in ``wire.py``, membership in
+``cluster.py``, ``failure.py`` and ``gossip.py``, peer state transfer in
+``statetransfer.py``).
 
 The worker's payloads — scatter chunks, the round buffers' sums and the
 assembled output — are tensors on the engine's device, the card unless the

@@ -5,9 +5,8 @@ package's ``control/local.py``.
 ``LocalRouter`` is the whole transport: FIFO delivery between registered
 handlers, with a pluggable drop filter for fault injection (the reference's
 tests inject faults exactly this way — by omitting messages). The JAX
-router's second strength, the seeded chaos injector, needs the wire codec
-and the injector, which the port has not written yet; a configuration that
-enables it is refused.
+router's second strength, the seeded chaos injector, is not ported yet; a
+configuration that enables it is refused.
 
 ``LocalAllreduceSystem`` keeps every node's payloads on one device: the card
 unless the caller passes ``device="cpu"``.
@@ -122,8 +121,8 @@ class LocalAllreduceSystem:
             )
         if config.chaos.enabled:
             raise NotImplementedError(
-                "dev-mode chaos is not ported yet: it needs the wire codec "
-                "and the chaos injector (ROADMAP.md Queue 1, items 5 and 7)"
+                "dev-mode chaos is not ported yet: it needs the chaos "
+                "injector (ROADMAP.md Queue 1, item 7)"
             )
         self.config = config
         self.device = resolve_device(device)
@@ -273,8 +272,7 @@ def main(argv: list[str] | None = None) -> int:
     )
     args = parser.parse_args(argv)
     if args.chaos_spec:
-        parser.error("--chaos-spec is not ported yet (the wire codec and the "
-                     "chaos injector)")
+        parser.error("--chaos-spec is not ported yet (the chaos injector)")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from akka_allreduce_tpu_torch.utils.benchmarking import device_fields

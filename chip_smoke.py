@@ -158,7 +158,26 @@ Phases, each printed as it ends:
    store (``--skip-sync``) and with ``--trainer zero1``, each record printed
    on its own line
    (capture stall, save wall, step time during the save, sync stall, delta
-   stats), its K1 or K4 launches equal to its steps;
+   stats), its K1 or K4 launches equal to its steps; (j) the TCP control
+   plane, the nodes' round buffers on the card: the wire codec's C++ built
+   with g++; BASELINE config 1 over loopback TCP (``cluster-master --nodes 4
+   --size 1000000 --chunk 262144 --rounds 20 --th 1.0`` and four
+   ``cluster-node`` processes on the card, then the same with ``--device
+   cpu``), each node's last flush against the numpy mean of the four seeded
+   payloads (rtol 1e-5, atol 1e-6, counts 4), every node on ``wire=native``
+   and the master with no CUDA context; ResNet-50's gradient (25,557,032
+   floats, ``--streams 3``, 3 rounds) in f32 and with ``--wire-dtype f16``
+   (within 2e-3 of max|mean|); each run's node rounds, MB/s, stage times
+   (``d2h`` and ``h2d``: the copies off and onto the card), wire path and
+   device and the median round printed; in this process's event loop,
+   ``MasterProcess`` with ``NodeProcess(device="cuda")`` nodes: the 2-D
+   butterfly, thresholds 0.75 with a node stopped mid-run (re-mesh), a late
+   joiner, and an int8 policy (each flush within two int8 steps of the mean,
+   the error feedback's residuals on the card, the mean over rounds closer
+   than one round); a ``cluster-standby`` taking over from a killed
+   ``cluster-master`` under epoch 2 and completing the budget; ``obs demo
+   --nodes 2``; ``bench-wire --uring --intra-chunk --congestion`` with its
+   payloads on the card; no K1-K4 launch;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -264,6 +283,11 @@ BUTTERFLY_ROUNDS, ELASTIC_ROUNDS, ELASTIC_ALPHA, ELASTIC_RTOL = 5, 5, 0.5, 1e-6
 ZERO1_HIDDEN, ZERO1_PARAMS, ZERO1_ROWS, ZERO1_STEPS = (2048,) * 8, 31_002_634, 16, 3
 CKPT_STEPS_AFTER, CKPT_LM_BATCH, CKPT_BENCH_BASELINE, CKPT_FREE_BYTES = 2, 2, 5, 12e9
 MASK3 = [1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0]  # rank 3 masked
+# the TCP control plane (phase j): BASELINE config 1 between 4 node processes
+# (1M floats, chunk 262,144, thresholds 1.0, 20 rounds), ResNet-50's gradient
+# over three payload streams for 3 rounds, and the failover drill's budget
+CLUSTER_NODES, CLUSTER_FLOATS, CLUSTER_CHUNK, CLUSTER_ROUNDS = 4, 1_000_000, 262_144, 20
+CLUSTER_BIG_ROUNDS, FAILOVER_ROUNDS = 3, 30
 
 
 def ring_name(mode: str | None) -> str:
@@ -1459,6 +1483,433 @@ def host_engine_path(dev, card: dict) -> dict:
     return out
 
 
+def spawn_role(*argv: str, log):
+    """One role of the TCP cluster (``cluster_cli.spawn_role``), its stderr
+    in the file ``log``."""
+    from akka_allreduce_tpu_torch.cluster_cli import spawn_role as spawn
+
+    with open(log, "w") as err:
+        return spawn(*argv, stderr=err)
+
+
+def log_tails(d) -> str:
+    """The last lines of every role's stderr log under ``d``."""
+    from pathlib import Path
+
+    return "\n".join(f"--- {p.name}\n" + "\n".join(p.read_text().splitlines()[-15:])
+                     for p in sorted(Path(d).glob("*.log")))
+
+
+def read_endpoint(proc, prefix: str) -> str:
+    for line in proc.stdout:
+        if line.startswith(prefix):
+            return line.split()[3]
+    raise RuntimeError(f"chip_smoke check failed: no '{prefix}' line")
+
+
+def jsonl(path) -> list[dict]:
+    from pathlib import Path
+
+    p = Path(path)
+    return [json.loads(ln) for ln in p.read_text().splitlines() if ln.strip()] if p.exists() else []
+
+
+_MEANS: dict = {}
+
+
+def payload_mean(size: int, seeds) -> "np.ndarray":
+    """The numpy mean of the nodes' seeded payloads (``cluster-node`` draws
+    ``default_rng(seed).standard_normal(size)``, its seed its node id),
+    kept for the next run of the same shape."""
+    import numpy as np
+
+    key = (size, tuple(seeds))
+    if key not in _MEANS:
+        acc = np.zeros(size, np.float64)
+        for s in key[1]:
+            acc += np.random.default_rng(s).standard_normal(size).astype(np.float32)
+        _MEANS[key] = (acc / len(key[1])).astype(np.float32)
+    return _MEANS[key]
+
+
+def tcp_cluster_run(root, tag: str, size: int, rounds: int, device: str,
+                    extra=(), nodes: int = CLUSTER_NODES, timeout: float = 180.0) -> dict:
+    """``cluster-master`` and ``nodes`` ``cluster-node`` processes over
+    loopback TCP: each node's last flush (``--flush-out``), its stage record
+    (``--metrics-out``) and its output lines, the master's round records."""
+    import numpy as np
+
+    d = root / tag
+    d.mkdir()
+    master = spawn_role("cluster-master", "--nodes", str(nodes), "--size", str(size),
+                        "--chunk", str(CLUSTER_CHUNK), "--rounds", str(rounds),
+                        "--th", "1.0", "--metrics-out", str(d / "master.jsonl"), *extra,
+                        log=d / "master.log")
+    procs = [master]
+    try:
+        seed = read_endpoint(master, "master listening on ")
+        for k in range(nodes):
+            procs.append(spawn_role("cluster-node", "--seed", seed, "--device", device,
+                                    "--flush-out", str(d / f"flush{k}.npz"),
+                                    "--metrics-out", str(d / f"node{k}.jsonl"),
+                                    log=d / f"node{k}.log"))
+        t0 = time.perf_counter()
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        wall = time.perf_counter() - t0
+        require(all(p.returncode == 0 for p in procs),
+                f"{tag}: exit codes {[p.returncode for p in procs]}: {outs}\n{log_tails(d)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    require("master cuda_initialized=False" in outs[0], f"{tag}: the master started CUDA")
+    stats = [next(r for r in jsonl(d / f"node{k}.jsonl") if r.get("kind") == "node_stage_times")
+             for k in range(nodes)]
+    flushes = [np.load(d / f"flush{k}.npz") for k in range(nodes)]
+    round_s = [r["latency_s"] for r in jsonl(d / "master.jsonl") if r.get("kind") == "round"]
+    return {"stats": stats, "flushes": flushes, "round_s": round_s, "wall_s": wall,
+            "node_lines": [ln for o in outs[1:] for ln in o.splitlines()
+                           if " shut down " in ln or " stage times " in ln]}
+
+
+def check_tcp_flushes(run: dict, size: int, tag: str, f16: bool = False) -> float:
+    """Every node's last flush against the numpy mean of the seeded payloads:
+    rtol 1e-5, atol 1e-6 (f32), or within 2e-3 of max|mean| (f16, and lossy);
+    every count 4. Returns the largest error."""
+    import numpy as np
+
+    want = payload_mean(size, range(len(run["flushes"])))
+    worst = 0.0
+    for k, f in enumerate(run["flushes"]):
+        count = f["count"]
+        require(int(count.min()) == len(run["flushes"]), f"{tag} node {k}: counts {count.min()}")
+        avg = f["data"] / count
+        err = float(np.abs(avg - want).max())
+        if f16:
+            rel = err / float(np.abs(want).max())
+            require(0 < rel < 2e-3, f"{tag} node {k}: f16 error {rel} of max|mean|")
+        else:
+            require(np.allclose(avg, want, rtol=1e-5, atol=1e-6), f"{tag} node {k}: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def tcp_summary(run: dict, card: dict, device: str) -> dict:
+    """What a TCP run prints: each node's rounds, MB/s, stage times, wire
+    path and device, the median round, the card."""
+    import statistics
+
+    stage_keys = ("encode", "socket_write", "decode", "handler", "d2h", "h2d")
+    nodes = [{"node": s["node"], "rounds": s["rounds"], "mb_per_s": s["mb_per_s"],
+              "wall_s": s["wall_s"], "wire": s["wire"], "device": s["device"],
+              **{k: s[k] for k in stage_keys}} for s in run["stats"]]
+    wall = sum(s["wall_s"] for s in run["stats"])
+    copies = sum(s["d2h"] + s["h2d"] for s in run["stats"])
+    return {"nodes": nodes, "round_s_median": statistics.median(run["round_s"]),
+            "round_s": run["round_s"], "copy_share_of_node_wall": copies / wall,
+            "device": device, "card": card["smi"]}
+
+
+def inproc_cluster(device, *, nodes: int, size: int, rounds: int = -1, dims: int = 1,
+                   th: float = 1.0, policy=None, chunk: int = 65_536, hb: float = 0.2,
+                   timeout: float = 1.0, script=None, deadline: float = 60.0) -> dict:
+    """A ``MasterProcess`` and ``nodes`` ``NodeProcess``es in this process's
+    event loop over loopback TCP, the nodes' buffers and payloads on
+    ``device``. ``script(h)`` (a coroutine function) drives the run; without
+    one the master's round budget does. Returns the harness: inputs (numpy),
+    every node's outputs, the live nodes."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.config import (
+        AllreduceConfig,
+        LineMasterConfig,
+        MasterConfig,
+        MetaDataConfig,
+        ThresholdConfig,
+    )
+    from akka_allreduce_tpu_torch.control.bootstrap import MasterProcess, NodeProcess
+    from akka_allreduce_tpu_torch.protocol import AllReduceInput
+
+    cfg = AllreduceConfig(
+        threshold=ThresholdConfig(th, th, th),
+        metadata=MetaDataConfig(data_size=size, max_chunk_size=chunk),
+        line_master=LineMasterConfig(round_window=2, max_rounds=rounds),
+        master=MasterConfig(node_num=nodes, dimensions=dims, heartbeat_interval_s=hb,
+                            heartbeat_timeout_s=timeout),
+    )
+    h = {"inputs": [np.random.default_rng(i).standard_normal(size).astype(np.float32)
+                    for i in range(nodes + 2)], "outputs": {}, "nodes": {}}
+    payloads = [torch.from_numpy(x).to(device) for x in h["inputs"]]
+
+    async def add_node(i: int):
+        node = NodeProcess(h["seed"], lambda req, i=i: AllReduceInput(payloads[i]),
+                           lambda out, i=i: h["outputs"].setdefault(i, []).append(out),
+                           preferred_node_id=i, device=device)
+        await node.start()
+        await node.wait_welcomed()
+        h["nodes"][i] = node
+        return node
+
+    async def until(pred, limit: float = 30.0):
+        loop = asyncio.get_running_loop()
+        end = loop.time() + limit
+        while not pred():
+            require(loop.time() < end, "an in-process cluster's condition was not reached")
+            await asyncio.sleep(0.02)
+
+    h["add_node"], h["until"] = add_node, until
+
+    async def run():
+        master = h["master"] = MasterProcess(cfg, port=0)
+        if policy is not None:
+            master.grid.set_policy(policy)
+        h["seed"] = await master.start()
+        try:
+            for i in range(nodes):
+                await add_node(i)
+            if script is None:
+                await master.run_until_done(timeout=deadline)
+                await until(lambda: all(len(h["outputs"].get(i, [])) >= rounds
+                                        for i in range(nodes)))
+            else:
+                await script(h)
+        finally:
+            for node in h["nodes"].values():
+                await node.stop()
+            await master.stop()
+
+    asyncio.run(asyncio.wait_for(run(), deadline))
+    return h
+
+
+def inproc_mean_err(h: dict, nodes, contributors, count: int) -> float:
+    """Nodes' last flushes against the numpy mean of ``contributors``'
+    inputs (rtol 1e-5, atol 1e-6), every count ``count``, every output on
+    the payloads' device."""
+    import numpy as np
+
+    want = np.mean([h["inputs"][k] for k in contributors], axis=0)
+    worst = 0.0
+    for i in nodes:
+        out = h["outputs"][i][-1]
+        require(int(out.count.min()) == count, f"node {i}: counts {int(out.count.min())}")
+        avg = out.average().cpu().numpy()
+        err = float(np.abs(avg - want).max())
+        require(np.allclose(avg, want, rtol=1e-5, atol=1e-6), f"node {i}: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def cluster_path(dev, card: dict) -> dict:
+    """Phase (j): the TCP control plane with the nodes' round buffers on the
+    card. BASELINE config 1 and ResNet-50's gradient over TCP between node
+    processes, in-process clusters on the card (butterfly, dropout at
+    th 0.75, a late joiner, an int8 policy with error feedback), a standby
+    takeover, ``obs demo`` and ``bench-wire``; no K1-K4 launch."""
+    import asyncio
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch import native
+    from akka_allreduce_tpu_torch.protocol import RoundPolicy
+
+    before = kernel_counts()
+    out: dict = {"card": card["smi"]}
+    t0 = time.perf_counter()
+    require(native.available(), "the wire codec's C++ builds and loads")
+    out["native_build_s"] = time.perf_counter() - t0
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cluster_"))
+    t0 = time.perf_counter()
+    try:
+        # config 1 over TCP: 4 node processes on the card, then on the CPU
+        for tag, device in (("config1_cuda", str(dev)), ("config1_cpu", "cpu")):
+            run = tcp_cluster_run(root, tag, CLUSTER_FLOATS, CLUSTER_ROUNDS, device)
+            err = check_tcp_flushes(run, CLUSTER_FLOATS, tag)
+            for s in run["stats"]:
+                require(s["rounds"] >= CLUSTER_ROUNDS, f"{tag}: node rounds {s['rounds']}")
+                require(s["wire"] == "native", f"{tag}: node {s['node']} ran wire={s['wire']}")
+                want = card["name"] if device != "cpu" else "cpu"
+                require(s["device"] == want, f"{tag}: node device {s['device']}")
+            out[tag] = {**tcp_summary(run, card, device), "max_abs_err": err,
+                        "s": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            print("\n".join(run["node_lines"]), flush=True)
+        # ResNet-50's gradient over TCP, three payload streams, f32 then f16
+        for wire in ("f32", "f16"):
+            tag = f"resnet_grad_{wire}"
+            run = tcp_cluster_run(root, tag, RESNET_PARAMS, CLUSTER_BIG_ROUNDS, str(dev),
+                                  extra=("--streams", "3", "--wire-dtype", wire))
+            err = check_tcp_flushes(run, RESNET_PARAMS, tag, f16=wire == "f16")
+            require(all(s["wire"] == "native" for s in run["stats"]), f"{tag}: wire path")
+            out[tag] = {**tcp_summary(run, card, str(dev)), "max_abs_err": err,
+                        "s": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            print("\n".join(run["node_lines"]), flush=True)
+        shutil.rmtree(root / "resnet_grad_f32")
+        shutil.rmtree(root / "resnet_grad_f16")
+
+        # in-process clusters on the card, in this process's event loop
+        h = inproc_cluster(dev, nodes=4, dims=2, size=CLUSTER_FLOATS, rounds=3)
+        require(all(o.data.device == dev for outs in h["outputs"].values() for o in outs),
+                "the butterfly's outputs lie on the card")
+        out["butterfly_2d"] = {"max_abs_err": inproc_mean_err(h, range(4), range(4), 4),
+                               "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+
+        async def dropout(h):
+            await h["until"](lambda: min(len(h["outputs"].get(i, [])) for i in range(4)) >= 2)
+            await h["nodes"].pop(3).stop()  # no leave: its heartbeats stop
+            await h["until"](lambda: 3 not in h["master"].grid.nodes)
+            f0 = len(h["outputs"][0])
+            await h["until"](lambda: len(h["outputs"][0]) >= f0 + 3)
+
+        h = inproc_cluster(dev, nodes=4, size=200_000, chunk=16_384, th=0.75,
+                           hb=0.05, timeout=0.25, script=dropout)
+        require(sorted(h["master"].grid.nodes) == [0, 1, 2], "the master re-meshed")
+        # th_complete 0.75 may flush with a quarter of the chunks unfilled
+        # (count 0); every filled element holds the three survivors
+        last = h["outputs"][0][-1]
+        counts = last.count.cpu().numpy()
+        full = counts == 3
+        require(set(np.unique(counts)) <= {0, 3} and full.mean() >= 0.75,
+                f"th 0.75 counts: {np.unique(counts)}, filled {full.mean()}")
+        want = np.mean(h["inputs"][:3], axis=0)
+        avg = last.average().cpu().numpy()
+        require(np.allclose(avg[full], want[full], rtol=1e-5, atol=1e-6), "th 0.75 flush")
+        out["dropout_th075"] = {
+            "flushes_node0": len(h["outputs"][0]), "filled_share": float(full.mean()),
+            "max_abs_err": float(np.abs(avg[full] - want[full]).max()),
+            "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+
+        async def late(h):
+            await h["until"](lambda: min(len(h["outputs"].get(i, [])) for i in range(2)) >= 2)
+            await h["add_node"](2)
+            await h["until"](lambda: sorted(h["master"].grid.nodes) == [0, 1, 2])
+            await h["until"](lambda: len(h["outputs"].get(2, [])) >= 2)
+
+        h = inproc_cluster(dev, nodes=2, size=CLUSTER_FLOATS, script=late)
+        out["late_joiner"] = {"max_abs_err": inproc_mean_err(h, [2], [0, 1, 2], 3),
+                              "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+
+        h = inproc_cluster(dev, nodes=4, size=CLUSTER_FLOATS, rounds=6,
+                           policy=RoundPolicy(wire="int8"))
+        out["int8_ef"] = {**int8_ef_check(h, dev), "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        out["failover"] = {**failover_run(root, dev), "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        out["obs_demo"] = {**obs_demo_run(root, dev), "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        rc, text = run_cli(["bench-wire", "--json", "--uring", "--intra-chunk",
+                            "--congestion", "--device", str(dev)])
+        records = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+        require(rc == 0 and len(records) == 4 and records[0]["native_loaded"]
+                and records[0]["device"] == card["name"], f"bench-wire: {text}")
+        out["bench_wire"] = records
+        out["bench_wire_s"] = time.perf_counter() - t0
+        print(text, flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(kernel_counts() == before, "no K1-K4 launch on the cluster path")
+    out["k1_k4_launches"] = 0
+    return out
+
+
+def int8_ef_check(h: dict, dev) -> dict:
+    """An int8 policy's rounds: each flush within two int8 steps of the
+    numpy mean (``2 max|x| / 127``), the error feedback's residuals held
+    on the card, and the mean over rounds closer to the exact mean than a
+    single round."""
+    import numpy as np
+
+    want = np.mean(h["inputs"][:4], axis=0)
+    bound = 2 * max(float(np.abs(x).max()) for x in h["inputs"][:4]) / 127
+    errs, avgs = [], []
+    for i in range(4):
+        for o in h["outputs"][i]:
+            require(int(o.count.min()) == 4, "int8 rounds: counts 4")
+            avg = o.average().cpu().numpy()
+            avgs.append(avg)
+            errs.append(float(np.abs(avg - want).max()))
+    require(max(errs) <= bound and max(errs) > 0, f"int8 error {max(errs)} vs {bound}")
+    residuals = [r for node in h["nodes"].values() for w in node.node.workers.values()
+                 for r in w._ef_residual.values()]
+    require(residuals and all(r.device == dev for r in residuals), "EF residuals on the card")
+    first = float(np.abs(np.mean([a for a in avgs[:1]], axis=0) - want).max())
+    rounds_mean = float(np.abs(np.mean(avgs, axis=0) - want).max())
+    require(rounds_mean < first, f"EF: the mean over rounds {rounds_mean} vs one round {first}")
+    return {"max_abs_err": max(errs), "bound": bound, "mean_over_rounds_err": rounds_mean,
+            "residuals_on_card": len(residuals)}
+
+
+def failover_run(root, dev) -> dict:
+    """A leader ``cluster-master``, a ``cluster-standby`` and 2
+    ``cluster-node`` processes on the card; the leader is killed after a few
+    rounds; the standby takes over under epoch 2 and completes the round
+    budget, every node's flushes strictly increasing."""
+    d = root / "failover"
+    d.mkdir()
+    master = spawn_role("cluster-master", "--nodes", "2", "--size", "100000", "--chunk",
+                        "16384", "--rounds", str(FAILOVER_ROUNDS), "--heartbeat", "0.2",
+                        "--metrics-out", str(d / "master.jsonl"), log=d / "master.log")
+    procs = [master]
+    try:
+        seed = read_endpoint(master, "master listening on ")
+        standby = spawn_role("cluster-standby", "--seed", seed, "--heartbeat", "0.2",
+                             "--phi", "3", log=d / "standby.log")
+        procs.append(standby)
+        read_endpoint(standby, "standby listening on ")
+        for k in range(2):
+            procs.append(spawn_role("cluster-node", "--seed", seed, "--device", str(dev),
+                                    log=d / f"node{k}.log"))
+        t_end = time.perf_counter() + 90
+        while sum(r.get("kind") == "round" for r in jsonl(d / "master.jsonl")) < 5:
+            require(time.perf_counter() < t_end and master.poll() is None,
+                    "the leader ran 5 rounds")
+            time.sleep(0.1)
+        master.kill()
+        master.wait(timeout=30)
+        t0 = time.perf_counter()
+        outs = [p.communicate(timeout=120)[0] for p in procs[1:]]
+        require(all(p.returncode == 0 for p in procs[1:]),
+                f"failover exit codes: {outs}\n{log_tails(d)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    take = next(json.loads(ln.split(" ", 1)[1]) for ln in outs[0].splitlines()
+                if ln.startswith("TAKEOVER "))
+    done = next(ln for ln in outs[0].splitlines() if ln.startswith("master done: "))
+    require(take["epoch"] == 2 and "(epoch 2" in done, f"takeover: {take} {done}")
+    nodes = [ln for o in outs[1:] for ln in o.splitlines() if " shut down " in ln]
+    require(len(nodes) == 2 and all("dup_flushes=0" in ln for ln in nodes),
+            f"the nodes' flushes after the takeover: {nodes}")
+    print(done, *nodes, sep="\n", flush=True)
+    return {"takeover": take, "standby_done": done, "nodes": nodes,
+            "after_kill_s": time.perf_counter() - t0}
+
+
+def obs_demo_run(root, dev) -> dict:
+    """``obs demo --nodes 2`` (a master and two node processes on the card):
+    its merged trace holds round traces across line master, worker and
+    transport."""
+    rc, text = run_cli(["obs", "demo", "--nodes", "2", "--out-dir", str(root / "obs"),
+                        "--device", str(dev)])
+    require(rc == 0 and "round trace(s) spanning" in text, f"obs demo: {text}")
+    print(text, flush=True)
+    return {"lines": text.strip().splitlines()}
+
+
 def live_state(trainer, clone: bool = False) -> dict:
     """Every tensor of a trainer's checkpoint state by key path, where it
     lies (on the card; Adam's step counters on the host): the shard-local
@@ -2369,6 +2820,16 @@ def main() -> int:
               "delta_stats", "state_gb", "params_m")} for k, r in ck["bench_checkpoint"].items()},
           resume="every store, every trainer: the restored state is the state at save and "
           "the resumed steps bit-equal to the saver's")
+
+    # -- 4j. the TCP control plane, the nodes' round buffers on the card ---------
+    t0 = time.perf_counter()
+    cl = cluster_path(dev, card)
+    phase("cluster_path", t0, card=card["smi"], k1_k4_launches=cl["k1_k4_launches"],
+          native_build_s=cl["native_build_s"],
+          **{k: cl[k] for k in ("config1_cuda", "config1_cpu", "resnet_grad_f32",
+                                "resnet_grad_f16", "butterfly_2d", "dropout_th075",
+                                "late_joiner", "int8_ef", "failover")},
+          bench_wire=cl["bench_wire"])
 
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()

@@ -105,17 +105,39 @@ def _obs_values(registry) -> dict:
     return out
 
 
-def _obs_moved(before: dict, after: dict, gauges: set) -> dict:
+#: the value every engine gauge is parked at for the length of a run
+_UNSET = -123456789
+
+
+def _park_gauges(registry) -> dict:
+    """Set every engine-prefixed gauge of ``registry`` to ``_UNSET`` and
+    return the values it held: after the run, a gauge still at ``_UNSET``
+    is one the run did not set (either registry may hold gauges of modules
+    the engine does not run, such as the TCP master's epoch, left anywhere
+    by other tests)."""
+    held = {}
+    for name, metric in list(registry._metrics.items()):
+        if name.startswith(OBS_PREFIXES) and type(metric).__name__ == "Gauge":
+            held[name] = metric.value
+            metric.set(_UNSET)
+    return held
+
+
+def _restore_gauges(registry, held: dict) -> None:
+    for name, value in held.items():
+        if registry._metrics[name].value == _UNSET:
+            registry._metrics[name].set(value)
+
+
+def _obs_moved(before: dict, after: dict) -> dict:
     """What a run moved: each counter's and histogram's increase, and the
-    last value of each gauge in ``gauges`` (other tests may have left it
-    anywhere, and the JAX registry also holds gauges of modules the engine
-    does not run)."""
+    last value of each gauge the run set."""
     moved = {}
     for name, (kind, value) in after.items():
         if name.endswith("round_in_flight"):
             continue  # -1 between rounds, whichever round ran last
         if kind == "Gauge":
-            if name in gauges:
+            if value != _UNSET:
                 moved[name] = value
         elif value != before.get(name, (kind, 0))[1]:
             moved[name] = value - before.get(name, (kind, 0))[1]
@@ -139,20 +161,23 @@ def _run_both(*, th, dims, zero_copy, drop):
                 x if proto is jprotocol else torch.from_numpy(x)))
             for x in inputs
         ]
-        before = _obs_values(registry)
-        system = system_cls(
-            NODES, srcs, [outs[i].append for i in range(NODES)],
-            _config(pkg, th=th, dims=dims, zero_copy=zero_copy),
-            drop_filter=_drop_worker_3(proto.CompleteAllreduce) if drop else None,
-            **extra,
-        )
-        system.start()
-        system.run_until_quiescent()
-        results.append((outs, system, _obs_values(registry), before))
+        held = _park_gauges(registry)
+        try:
+            before = _obs_values(registry)
+            system = system_cls(
+                NODES, srcs, [outs[i].append for i in range(NODES)],
+                _config(pkg, th=th, dims=dims, zero_copy=zero_copy),
+                drop_filter=_drop_worker_3(proto.CompleteAllreduce) if drop else None,
+                **extra,
+            )
+            system.start()
+            system.run_until_quiescent()
+            results.append((outs, system, _obs_values(registry), before))
+        finally:
+            _restore_gauges(registry, held)
     (jouts, jsys, jafter, jbefore), (touts, tsys, tafter, tbefore) = results
-    gauges = {name for name, (kind, _) in tafter.items() if kind == "Gauge"}
-    return (jouts, touts, jsys, tsys, _obs_moved(jbefore, jafter, gauges),
-            _obs_moved(tbefore, tafter, gauges))
+    return (jouts, touts, jsys, tsys, _obs_moved(jbefore, jafter),
+            _obs_moved(tbefore, tafter))
 
 
 @pytest.mark.parametrize("zero_copy", [False, True])

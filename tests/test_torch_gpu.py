@@ -6,7 +6,10 @@ and the async checkpoint capture (clones drained on a side stream into
 pinned buffers) holding capture-time values; and the host engine with its round buffers on the card
 against the same runs on the CPU, bit for bit (config 1's shape, the
 dropout tier of config 5, the 2-D butterfly), with no copy between host and
-card inside a round and no K1-K4 launch.
+card inside a round and no K1-K4 launch; and the TCP control plane with
+payloads on the card: each wire mode's frame equal to the CPU copy's bytes,
+a deferred frame reading the stream that wrote its sums, and a 3-node
+cluster equal to the numpy mean.
 
 Marked ``gpu``; without a card every test skips (decided in the ``card``
 fixture, never at import). Run on the card with
@@ -1010,3 +1013,98 @@ def test_async_capture_is_of_capture_time_through_pinned_buffers(card, tmp_path)
         np.testing.assert_array_equal(fresh.get_flat_params(), t.get_flat_params())
         assert ck.save(t, block=True)
         assert all(ck.host_buffers.buffers[k] is b for k, b in bufs.items())
+
+
+# -- the TCP control plane, the nodes' round buffers on the card ---------------
+
+
+@pytest.mark.parametrize("mode", ["f32", "f16", "int8"])
+def test_card_payload_frames_equal_their_cpu_copys(card, mode):
+    """A payload on the card encodes to the bytes of its CPU copy in every
+    wire mode, NaN, infinities and values past f16's range included."""
+    from akka_allreduce_tpu_torch.control import wire
+    from akka_allreduce_tpu_torch.protocol import ReduceBlock, ScatterBlock
+
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(70_001).astype(np.float32))
+    x[[3, 99, 1000]] = torch.tensor([float("nan"), float("inf"), -7e4])
+    for make in (lambda v: ScatterBlock(v, 1, 2, 3, 4), lambda v: ReduceBlock(v, 1, 2, 3, 4, 3)):
+        on_card, on_cpu = make(x.to(card)), make(x.clone())
+        assert wire.encode_frame("worker:2", on_card, wire=mode) == wire.encode_frame(
+            "worker:2", on_cpu, wire=mode)
+        assert wire.to_host(on_card).value.device.type == "cpu"
+
+
+def test_deferred_frame_reads_the_stream_that_wrote_the_sums(card):
+    """The engine's adds run on a side stream behind a long sleep; the
+    ReduceBlock sent right after reduce is encoded later on a sender thread,
+    while round r + 1's adds and a late arrival for round r are queued. Its
+    bytes must be round r's sum at reduce time: the copy to the host runs on
+    the stream that wrote the sums, when the message is sent."""
+    import asyncio
+
+    from akka_allreduce_tpu_torch.buffers import ScatteredDataBuffer
+    from akka_allreduce_tpu_torch.config import DataPlaneConfig, MetaDataConfig, ThresholdConfig
+    from akka_allreduce_tpu_torch.control.envelope import Envelope
+    from akka_allreduce_tpu_torch.control.remote import RemoteTransport
+    from akka_allreduce_tpu_torch.protocol import ReduceBlock
+
+    n = 1 << 20
+    md, th = MetaDataConfig(data_size=n, max_chunk_size=n), ThresholdConfig(1.0, 0.5, 1.0)
+    parts = [torch.from_numpy(np.random.default_rng(k).standard_normal(n).astype(np.float32))
+             for k in range(4)]
+    expected = (parts[0] + parts[1]).numpy()
+    # on the card before the sleep, so that the stores are queued copies and
+    # adds on the side stream, not synchronous uploads
+    dparts = [p.to(card) for p in parts]
+    torch.cuda.synchronize(card)
+    side = torch.cuda.Stream(card)
+
+    async def run():
+        rx = RemoteTransport(device="cpu")
+        tx = RemoteTransport(device=card)
+        tx.configure_data_plane(DataPlaneConfig(streams=3))
+        got: list = []
+        rx.register("sink", lambda m: got.append(m) or [])
+        ep = await rx.start()
+        await tx.start()
+        tx.set_route("sink", ep)
+        try:
+            with torch.cuda.stream(side):
+                r0 = ScatteredDataBuffer(md, th, 4, block_size=n, device=card)
+                r1 = ScatteredDataBuffer(md, th, 4, block_size=n, device=card)
+                torch.cuda._sleep(200_000_000)  # the adds below land late
+                r0.store(dparts[0], 0, 0)
+                assert r0.store(dparts[1], 1, 0)
+                value, count = r0.reduce(0)
+                await tx.send(Envelope("sink", ReduceBlock(value, 0, 1, 0, 0, count)))
+                for src in range(4):
+                    r1.store(dparts[src] * 3.0, src, 0)
+                r0.store(dparts[2], 2, 0)
+            loop = asyncio.get_running_loop()
+            end = loop.time() + 20.0
+            while not got:
+                assert loop.time() < end
+                await asyncio.sleep(0.01)
+            np.testing.assert_array_equal(got[0].value.numpy(), expected)
+            assert tx.stage_seconds["d2h"] > 0
+        finally:
+            await tx.stop()
+            await rx.stop()
+
+    asyncio.run(asyncio.wait_for(run(), 60.0))
+
+
+def test_three_node_cluster_on_the_card_matches_the_numpy_mean(card):
+    """A master and three ``NodeProcess(device="cuda")`` nodes over loopback
+    TCP: every node's last flush is the numpy mean of the three payloads,
+    the outputs stay on the card, and no K1-K4 kernel runs."""
+    from chip_smoke import inproc_cluster, inproc_mean_err
+
+    before = kernel_counts()
+    h = inproc_cluster(card, nodes=3, size=300_001, rounds=4)
+    assert all(o.data.is_cuda for outs in h["outputs"].values() for o in outs)
+    assert inproc_mean_err(h, range(3), range(3), 3) < 1e-5
+    for node in h["nodes"].values():
+        assert node.transport.stage_seconds["h2d"] > 0
+        assert node.transport.stage_seconds["d2h"] > 0
+    assert kernel_counts() == before

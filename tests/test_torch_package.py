@@ -11,6 +11,8 @@
   host engine's dev-mode chaos is refused.
 - Its copies of the configs and of the per-round metrics behave as the JAX
   package's.
+- The TCP control plane's commands are listed, refuse the chaos and adapt
+  flags, and put a node on the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -94,7 +96,10 @@ def test_source_names_no_jax_package():
                 "control.line_master", "control.grid_master", "control.node",
                 "control.local", "obs", "obs.metrics", "obs.flight", "obs.trace",
                 "obs.watchdog", "binder.grad_sync", "binder.elastic",
-                "control.statetransfer", "train.checkpoint", "train.zero1"):
+                "control.statetransfer", "train.checkpoint", "train.zero1",
+                "control.cluster", "control.failure", "control.stripes",
+                "control.gossip", "control.remote", "control.bootstrap",
+                "native", "cluster_cli"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
@@ -158,7 +163,22 @@ def test_entry_points_raise_without_cuda(monkeypatch, capsys):
         cli_main(["bench-checkpoint", "--trainer", "zero1", "--d-model", "32", "--layers", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["bench-checkpoint", "--d-model", "32", "--layers", "1", "--seq-len", "16"])
+    from akka_allreduce_tpu_torch.control.bootstrap import NodeProcess
+    from akka_allreduce_tpu_torch.control.cluster import Endpoint
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NodeProcess(Endpoint("127.0.0.1", 1), None, None)
     assert capsys.readouterr().out == ""  # nothing was measured or printed
+    # the CLI roles refuse through argparse (exit 2, the reason on stderr)
+    for argv in (
+        ["cluster-node", "--seed", "127.0.0.1:1"],
+        ["bench-wire", "--reps", "1"],
+        ["obs", "demo", "--nodes", "1"],
+    ):
+        with pytest.raises(SystemExit) as exit_info:
+            cli_main(argv)
+        assert exit_info.value.code == 2
+        assert "CUDA is not available" in capsys.readouterr().err
 
 
 def test_cpu_path_counts_no_launches():
@@ -283,6 +303,45 @@ def test_chaos_is_refused(capsys):
     assert chaos.chaos.enabled
     with pytest.raises(NotImplementedError, match="chaos injector"):
         LocalAllreduceSystem(1, [None], [None], chaos, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["cluster-master", "--chaos-spec", "drop:p=0.1"],
+        ["cluster-master", "--chaos-seed", "3"],
+        ["cluster-master", "--chaos-log", "x.jsonl"],
+        ["cluster-master", "--adapt"],
+        ["cluster-master", "--adapt-floor", "0.6"],
+        ["cluster-master", "--adapt-log", "a.jsonl"],
+        ["cluster-node", "--seed", "127.0.0.1:1", "--device", "cpu", "--chaos-log", "x"],
+    ],
+)
+def test_cluster_cli_refuses_chaos_and_adapt(argv, capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        cli_main(argv)
+    assert exit_info.value.code == 2
+    assert "is not ported yet" in capsys.readouterr().err
+
+
+def test_cluster_commands_are_listed(capsys):
+    from akka_allreduce_tpu.__main__ import COMMANDS as JAX_COMMANDS
+    from akka_allreduce_tpu_torch.__main__ import COMMANDS
+
+    new = ("cluster-master", "cluster-node", "cluster-standby", "obs", "bench-wire")
+    assert set(new) <= set(COMMANDS) and set(new) <= set(JAX_COMMANDS)
+    assert cli_main([]) == 2
+    usage = capsys.readouterr().err
+    assert all(name in usage for name in new)
+
+
+def test_bench_wire_cli_prints_records_on_the_cpu(capsys):
+    rc = cli_main(["bench-wire", "--device", "cpu", "--size", "256", "--frames", "8",
+                   "--reps", "1", "--congestion"])
+    assert rc == 0
+    records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert len(records) == 2 and records[0]["device"] == "cpu"
+    assert records[0]["encode_mbps"] > 0 and records[1]["deterministic"] is True
 
 
 def test_bench_cli_keeps_the_jax_schedule_choices():
