@@ -3,7 +3,7 @@
 Commands:
 
 - ``bench-suite [--quick] [--device cpu] [--floats N] [--out FILE]`` — the
-  BASELINE configs ported so far (1, 2, 3 and 4), one JSON record each.
+  BASELINE configs 1 to 5, one JSON record each.
 - ``local-demo [--nodes N] [--size N] [--rounds N] [--chunk N] [--dims 1|2]
   [--th X] [--chaos-seed N] [--chaos-spec S] [--device cpu]`` — the host
   engine's config-1 demo (``control/local.py``): N nodes allreduce seeded
@@ -81,6 +81,20 @@ Commands:
   [--flush-out FILE]`` joins it with its round buffers on the card;
   ``cluster-standby --seed HOST:PORT`` takes over when the master dies.
   ``--chaos-*`` and ``--adapt*`` are refused (not ported yet).
+- ``train-cluster-master [--nodes N] [--model mlp|lm] [model flags]
+  [--rounds R] [--chunk N] [--th X] [--heartbeat S] [--wire-dtype f16]`` and
+  ``train-cluster-node --seed HOST:PORT [model flags] [--steps N] [--batch N]
+  [--lr X] [--elastic-rate X] [--data-seed N] [--device cpu]`` —
+  distributed elastic-averaging training (``train.ElasticClusterNode``):
+  the master derives ``data_size`` from the model (built on the CPU, no
+  CUDA context); each node trains its own shard on the card and prints
+  ``trained N steps ... (R sync rounds applied); loss a -> b; device=...``.
+- ``elastic-demo [--family dp|lc] [--nodes N] [--steps N] [--drop-at K]
+  [--rejoin-at K] [--batch-per-device N] [--device cpu]`` — config 5's
+  re-mesh cycle: the last node goes silent and its ranks leave the mesh
+  (dp: 8 virtual ranks split over the nodes, so 4 nodes drop 8 -> 6), then
+  rejoins; lc runs one node of one rank beside zero-rank nodes. ``--family
+  moe`` and ``pp`` are refused (not ported yet).
 """
 
 from __future__ import annotations
@@ -94,8 +108,7 @@ from akka_allreduce_tpu_torch import cluster_cli
 def _cmd_bench_suite(argv: list[str]) -> int:
     p = argparse.ArgumentParser(
         "bench-suite",
-        description="run the ported BASELINE configs (1, 2, 3 and 4), one JSON "
-        "record each",
+        description="run the BASELINE configs (1 to 5), one JSON record each",
     )
     p.add_argument("--out", default=None, help="append records to this JSONL")
     p.add_argument(
@@ -910,6 +923,224 @@ def _cmd_bench_checkpoint(argv: list[str]) -> int:
     return 0
 
 
+# -- elastic training: the TCP training cluster and the re-mesh demo ----------
+
+
+def _mlp_trainer(hidden, lr: float, seed: int = 0, device=None):
+    """The node-local MLP learner: ``DPTrainer`` over one rank."""
+    from akka_allreduce_tpu_torch.models import MLP
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import DPTrainer
+
+    mesh = line_mesh(1, device=device)  # local learner: one rank a node
+    return DPTrainer(MLP(hidden=tuple(hidden), classes=10, seed=seed, device=mesh.device),
+                     mesh, learning_rate=lr)
+
+
+def _cluster_model_flags(p: argparse.ArgumentParser) -> None:
+    """Model flags shared by the train-cluster master and nodes: every
+    process must get the same ones (the master derives ``data_size`` from
+    them)."""
+    p.add_argument(
+        "--model", choices=("mlp", "lm"), default="mlp",
+        help="mlp = MLP/MNIST (reference workload); lm = Transformer LM",
+    )
+    p.add_argument("--hidden", type=int, nargs="+", default=[32])
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--vocab", type=int, default=64)
+    p.add_argument("--d-model", type=int, default=64)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--layers", type=int, default=2)
+
+
+def _cluster_trainer(args, lr: float, seed: int = 17, device=None):
+    """The node-local learner for the distributed cluster, per ``--model``
+    (the LM on a 1 x 1 mesh)."""
+    if args.model == "lm":
+        from akka_allreduce_tpu_torch.parallel import data_seq_mesh
+        from akka_allreduce_tpu_torch.train import LongContextTrainer
+
+        return LongContextTrainer(
+            data_seq_mesh(1, 1, device=device), vocab=args.vocab, d_model=args.d_model,
+            n_heads=args.heads, n_layers=args.layers, seq_len=args.seq_len,
+            learning_rate=lr, seed=seed,
+        )
+    return _mlp_trainer(args.hidden, lr, seed=seed, device=device)
+
+
+def _cluster_batches(args, data_seed: int):
+    from akka_allreduce_tpu_torch.models import lm_copy_task, mnist_like
+
+    if args.model == "lm":
+        ds = lm_copy_task(args.seq_len, vocab=args.vocab, seed=data_seed)
+        return iter(ds.batches(args.batch, args.steps))
+    return iter(mnist_like(seed=data_seed).batches(args.batch, args.steps))
+
+
+def _cmd_train_cluster_master(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "train-cluster-master",
+        description="master for distributed elastic-averaging training; "
+        "data_size is derived from the model, so start the nodes with the "
+        "SAME model flags. Holds no payload and opens no CUDA context.",
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--nodes", type=int, default=2)
+    _cluster_model_flags(p)
+    p.add_argument("--rounds", type=int, default=30, help="-1 = run forever")
+    p.add_argument("--chunk", type=int, default=65536)
+    p.add_argument("--th", type=float, default=1.0, help="all three thresholds")
+    p.add_argument("--heartbeat", type=float, default=0.5, help="interval (s)")
+    p.add_argument("--metrics-out", default=None, help="per-round JSONL path")
+    cluster_cli._add_wire_dtype_flag(p)
+    # the flags this command lacks keep cluster-master's defaults
+    args = argparse.Namespace(
+        **{**cluster_cli.cluster_master_defaults(), **vars(p.parse_args(argv))})
+    # the model is built on the CPU only to count its parameters
+    args.size = _cluster_trainer(args, 0.1, device="cpu").param_count
+    print(f"model: {args.size} params -> data_size {args.size}", flush=True)
+    args.dims = 1
+    return cluster_cli._run_cluster_master(args)
+
+
+def _cmd_train_cluster_node(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "train-cluster-node",
+        description="training node: local SGD on its own data shard + "
+        "asynchronous elastic-averaging weight sync over the cluster, the "
+        "learner and the round buffers on the card",
+    )
+    p.add_argument("--seed", required=True, help="master host:port")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--node-id", type=int, default=-1, help="-1 = master assigns")
+    _cluster_model_flags(p)
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--elastic-rate", type=float, default=0.5)
+    p.add_argument("--data-seed", type=int, default=None, help="shard RNG seed")
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' runs the learner and the round buffers on the host; "
+        "default: the card",
+    )
+    args = p.parse_args(argv)
+    from akka_allreduce_tpu_torch._device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        p.error(str(e))
+    import asyncio
+    import logging
+    import time
+
+    from akka_allreduce_tpu_torch.control.cluster import Endpoint
+    from akka_allreduce_tpu_torch.train import ElasticClusterNode
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    async def run() -> int:
+        trainer = _cluster_trainer(args, args.lr, seed=17, device=device)
+        node = ElasticClusterNode(
+            Endpoint.parse(args.seed), trainer,
+            _cluster_batches(args, args.data_seed if args.data_seed is not None else 0),
+            elastic_rate=args.elastic_rate, host=args.host, port=args.port,
+            preferred_node_id=args.node_id,
+        )
+        t0 = time.perf_counter()
+        steps = await node.run(args.steps)
+        dt = time.perf_counter() - t0
+        losses = node.losses
+        trend = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else "no steps taken"
+        print(f"trained {steps} steps in {dt:.1f}s ({node.rounds_applied} sync rounds "
+              f"applied); {trend}; {cluster_cli._card_note(device)}", flush=True)
+        return 0
+
+    return asyncio.run(run())
+
+
+def _cmd_elastic_demo(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "elastic-demo",
+        description="config-5 dropout + late-joiner recovery, end to end: the "
+        "last node goes silent at --drop-at and its ranks leave the mesh, it "
+        "comes back at --rejoin-at and the mesh grows back",
+    )
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--batch-per-device", type=int, default=8)
+    p.add_argument("--nodes", type=int, default=4)
+    p.add_argument("--drop-at", type=int, default=10, help="step the last node dies")
+    p.add_argument("--rejoin-at", type=int, default=20, help="step it comes back")
+    p.add_argument(
+        "--family", choices=("dp", "moe", "pp", "lc"), default="dp",
+        help="which elastic trainer rides the cycle: dp = the MLP's DPTrainer over "
+        "8 virtual ranks split across the nodes; lc = the long-context LM on one "
+        "node of one rank beside zero-rank nodes; moe and pp are not ported yet",
+    )
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' runs the plain PyTorch path; default: the CUDA card",
+    )
+    args = p.parse_args(argv)
+    if args.family in ("moe", "pp"):
+        p.error(f"--family {args.family} is not ported yet (its trainer waits for a "
+                "later slice of the port)")
+    from akka_allreduce_tpu_torch._device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        p.error(str(e))
+
+    from akka_allreduce_tpu_torch.models import MLP, lm_copy_task, mnist_like
+    from akka_allreduce_tpu_torch.train import ElasticDPTrainer, ElasticLongContextTrainer
+
+    now = {"t": 0.0}
+    if args.family == "dp":
+        # the JAX CPU mesh's 8 devices as virtual ranks, split over the nodes
+        per = max(1, 8 // args.nodes)
+        assignment = {n: list(range(n * per, (n + 1) * per)) for n in range(args.nodes)}
+        trainer = ElasticDPTrainer(MLP(hidden=(32,), classes=10, device=device), assignment,
+                                   clock=lambda: now["t"], device=device)
+        ds = mnist_like()
+        batch_rows = lambda t: args.batch_per_device * t.n_devices  # noqa: E731
+        shape_of = lambda t: f"{t.n_devices} ranks"  # noqa: E731
+    else:  # lc: the port's LongContextTrainer takes one rank
+        assignment = {n: [0] if n == 0 else [] for n in range(args.nodes)}
+        trainer = ElasticLongContextTrainer(
+            assignment, seq_len=32, max_sp=4, n_layers=1, vocab=16, d_model=32,
+            n_heads=2, learning_rate=1e-2, seed=0, clock=lambda: now["t"], device=device)
+        ds = lm_copy_task(32, vocab=16)
+        batch_rows = lambda t: t.dp * args.batch_per_device  # noqa: E731
+        shape_of = lambda t: f"dp{t.dp} x sp{t.sp}"  # noqa: E731
+    print(f"elastic-demo: {args.family}, {args.nodes} nodes, "
+          f"{trainer.n_devices} ranks on {device}", flush=True)
+    dead = args.nodes - 1
+    for step in range(args.steps):
+        live = set(trainer.member_nodes)
+        if step == args.rejoin_at:
+            trainer.heartbeat(dead)  # late joiner
+        for n in range(args.nodes):
+            if n == dead and args.drop_at <= step < args.rejoin_at:
+                continue
+            trainer.heartbeat(n)
+        now["t"] += 1.0
+        if trainer.poll():
+            print(f"step {step}: re-meshed to {trainer.n_nodes} nodes / "
+                  f"{shape_of(trainer.trainer)} (generation {trainer.generation})",
+                  flush=True)
+        x, y = next(iter(ds.batches(batch_rows(trainer.trainer), 1, seed_offset=step)))
+        m = trainer.train_step(x, y)
+        if step % 5 == 0 or set(trainer.member_nodes) != live:
+            print(f"step {m.step}: loss={m.loss:.4f} contributors={m.contributors:.0f}",
+                  flush=True)
+    print(f"done: {args.steps} steps, final generation {trainer.generation}", flush=True)
+    return 0
+
+
 def _cmd_bench_mfu(argv: list[str]) -> int:
     from akka_allreduce_tpu_torch.bench_mfu import main as bench_mfu_main
 
@@ -932,6 +1163,9 @@ COMMANDS = {
     "cluster-standby": cluster_cli.cmd_cluster_standby,
     "bench-wire": cluster_cli.cmd_bench_wire,
     "obs": cluster_cli.cmd_obs,
+    "train-cluster-master": _cmd_train_cluster_master,
+    "train-cluster-node": _cmd_train_cluster_node,
+    "elastic-demo": _cmd_elastic_demo,
 }
 
 

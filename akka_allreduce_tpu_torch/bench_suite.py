@@ -1,6 +1,6 @@
 """The BASELINE benchmark matrix on the port: config 1, the single-card
-branch of configs 2 and 4, and config 3 (``akka_allreduce_tpu/bench_suite.py``),
-one JSON record each.
+branch of configs 2 and 4, config 3 and config 5
+(``akka_allreduce_tpu/bench_suite.py``), one JSON record each.
 
 Config 1 is the reference's local N-worker fixture on the host engine
 (``control.LocalAllreduceSystem``): a master and 4 workers in one process
@@ -14,9 +14,17 @@ its gradient average through K1 on the card). Records carry the same fields
 as the JAX package's, plus ``device`` (the card's name, or ``"cpu"``) and
 ``power_limit`` (``nvidia-smi``'s, or null on the CPU).
 
-Config 5 (dropout recovery: its host-engine tier runs in ``chip_smoke.py``,
-its re-mesh tier waits for the elastic trainer) and the multi-rank
-collective branch wait for later slices of the port; they are not stubbed.
+Config 5 is dropout recovery in both tiers of the fault model: threshold
+completion on the host engine with one worker's messages lost, and the
+elastic re-mesh (``train.elastic``) around a node's loss and a late joiner,
+timed with each re-mesh's first step. On one card the rank count cannot
+change, so, as the JAX record does on one chip, a zero-rank control node
+drops and rejoins and the full snapshot -> rebuild -> restore -> first step
+cycle runs on the card. Its MoE and pipeline fields are null until those
+trainers are ported (``families_not_ported``).
+
+The multi-rank collective branch waits for a later slice of the port; it
+is not stubbed.
 
 Usage: ``python -m akka_allreduce_tpu_torch bench-suite [--quick]
 [--device cpu] [--floats N] [--out FILE]``.
@@ -34,10 +42,16 @@ import torch
 
 from akka_allreduce_tpu_torch._device import resolve_device
 from akka_allreduce_tpu_torch.control.local import local_engine
-from akka_allreduce_tpu_torch.models import MLP, mnist_like
+from akka_allreduce_tpu_torch.models import MLP, lm_copy_task, mnist_like
 from akka_allreduce_tpu_torch.ops import elastic_average_step, pack_tiles
 from akka_allreduce_tpu_torch.parallel import line_mesh
-from akka_allreduce_tpu_torch.train import DPTrainer
+from akka_allreduce_tpu_torch.train import (
+    DPTrainer,
+    ElasticDPTrainer,
+    ElasticLongContextTrainer,
+    ElasticTrainer,
+    Zero1DPTrainer,
+)
 from akka_allreduce_tpu_torch.utils.benchmarking import (
     SlopeEstimate,
     dense_train_flops,
@@ -286,6 +300,143 @@ def config4_grad_sync(
     )
 
 
+# -- config 5: dropout and late-joiner recovery, both tiers ---------------------
+
+
+def remesh_cycle(elastic, clock: dict, lost: int, batch_for) -> dict:
+    """Drop, late rejoin, a warm second drop and a rejoin on ``elastic``
+    (its clock reads ``clock["t"]``): node ``lost`` goes silent while the
+    others keep beating across a 60 s gap, then beats again. Each re-mesh
+    is timed alone and with the first step after it (the step ends in its
+    loss's host read). ``batch_for(trainer, seed_offset)`` gives a batch
+    for the current mesh. "Warm" means the second drop's rank count was
+    built before: the caching allocator and the cuBLAS handles are ready;
+    nothing is compiled."""
+    survivors = [k for k in elastic.devices_by_node if k != lost]
+    x, y = batch_for(elastic.trainer, 0)
+    elastic.train_step(x, y)
+
+    def timed(offset: int):
+        t0 = time.perf_counter()
+        changed = elastic.poll()
+        t1 = time.perf_counter()
+        m = elastic.train_step(*batch_for(elastic.trainer, offset))
+        return changed, m, t1 - t0, time.perf_counter() - t0
+
+    def drop():
+        for k in survivors:
+            elastic.heartbeat(k)
+        clock["t"] += 60.0
+        for k in survivors:
+            elastic.heartbeat(k)
+        return timed(2)
+
+    def rejoin():
+        clock["t"] += 1.0
+        elastic.heartbeat(lost)
+        return timed(3)
+
+    dropped, m_drop, drop_remesh_s, drop_s = drop()
+    rejoined, m_join, rejoin_remesh_s, rejoin_s = rejoin()
+    _, _, warm_remesh_s, warm_s = drop()
+    rejoin()  # full membership again for whoever comes next
+    return {"dropped": bool(dropped), "rejoined": bool(rejoined),
+            "drop_s": drop_s, "rejoin_s": rejoin_s, "warm_drop_s": warm_s,
+            "drop_remesh_s": drop_remesh_s, "rejoin_remesh_s": rejoin_remesh_s,
+            "warm_drop_remesh_s": warm_remesh_s, "m_drop": m_drop, "m_join": m_join}
+
+
+def config5_dropout_recovery(
+    size: int = 200_000, *, device: str | torch.device | None = None
+) -> dict:
+    """Both tiers of the fault model. Tier 1: 4 workers on the host engine,
+    ``size`` floats, chunk 16,384, thresholds 0.75, 10 rounds, every message
+    of worker 3 lost (node 0's flushes counted). Tier 2: the re-mesh cycle
+    of :func:`remesh_cycle` on ``ElasticDPTrainer`` (``MLP(hidden=(16,))``),
+    ``ElasticTrainer`` over ``Zero1DPTrainer`` (SGD 0.1) and
+    ``ElasticLongContextTrainer`` (vocab 16, d_model 32, 2 heads, seq_len
+    32, 1 layer), over ``{0: [rank], 1: []}``: one rank on the device and a
+    zero-rank control node that drops and rejoins."""
+    dev = resolve_device(device)
+    n, rounds = 4, 10
+    run = local_engine(size, nodes=n, chunk=16_384, rounds=rounds, th=0.75,
+                       drop_worker=3, device=dev, keep_outputs=True).run()
+    node0 = run.outputs[0]
+    mean_count = float(node0[-1].count.float().mean()) if node0 else 0.0
+
+    assignment = {0: [0], 1: []}
+    lost = 1
+    clock = {"t": 0.0}
+    now = lambda: clock["t"]  # noqa: E731
+    ds = mnist_like()
+
+    def mnist_for(t, s):
+        return next(iter(ds.batches(8 * t.n_devices, 1, seed_offset=s)))
+
+    dp = remesh_cycle(
+        ElasticDPTrainer(MLP(hidden=(16,), classes=10, device=dev), assignment,
+                         clock=now, device=dev),
+        clock, lost, mnist_for)
+
+    def z1_factory(mesh):
+        return Zero1DPTrainer(MLP(hidden=(16,), classes=10, device=mesh.device), mesh,
+                              optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1))
+
+    z1 = remesh_cycle(ElasticTrainer(z1_factory, assignment, clock=now, device=dev),
+                      clock, lost, mnist_for)
+
+    lm_ds = lm_copy_task(32, vocab=16)
+    lc_trainer = ElasticLongContextTrainer(
+        assignment, seq_len=32, max_sp=4, n_layers=1, vocab=16, d_model=32, n_heads=2,
+        learning_rate=1e-2, seed=0, clock=now, device=dev)
+    lc = remesh_cycle(lc_trainer, clock, lost,
+                      lambda t, s: next(lm_ds.batches(t.dp, 1, seed_offset=s)))
+
+    def family(prefix: str, c: dict | None) -> dict:
+        keys = ("remeshed", "drop_remesh_and_first_step_s",
+                "rejoin_remesh_and_first_step_s", "warm_drop_remesh_and_first_step_s",
+                "post_rejoin_loss")
+        if c is None:
+            return {f"{prefix}_{k}": None for k in keys}
+        return {f"{prefix}_remeshed": c["dropped"] and c["rejoined"],
+                f"{prefix}_drop_remesh_and_first_step_s": c["drop_s"],
+                f"{prefix}_rejoin_remesh_and_first_step_s": c["rejoin_s"],
+                f"{prefix}_warm_drop_remesh_and_first_step_s": c["warm_drop_s"],
+                f"{prefix}_post_rejoin_loss": c["m_join"].loss}
+
+    return _record(
+        5,
+        "threshold_dropout_recovery",
+        workers=n,
+        threshold=0.75,
+        rounds_completed=len(node0),
+        seconds=run.seconds,
+        mean_contributors=mean_count,
+        dropped_remeshed=dp["dropped"],
+        rejoin_remeshed=dp["rejoined"],
+        remeshed=dp["dropped"] and dp["rejoined"],
+        remesh_nodes=len(assignment),
+        device_platform=dev.type,
+        zero_device_control_node=True,
+        drop_remesh_and_first_step_s=dp["drop_s"],
+        rejoin_remesh_and_first_step_s=dp["rejoin_s"],
+        warm_drop_remesh_and_first_step_s=dp["warm_drop_s"],
+        drop_remesh_s=dp["drop_remesh_s"],
+        rejoin_remesh_s=dp["rejoin_remesh_s"],
+        warm_drop_remesh_s=dp["warm_drop_remesh_s"],
+        compile_cache=None,  # nothing is compiled at a re-mesh
+        post_remesh_loss=dp["m_drop"].loss,
+        post_rejoin_loss=dp["m_join"].loss,
+        **family("zero1", z1),
+        **family("moe", None),
+        **family("pipeline", None),
+        **family("long_context", lc),
+        families_not_ported=["moe", "pipeline"],
+        path="host_engine + elastic_remesh",
+        **device_fields(dev),
+    )
+
+
 # -- suite driver --------------------------------------------------------------
 
 
@@ -296,7 +447,7 @@ def run_suite(
     device: str | torch.device | None = None,
     floats: int | None = None,
 ) -> list[dict]:
-    """Configs 1, 2, 3 and 4, one JSON line each. ``quick`` runs 1/8-size
+    """Configs 1 to 5, one JSON line each. ``quick`` runs 1/8-size
     payloads and short chains at fixed trip counts (no growing them to a
     timing signal, so its run time is bounded); ``floats`` sets the payload
     sizes of configs 1, 2 and 4."""
@@ -318,6 +469,7 @@ def run_suite(
             floats or 25_000_000 // scale, device=device,
             target_signal_s=signal,
         ),
+        lambda: config5_dropout_recovery(200_000 // scale, device=device),
     ]
     records = []
     stream = open(out, "a", buffering=1) if out else None

@@ -6,8 +6,10 @@ weights (``ElasticAverageBinder``)."""
 
 from akka_allreduce_tpu_torch.binder.api import (  # noqa: F401
     AllreduceBinder,
+    flat_tensor,
     flatten_params,
     leaf_order,
+    load_flat_tensor,
 )
 from akka_allreduce_tpu_torch.binder.elastic import ElasticAverageBinder  # noqa: F401
 from akka_allreduce_tpu_torch.binder.grad_sync import GradSyncBinder  # noqa: F401

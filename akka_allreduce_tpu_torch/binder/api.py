@@ -56,16 +56,14 @@ def leaf_order(model: nn.Module) -> list[str]:
 def flatten_params(
     model: nn.Module,
 ) -> tuple[np.ndarray, Callable[[np.ndarray], dict[str, torch.Tensor]]]:
-    """The model's parameters as one host float32 vector, and an
-    unflattener: ``unflatten(vec)`` returns ``{name: f32 CPU tensor}`` in
-    the parameters' shapes, ready for ``load_state_dict`` or a copy into
-    each parameter. A vector of the wrong length raises ``ValueError``."""
+    """The model's parameters as one host float32 vector (:func:`flat_tensor`
+    copied to the host), and an unflattener: ``unflatten(vec)`` returns
+    ``{name: f32 CPU tensor}`` in the parameters' shapes, ready for
+    ``load_state_dict``. A vector of the wrong length raises ``ValueError``."""
     params = dict(model.named_parameters())
     names = leaf_order(model)
     shapes = [tuple(params[n].shape) for n in names]
     sizes = [int(np.prod(s)) for s in shapes]
-    with torch.no_grad():
-        flat = torch.cat([params[n].detach().float().reshape(-1).cpu() for n in names])
     total = sum(sizes)
 
     def unflatten(vec: np.ndarray) -> dict[str, torch.Tensor]:
@@ -78,4 +76,31 @@ def flatten_params(
             start += size
         return out
 
-    return flat.numpy(), unflatten
+    return flat_tensor(model).cpu().numpy(), unflatten
+
+
+def flat_tensor(model: nn.Module) -> torch.Tensor:
+    """The model's parameters as one new f32 tensor on their device, in the
+    JAX flat-vector order (:func:`leaf_order`), written on the current
+    stream."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        return torch.cat([params[n].detach().float().reshape(-1) for n in leaf_order(model)])
+
+
+def load_flat_tensor(model: nn.Module, vec: np.ndarray | torch.Tensor) -> None:
+    """Copy a flat vector in :func:`leaf_order` into the model's parameters.
+    A tensor is copied on its device, with no trip through the host; a
+    numpy vector (a JAX trainer's ``get_flat_params``) is cast to f32 first.
+    A vector of the wrong length raises ``ValueError``."""
+    if not isinstance(vec, torch.Tensor):
+        vec = torch.from_numpy(np.array(vec, np.float32))
+    params = dict(model.named_parameters())
+    names = leaf_order(model)
+    sizes = [params[n].numel() for n in names]
+    if tuple(vec.shape) != (sum(sizes),):
+        raise ValueError(f"need a ({sum(sizes)},) vector, got {tuple(vec.shape)}")
+    with torch.no_grad():
+        for name, piece in zip(names, torch.split(vec.detach(), sizes)):
+            p = params[name]
+            p.copy_(piece.view(p.shape))

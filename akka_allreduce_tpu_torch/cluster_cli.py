@@ -201,7 +201,7 @@ def _card_note(device) -> str:
 # -- cluster-master ---------------------------------------------------------
 
 
-def cmd_cluster_master(argv: list[str]) -> int:
+def _cluster_master_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         "cluster-master",
         description="seed/master role: membership + round scheduling over "
@@ -247,6 +247,18 @@ def cmd_cluster_master(argv: list[str]) -> int:
     )
     _add_gossip_flags(p)
     _add_obs_flags(p)
+    return p
+
+
+def cluster_master_defaults() -> dict:
+    """Every cluster-master flag at its default, by attribute name.
+    train-cluster-master carries only the JAX command's smaller flag set and
+    runs the master with these for the flags it lacks."""
+    return vars(_cluster_master_parser().parse_args([]))
+
+
+def cmd_cluster_master(argv: list[str]) -> int:
+    p = _cluster_master_parser()
     args = p.parse_args(argv)
     _refuse_unported(p, args)
     from akka_allreduce_tpu_torch.config import WorkerConfig
@@ -311,8 +323,9 @@ def _run_cluster_master(args) -> int:
                 backoff_max_s=args.send_backoff_max,
             ),
         ),
-        # the node role publishes a fixed payload tensor it never writes
-        # again, so the zero-copy scatter path is sound
+        # a node publishes each payload as a tensor it never writes again
+        # (the training node publishes a new tensor a step), so the
+        # zero-copy scatter path is sound
         worker=WorkerConfig(zero_copy_scatter=True),
         data_plane=DataPlaneConfig(
             streams=args.streams,
@@ -1320,6 +1333,34 @@ def spawn_role(*cli: str, stderr=None):
     )
 
 
+def read_until(proc, prefix: str, timeout: float = 60.0) -> list[str]:
+    """The lines of ``proc``'s stdout up to and including the first that
+    starts with ``prefix``, read under a deadline: a process that has not
+    printed it within ``timeout`` seconds is killed, and a process that
+    ends or is killed before it raises ``RuntimeError``. The rest of the
+    output stays in the pipe for the caller."""
+    import threading
+
+    lines: list[str] = []
+    done = threading.Event()
+
+    def pump() -> None:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith(prefix):
+                break
+        done.set()
+
+    threading.Thread(target=pump, name="read-until", daemon=True).start()
+    if not done.wait(timeout):
+        proc.kill()
+        done.wait(10)
+        raise RuntimeError(f"no '{prefix}' line within {timeout:g} s: {lines}")
+    if not lines or not lines[-1].startswith(prefix):
+        raise RuntimeError(f"the process ended before a '{prefix}' line: {lines}")
+    return lines
+
+
 def _run_obs_demo(p: argparse.ArgumentParser, args) -> int:
     import json
     import os
@@ -1345,13 +1386,7 @@ def _run_obs_demo(p: argparse.ArgumentParser, args) -> int:
     nodes = []
     device_args = ["--device", args.device] if args.device else []
     try:
-        seed = None
-        for line in master.stdout:
-            if line.startswith("master listening on "):
-                seed = line.split()[-1]
-                break
-        if seed is None:
-            raise RuntimeError("master never reported its endpoint")
+        seed = read_until(master, "master listening on ")[-1].split()[-1]
         for k in range(args.nodes):
             t = os.path.join(args.out_dir, f"trace-node{k}.json")
             node_metrics = os.path.join(args.out_dir, f"metrics-node{k}.jsonl")

@@ -1,8 +1,12 @@
 """Trainers of the port: the data-parallel trainer over virtual ranks
 (``DPTrainer``), its ZeRO-1 form (``Zero1DPTrainer``), the long-context LM
 trainer on one card (``LongContextTrainer``), the helpers the trainers share,
-and checkpoints (``TrainerCheckpointer``, ``DeltaCheckpointer``, their async
-forms, ``Snapshot``). The other sharded families wait for later slices."""
+checkpoints (``TrainerCheckpointer``, ``DeltaCheckpointer``, their async
+forms, ``Snapshot``), elastic re-meshing over the live nodes' ranks
+(``ElasticTrainer``, ``ElasticDPTrainer``, ``ElasticLongContextTrainer``,
+``adaptive_parallel_factor``) and elastic-averaging training over the TCP
+cluster (``ElasticClusterNode``). The other sharded families wait for later
+slices."""
 
 from akka_allreduce_tpu_torch.train.checkpoint import (  # noqa: F401
     AsyncDeltaCheckpointer,
@@ -10,6 +14,13 @@ from akka_allreduce_tpu_torch.train.checkpoint import (  # noqa: F401
     DeltaCheckpointer,
     Snapshot,
     TrainerCheckpointer,
+)
+from akka_allreduce_tpu_torch.train.cluster import ElasticClusterNode  # noqa: F401
+from akka_allreduce_tpu_torch.train.elastic import (  # noqa: F401
+    ElasticDPTrainer,
+    ElasticLongContextTrainer,
+    ElasticTrainer,
+    adaptive_parallel_factor,
 )
 from akka_allreduce_tpu_torch.train.long_context import (  # noqa: F401
     LongContextStepMetrics,

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from akka_allreduce_tpu_torch._device import resolve_device
-from akka_allreduce_tpu_torch.binder.api import flatten_params
+from akka_allreduce_tpu_torch.binder.api import flat_tensor, load_flat_tensor
 from akka_allreduce_tpu_torch.models.transformer import TransformerLM
 from akka_allreduce_tpu_torch.parallel.mesh import RankMesh, data_seq_mesh
 from akka_allreduce_tpu_torch.train.trainer import normalize_valid
@@ -131,7 +131,6 @@ class LongContextTrainer:
         self.optimizer = make(self.model.parameters())
         self.param_count = sum(p.numel() for p in self.model.parameters())
         self.step_num = 0
-        self._unflatten = None
 
     # -- stepping ------------------------------------------------------------
 
@@ -222,15 +221,15 @@ class LongContextTrainer:
 
     def get_flat_params(self) -> np.ndarray:
         """The parameters as one host f32 vector in the JAX trainer's leaf
-        order (``binder.flatten_params``)."""
-        return flatten_params(self.model)[0]
+        order (``binder.leaf_order``)."""
+        return self.flat_params_tensor().cpu().numpy()
 
-    def set_flat_params(self, vec: np.ndarray) -> None:
+    def flat_params_tensor(self) -> torch.Tensor:
+        """The same vector as a new f32 tensor on the trainer's device."""
+        return flat_tensor(self.model)
+
+    def set_flat_params(self, vec: np.ndarray | torch.Tensor) -> None:
         """Replace the parameters from a flat f32 vector in that order (a
-        JAX trainer's ``get_flat_params`` loads here unchanged)."""
-        if self._unflatten is None:  # the layout never changes after __init__
-            _, self._unflatten = flatten_params(self.model)
-        state = self._unflatten(vec)
-        with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                p.copy_(state[name])
+        JAX trainer's ``get_flat_params`` loads here unchanged); a tensor is
+        copied on its device, with no trip through the host."""
+        load_flat_tensor(self.model, vec)

@@ -67,7 +67,11 @@ from torch import nn
 from torch.func import functional_call, grad_and_value, vmap
 
 from akka_allreduce_tpu_torch._device import ieee_f32, resolve_device
-from akka_allreduce_tpu_torch.binder.api import flatten_params, leaf_order
+from akka_allreduce_tpu_torch.binder.api import (
+    flat_tensor,
+    leaf_order,
+    load_flat_tensor,
+)
 from akka_allreduce_tpu_torch.comm.allreduce import (
     _num_buckets,
     backward_psum_sync,
@@ -214,7 +218,6 @@ class DPTrainer:
         self._ef = (torch.zeros((self.n_devices, self.param_count), device=self.device)
                     if error_feedback else None)
         self.step_num = 0
-        self._unflatten = None
         # name -> the per-rank rows of the latest sync (utils.verify), or None
         self._replica_log: dict[str, torch.Tensor] | None = None
 
@@ -470,15 +473,15 @@ class DPTrainer:
 
     def get_flat_params(self) -> np.ndarray:
         """The parameters as one host f32 vector in the JAX trainer's leaf
-        order (``binder.flatten_params``)."""
-        return flatten_params(self.model)[0]
+        order (``binder.leaf_order``)."""
+        return self.flat_params_tensor().cpu().numpy()
 
-    def set_flat_params(self, vec: np.ndarray) -> None:
+    def flat_params_tensor(self) -> torch.Tensor:
+        """The same vector as a new f32 tensor on the trainer's device."""
+        return flat_tensor(self.model)
+
+    def set_flat_params(self, vec: np.ndarray | torch.Tensor) -> None:
         """Replace the parameters from a flat f32 vector in that order (a
-        JAX trainer's ``get_flat_params`` loads here unchanged)."""
-        if self._unflatten is None:  # the layout never changes after __init__
-            _, self._unflatten = flatten_params(self.model)
-        state = self._unflatten(vec)
-        with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                p.copy_(state[name])
+        JAX trainer's ``get_flat_params`` loads here unchanged); a tensor is
+        copied on its device, with no trip through the host."""
+        load_flat_tensor(self.model, vec)

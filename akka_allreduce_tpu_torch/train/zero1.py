@@ -157,13 +157,22 @@ class Zero1DPTrainer:
         """The unpadded flat f32 vector in the JAX trainer's leaf order."""
         return self.flat_params[: self.param_count].to("cpu", copy=True).numpy()
 
-    def set_flat_params(self, vec: np.ndarray) -> None:
-        arr = np.asarray(vec, np.float32)
-        if arr.shape != (self.param_count,):
+    def flat_params_tensor(self) -> torch.Tensor:
+        """The same vector as a new f32 tensor on the trainer's device."""
+        return self.flat_params[: self.param_count].clone()
+
+    def set_flat_params(self, vec: np.ndarray | torch.Tensor) -> None:
+        """Replace the weights from a flat f32 vector (numpy, or a tensor
+        copied on its device)."""
+        if isinstance(vec, torch.Tensor):
+            src = vec.detach()
+        else:
+            src = torch.from_numpy(np.array(vec, np.float32))
+        if tuple(src.shape) != (self.param_count,):
             raise ValueError(
-                f"expected flat params of shape ({self.param_count},), got {arr.shape}")
+                f"expected flat params of shape ({self.param_count},), got {tuple(src.shape)}")
         with torch.no_grad():
-            self.flat_params[: self.param_count].copy_(torch.from_numpy(arr.copy()))
+            self.flat_params[: self.param_count].copy_(src)
             self.flat_params[self.param_count:].zero_()
 
     @property

@@ -56,7 +56,7 @@ Phases, each printed as it ends:
    result from ``masked_average``, the fold from ``elastic_average_step`` on
    the packed form), checked against the same rounds through the plain
    versions, then the bench (the ``local_threshold_reduce_bw`` metric) and
-   ``bench_suite.run_suite`` for configs 1, 2, 3 and 4; (b) for each compress
+   ``bench_suite.run_suite`` for configs 1 to 5; (b) for each compress
    mode, ``threshold_allreduce(line_mesh(8), ..., schedule="pallas_ring")``
    at 8 x 25M (the mask rides into K3: one launch a round, checked) against
    the same round through the plain K3, and one ``measure_allreduce``
@@ -177,7 +177,27 @@ Phases, each printed as it ends:
    than one round); a ``cluster-standby`` taking over from a killed
    ``cluster-master`` under epoch 2 and completing the budget; ``obs demo
    --nodes 2``; ``bench-wire --uring --intra-chunk --congestion`` with its
-   payloads on the card; no K1-K4 launch;
+   payloads on the card; no K1-K4 launch; (k) elasticity: config 5's
+   record (``bench_suite.config5_dropout_recovery``: the host tier and the
+   re-mesh tier on ``{0: [rank], 1: []}``, a zero-rank control node dropping
+   and rejoining; every flag true, one K1 launch for each of its 10 f32
+   steps); ``ElasticDPTrainer`` on ``MLP(hidden=(2048, 2048))`` over 4 nodes
+   x 2 virtual ranks, 16 rows a rank, f32: 2 steps, node 3 silent (6
+   ranks), 2 steps, node 3 back (8 ranks), 2 steps, K1 once a step, every
+   step bit-equal to a continuation oracle (a fresh ``DPTrainer`` restored
+   from a ``Snapshot`` at each re-mesh) and the final parameters within
+   rtol 2e-4, atol 2e-5 of the same cycle on the CPU, each re-mesh's
+   seconds alone and with its first step printed (drop, rejoin, warm
+   drop) with the snapshot's bytes; 5 more drop/rejoin cycles, after which
+   ``torch.cuda.memory_allocated`` is at most 1 MiB above its value after
+   the first; the compress ladder (``apply_policy_wire`` "f16", "int8",
+   "") with a step at each rung; the int8 + EF trainer's residual sum kept
+   across 8 -> 6 ranks within 1e-6 of max|sum|; ``train-cluster-master
+   --nodes 2`` with two ``train-cluster-node`` processes on the card,
+   ``--model mlp`` and ``--model lm`` side by side (each node's steps, sync rounds
+   applied, falling loss and device printed; the master without a CUDA
+   context); ``elastic-demo --family dp --nodes 4`` (8 -> 6 -> 8 ranks, 30
+   K1 launches);
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -288,6 +308,14 @@ MASK3 = [1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0]  # rank 3 masked
 # over three payload streams for 3 rounds, and the failover drill's budget
 CLUSTER_NODES, CLUSTER_FLOATS, CLUSTER_CHUNK, CLUSTER_ROUNDS = 4, 1_000_000, 262_144, 20
 CLUSTER_BIG_ROUNDS, FAILOVER_ROUNDS = 3, 30
+# elasticity (phase k): the DP cell's width over 4 nodes x 2 virtual ranks, the
+# node that drops, the re-mesh cycles of the leak check and the bytes they may
+# leave allocated, the training cluster's step budgets (long enough that both
+# learners are still stepping when the rounds start), the CPU run's tolerance
+ELASTIC_NODES, ELASTIC_PER_NODE, ELASTIC_LOST = 4, 2, 3
+LEAK_CYCLES, LEAK_BYTES = 5, 1 << 20
+CLUSTER_TRAIN_STEPS = {"mlp": 1000, "lm": 500}
+STEP_TOL_KW = dict(rtol=2e-4, atol=2e-5)  # tests/test_torch_dp.py's STEP_TOL
 
 
 def ring_name(mode: str | None) -> str:
@@ -1501,10 +1529,18 @@ def log_tails(d) -> str:
 
 
 def read_endpoint(proc, prefix: str) -> str:
-    for line in proc.stdout:
-        if line.startswith(prefix):
-            return line.split()[3]
-    raise RuntimeError(f"chip_smoke check failed: no '{prefix}' line")
+    """The endpoint on ``proc``'s first stdout line that starts with
+    ``prefix``, read under ``cluster_cli.read_until``'s deadline."""
+    return read_lines(proc, prefix)[-1].split()[3]
+
+
+def read_lines(proc, prefix: str) -> list[str]:
+    from akka_allreduce_tpu_torch.cluster_cli import read_until
+
+    try:
+        return read_until(proc, prefix)
+    except RuntimeError as e:
+        raise RuntimeError(f"chip_smoke check failed: {e}") from None
 
 
 def jsonl(path) -> list[dict]:
@@ -1908,6 +1944,364 @@ def obs_demo_run(root, dev) -> dict:
     require(rc == 0 and "round trace(s) spanning" in text, f"obs demo: {text}")
     print(text, flush=True)
     return {"lines": text.strip().splitlines()}
+
+
+# -- phase (k): elasticity ----------------------------------------------------------
+
+
+def snapshot_bytes(snap) -> int:
+    """Bytes a ``Snapshot`` holds on the host (parameters, optimizer state,
+    the EF residual)."""
+    import numpy as np
+
+    def walk(x) -> int:
+        if isinstance(x, dict):
+            return sum(walk(v) for v in x.values())
+        return int(np.asarray(x).nbytes) if x is not None else 0
+
+    return walk(snap.params) + walk(snap.opt_state) + walk(snap.ef) + walk(snap.custom)
+
+
+def elastic_dp_cycle(dev, hidden, rows: int, *, oracle: bool = False,
+                     leak_cycles: int = 0) -> dict:
+    """``ElasticDPTrainer`` on ``MLP(hidden)`` over 4 nodes x 2 virtual ranks,
+    ``rows`` rows a rank, f32: 2 steps, node 3 silent (6 ranks), 2 steps,
+    node 3 back (8 ranks), 2 steps, each re-mesh timed alone and with its
+    first step. With ``oracle``, a fresh ``DPTrainer`` restored from a
+    ``Snapshot`` of the one before it (the first from the elastic trainer's)
+    takes every step beside it and the two are compared bit for bit at
+    every step. With ``leak_cycles``, that many more drop/rejoin cycles
+    follow (the first of them the warm drop), a step after each re-mesh,
+    and ``memory_allocated`` is read after the first cycle and after the
+    last. On the card, ``built_bytes`` is what the new elastic trainer
+    holds once built (its one copy of the weights; the model it was given is
+    freed). Returns the trainer, its K1 launches a step and the figures."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import DPTrainer, ElasticDPTrainer, Snapshot
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    now = {"t": 0.0}
+    nodes = {n: list(range(n * ELASTIC_PER_NODE, (n + 1) * ELASTIC_PER_NODE))
+             for n in range(ELASTIC_NODES)}
+    survivors = [n for n in nodes if n != ELASTIC_LOST]
+
+    def allocated() -> int:
+        gc.collect()
+        sync()
+        return torch.cuda.memory_allocated(dev) if on_card else 0
+
+    mem0 = allocated()
+    e = ElasticDPTrainer(MLP(hidden=hidden, seed=SEED, device=dev), nodes,
+                         clock=lambda: now["t"], device=dev)
+    ds = mnist_like(seed=SEED)
+    out: dict = {"k1_per_step": [], "losses": [], "ranks": [], "remesh": {}, "oracle_equal": [],
+                 "built_bytes": allocated() - mem0}
+    state = {"offset": 0, "oracle": None}
+
+    def fresh_oracle(source):
+        o = DPTrainer(MLP(hidden=hidden, seed=SEED, device=dev),
+                      line_mesh(e.n_devices, device=dev))
+        Snapshot.capture(source).restore_into(o)
+        return o
+
+    def step():
+        """One elastic step (and the oracle's); returns its metrics and the
+        elastic step's seconds (it ends in its loss's host read)."""
+        x, y = next(iter(ds.batches(rows * e.n_devices, 1, seed_offset=state["offset"])))
+        state["offset"] += 1
+        before = lr.LAUNCHES["masked_average"]
+        t0 = time.perf_counter()
+        m = e.train_step(x, y)
+        seconds = time.perf_counter() - t0
+        out["k1_per_step"].append(lr.LAUNCHES["masked_average"] - before)
+        out["losses"].append(m.loss)
+        out["ranks"].append(e.n_devices)
+        if state["oracle"] is not None:
+            mo = state["oracle"].train_step(x, y)
+            out["oracle_equal"].append(
+                mo.loss == m.loss and mo.contributors == m.contributors
+                and np.array_equal(state["oracle"].get_flat_params(), e.get_flat_params()))
+        return m, seconds
+
+    def remesh(kind: str, alive) -> None:
+        for n in alive:
+            e.heartbeat(n)
+        now["t"] += 60.0 if "drop" in kind else 1.0
+        for n in alive:
+            e.heartbeat(n)
+        old = state["oracle"]
+        snap = Snapshot.capture(e.trainer)
+        sync()
+        t0 = time.perf_counter()
+        require(e.poll(), f"{kind}: no re-mesh")
+        remesh_s = time.perf_counter() - t0
+        if old is not None:
+            state["oracle"] = fresh_oracle(old)
+            del old
+        m, step_s = step()
+        out["remesh"].setdefault(kind, {"remesh_s": remesh_s, "first_step_s": remesh_s + step_s,
+                                        "ranks": e.n_devices, "loss": m.loss,
+                                        "snapshot_bytes": snapshot_bytes(snap)})
+
+    if oracle:
+        state["oracle"] = fresh_oracle(e.trainer)
+    step(), step()
+    remesh("drop", survivors)
+    step()
+    remesh("rejoin", list(nodes))
+    step()
+    require(out["ranks"] == [8, 8, 6, 6, 8, 8], f"ranks a step {out['ranks']}")
+    require(e.generation == 2, f"generation {e.generation}")
+    out["params"] = e.get_flat_params()
+    if oracle:
+        require(all(out["oracle_equal"]), f"continuation oracle: {out['oracle_equal']}")
+        state["oracle"] = None
+    if leak_cycles:
+        out["mem_after_first_cycle"] = allocated()
+        for k in range(leak_cycles):
+            remesh("warm_drop" if k == 0 else "drop_again", survivors)
+            remesh("rejoin_again", list(nodes))
+        out["mem_after_cycles"] = allocated()
+    out["trainer"] = e
+    return out
+
+
+def start_train_cluster(root, model: str, dev) -> dict:
+    """Start ``train-cluster-master --nodes 2`` and two ``train-cluster-node``
+    processes on ``dev`` with the model flags' defaults; returns the run for
+    :func:`finish_train_cluster`."""
+    d = root / f"train_cluster_{model}"
+    d.mkdir()
+    steps = str(CLUSTER_TRAIN_STEPS[model])
+    master = spawn_role("train-cluster-master", "--nodes", "2", "--model", model,
+                        log=d / "master.log")
+    procs = [master]
+    try:
+        lines = read_lines(master, "master listening on ")
+        first, seed = lines[0], lines[-1].split()[3]
+        for k in range(2):
+            procs.append(spawn_role("train-cluster-node", "--seed", seed, "--model", model,
+                                    "--steps", steps, "--data-seed", str(k),
+                                    "--device", str(dev), log=d / f"node{k}.log"))
+    except BaseException:
+        stop_all(procs)
+        raise
+    return {"model": model, "dir": d, "steps": steps, "procs": procs, "first": first,
+            "t0": time.perf_counter()}
+
+
+def stop_all(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def finish_train_cluster(run: dict, dev) -> dict:
+    """Wait for a run of :func:`start_train_cluster`: each node's ``trained
+    ...`` line, its rounds applied and its losses (falling, at least one
+    round applied, on ``dev``); the master without a CUDA context."""
+    model, procs, steps = run["model"], run["procs"], run["steps"]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+        require(all(p.returncode == 0 for p in procs),
+                f"train-cluster {model}: exit codes {[p.returncode for p in procs]}: "
+                f"{outs}\n{log_tails(run['dir'])}")
+    finally:
+        stop_all(procs)
+    require("master cuda_initialized=False" in outs[0],
+            f"train-cluster {model}: the master started CUDA")
+    nodes = []
+    for out in outs[1:]:
+        line = next(ln for ln in out.splitlines() if ln.startswith("trained "))
+        rounds = int(line.split("(")[1].split()[0])
+        first_loss, last_loss = (float(v) for v in
+                                 line.split("loss ")[1].split(";")[0].split(" -> "))
+        require(line.startswith(f"trained {steps} steps") and rounds >= 1
+                and last_loss < first_loss and (dev.type != "cuda" or "cuda" in line),
+                f"train-cluster {model} node: {line}")
+        nodes.append({"line": line, "rounds_applied": rounds,
+                      "loss_first": first_loss, "loss_last": last_loss})
+    return {"model_line": run["first"].strip(), "nodes": nodes,
+            "s": time.perf_counter() - run["t0"]}
+
+
+def elastic_path(dev, card: dict) -> dict:
+    """Phase (k): elasticity on the card. Config 5's record; the DP cycle at
+    the DP cell's width (``ElasticDPTrainer`` on ``MLP(2048, 2048)``, 4 nodes
+    x 2 ranks, 16 rows a rank): K1 once a step, bit-equal to the
+    continuation oracle at every step, within ``STEP_TOL`` of the same
+    cycle on the CPU, the drop, rejoin and warm drop timed; 5 more
+    drop/rejoin cycles with no memory left behind; the int8 + EF cycle's
+    residual sum across 8 -> 6 ranks; the compress ladder through
+    ``apply_policy_wire``; ``train-cluster-master`` with two
+    ``train-cluster-node`` processes on the card (``--model mlp`` and
+    ``lm``); ``elastic-demo --family dp --nodes 4``. Returns the K1
+    launches of the elastic trainers' steps and the figures."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch import bench_suite
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.train import ElasticDPTrainer
+
+    on_card = dev.type == "cuda"
+    count = lr.LAUNCHES
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def k1(n: int) -> int:
+        return n if on_card else 0
+
+    out: dict = {"card": card["smi"]}
+    launches = {}
+
+    # config 5, both tiers
+    zero(count)
+    rec = bench_suite.config5_dropout_recovery(device=dev)
+    sync()
+    print(json.dumps(rec), flush=True)
+    launches["config5"] = count["masked_average"]
+    flags = [k for k, v in rec.items() if k.endswith("remeshed") and v is not None]
+    require(all(rec[k] is True for k in flags) and len(flags) == 5
+            and rec["zero_device_control_node"] is True and rec["rounds_completed"] == 10
+            and 2.0 <= rec["mean_contributors"] <= 3.0, f"config 5 record {rec}")
+    # the DP and ZeRO-1 trainers: 5 f32 steps each, one K1 launch a step
+    require(launches["config5"] == k1(10) and count["elastic_average_step"] == 0,
+            f"config 5: one K1 launch an f32 step: {dict(count)}")
+    out["config5"] = {k: rec[k] for k in (
+        "rounds_completed", "mean_contributors", "drop_remesh_and_first_step_s",
+        "rejoin_remesh_and_first_step_s", "warm_drop_remesh_and_first_step_s",
+        "drop_remesh_s", "rejoin_remesh_s", "warm_drop_remesh_s",
+        "zero1_drop_remesh_and_first_step_s", "long_context_drop_remesh_and_first_step_s")}
+
+    # the DP cycle at the DP cell's width, against the continuation oracle
+    zero(count)
+    cyc = elastic_dp_cycle(dev, DP_HIDDEN, DP_ROWS, oracle=True, leak_cycles=LEAK_CYCLES)
+    e = cyc.pop("trainer")
+    steps = len(cyc["k1_per_step"])
+    require(cyc["k1_per_step"] == [k1(1)] * steps,
+            f"K1 once an elastic step: {cyc['k1_per_step']}")
+    launches["dp_cycle"] = sum(cyc["k1_per_step"])
+    require(e.param_count == DP_PARAMS and all(math.isfinite(v) for v in cyc["losses"]),
+            f"DP cycle: {e.param_count} params, losses {cyc['losses']}")
+    grown = cyc["mem_after_cycles"] - cyc["mem_after_first_cycle"]
+    require(grown <= LEAK_BYTES, f"{LEAK_CYCLES} re-mesh cycles left {grown} bytes allocated")
+    # one copy of the weights: the wrapper keeps no template on the card
+    require(cyc["built_bytes"] < 1.5 * 4 * DP_PARAMS,
+            f"the elastic trainer holds {cyc['built_bytes']} bytes once built "
+            f"({4 * DP_PARAMS} bytes of weights)")
+    cpu = elastic_dp_cycle(torch.device("cpu"), DP_HIDDEN, DP_ROWS)
+    cpu_err = float(np.abs(cyc["params"] - cpu["params"]).max())
+    require(np.allclose(cyc["params"], cpu["params"], **STEP_TOL_KW),
+            f"DP cycle on the card vs the CPU: max abs {cpu_err}")
+    del cpu
+    out["dp_cycle"] = {"losses": cyc["losses"][:6], "ranks": cyc["ranks"][:6],
+                       "remesh": cyc["remesh"], "oracle": "bit-equal at every step",
+                       "vs_cpu_max_abs": cpu_err, "memory_grown_bytes": grown,
+                       "memory_after_first_cycle": cyc["mem_after_first_cycle"],
+                       "built_bytes": cyc["built_bytes"],
+                       "steps": steps}
+    print(f"elastic DP trainer built: {cyc['built_bytes']} bytes on the card for "
+          f"{4 * DP_PARAMS} bytes of weights", flush=True)
+    for kind, r in cyc["remesh"].items():
+        print(f"elastic DP re-mesh ({kind}, -> {r['ranks']} ranks, MLP{DP_HIDDEN}, "
+              f"{card['name']}, {card['power_limit']}): re-mesh {r['remesh_s'] * 1e3:.3f} ms, "
+              f"with its first step {r['first_step_s'] * 1e3:.3f} ms, snapshot "
+              f"{r['snapshot_bytes']} bytes", flush=True)
+
+    # the compress ladder through the policy wire, on the same trainer
+    zero(count)
+    ladder = {}
+    ds = mnist_like(seed=SEED)
+    for wire, mode in (("f16", "bf16"), ("int8", "int8"), ("", None)):
+        require(e.apply_policy_wire(wire) and e.compress_mode == mode,
+                f"policy wire {wire!r}: compress {e.compress_mode}")
+        x, y = next(iter(ds.batches(DP_ROWS * e.n_devices, 1, seed_offset=100)))
+        m = e.train_step(x, y)
+        require(math.isfinite(m.loss) and m.contributors == e.n_devices, f"{wire!r} step {m}")
+        ladder[wire or "inherit"] = {"compress": mode, "loss": m.loss}
+    sync()
+    require(count["masked_average"] == k1(1), f"ladder: one f32 step's K1: {dict(count)}")
+    launches["ladder"] = count["masked_average"]
+    out["ladder"] = ladder
+    del e
+
+    # int8 + EF: the residual's sum across 8 -> 6 ranks
+    zero(count)
+    now = {"t": 0.0}
+    nodes = {n: list(range(n * ELASTIC_PER_NODE, (n + 1) * ELASTIC_PER_NODE))
+             for n in range(ELASTIC_NODES)}
+    ei = ElasticDPTrainer(MLP(hidden=DP_HIDDEN, seed=SEED, device=dev), nodes,
+                          compress="int8", error_feedback=True, clock=lambda: now["t"],
+                          device=dev)
+    x, y = next(iter(ds.batches(DP_ROWS * 8, 1, seed_offset=200)))
+    ei.train_step(x, y, valid=[1.0] * 7 + [0.0])
+    before = ei.trainer._ef.double().sum(0).cpu().numpy()
+    for n in nodes:
+        ei.heartbeat(n)
+    now["t"] += 60.0
+    for n in nodes:
+        if n != ELASTIC_LOST:
+            ei.heartbeat(n)
+    require(ei.poll() and ei.n_devices == 6 and ei.trainer.error_feedback
+            and ei.trainer.compress == "int8", "int8 + EF: re-mesh to 6 ranks")
+    after = ei.trainer._ef.double().sum(0).cpu().numpy()
+    ef_err = float(np.abs(after - before).max() / np.abs(before).max())
+    require(ef_err <= 1e-6, f"int8 + EF residual sum across 8 -> 6: {ef_err} of max|sum|")
+    x, y = next(iter(ds.batches(DP_ROWS * 6, 1, seed_offset=201)))
+    m = ei.train_step(x, y)
+    sync()
+    require(math.isfinite(m.loss) and count["masked_average"] == 0,
+            f"int8 + EF step at 6 ranks {m}, {dict(count)}")
+    out["int8_ef"] = {"residual_sum_err_of_max": ef_err, "loss_at_6": m.loss}
+    del ei
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the training cluster over TCP, its learners on the card: the MLP's and
+    # the LM's clusters side by side (each a master and two node processes)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    runs = []
+    try:
+        for model in ("mlp", "lm"):
+            runs.append(start_train_cluster(root, model, dev))
+        for run in runs:
+            res = finish_train_cluster(run, dev)
+            print(res["model_line"], flush=True)
+            print("\n".join(n["line"] for n in res["nodes"]), flush=True)
+            out[f"train_cluster_{run['model']}"] = res
+    finally:
+        for run in runs:
+            stop_all(run["procs"])
+        shutil.rmtree(root, ignore_errors=True)
+
+    # elastic-demo on the card: 30 f32 steps, one K1 launch each
+    zero(count)
+    rc, text = run_cli(["elastic-demo", "--family", "dp", "--nodes", "4",
+                        *([] if on_card else ["--device", "cpu"])])
+    sync()
+    require(rc == 0 and "re-meshed to 3 nodes / 6 ranks" in text
+            and "re-meshed to 4 nodes / 8 ranks" in text and "final generation 2" in text,
+            f"elastic-demo: rc {rc}\n{text}")
+    require(count["masked_average"] == k1(30), f"elastic-demo: {dict(count)}")
+    launches["elastic_demo"] = count["masked_average"]
+    out["elastic_demo"] = [ln for ln in text.splitlines() if "re-meshed" in ln]
+    out["launches_by_part"] = launches
+    out["launches"] = sum(launches.values())
+    return out
 
 
 def live_state(trainer, clone: bool = False) -> dict:
@@ -2665,7 +3059,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     require(bench_rec["metric"].startswith("local_threshold_reduce_bw_64Mfloat")
             and bench_rec["value"] > 0, f"bench record {bench_rec}")
-    require([r["config"] for r in records] == [1, 2, 3, 4], "configs 1, 2, 3 and 4")
+    require([r["config"] for r in records] == [1, 2, 3, 4, 5], "configs 1 to 5")
+    dropout_rec = records.pop()
+    require(dropout_rec["remeshed"] is True and dropout_rec["rounds_completed"] == 10
+            and dropout_rec["device"] == card["name"], f"record {dropout_rec}")
     engine_rec = records.pop(0)
     require(engine_rec["engine"] == "cuda" and engine_rec["throughput_mbs"] > 0
             and engine_rec["device"] == card["name"], f"record {engine_rec}")
@@ -2831,6 +3228,14 @@ def main() -> int:
                                 "late_joiner", "int8_ef", "failover")},
           bench_wire=cl["bench_wire"])
 
+    # -- 4k. elasticity: re-mesh cycles, the training cluster ---------------------
+    t0 = time.perf_counter()
+    el = elastic_path(dev, card)
+    phase("elastic_path", t0, card=card["smi"], launches={"masked_average": el["launches"]},
+          launches_by_part=el["launches_by_part"],
+          **{k: el[k] for k in ("config5", "dp_cycle", "ladder", "int8_ef",
+                                "train_cluster_mlp", "train_cluster_lm", "elastic_demo")})
+
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
     k = K_WORKERS
@@ -2994,7 +3399,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     path_launches = {**launches, **ring_launches}
-    path_launches["masked_average"] += dp_launches
+    path_launches["masked_average"] += dp_launches + el["launches"]
     for part in (lm["launches"], train["launches"], ck["launches"]):
         for name, n in part.items():
             path_launches[name] = path_launches.get(name, 0) + n

@@ -29,6 +29,7 @@ from akka_allreduce_tpu.control.bootstrap import NodeProcess as JNode
 from akka_allreduce_tpu.protocol import AllReduceInput as JInput
 
 import akka_allreduce_tpu_torch.config as t_config
+from akka_allreduce_tpu_torch.cluster_cli import read_until
 from akka_allreduce_tpu_torch.control.bootstrap import MasterProcess, NodeProcess
 from akka_allreduce_tpu_torch.protocol import (
     AllReduceInput,
@@ -465,12 +466,7 @@ def test_cluster_cli_multiprocess_smoke(tmp_path):
     )
     nodes = []
     try:
-        seed = None
-        for line in master.stdout:
-            if line.startswith("master listening on "):
-                seed = line.split()[-1]
-                break
-        assert seed is not None
+        seed = read_until(master, "master listening on ")[-1].split()[-1]
         nodes = [
             _spawn("cluster-node", "--seed", seed, "--device", "cpu",
                    "--flush-out", str(tmp_path / f"flush{k}.npz"))

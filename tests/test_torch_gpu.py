@@ -9,7 +9,9 @@ dropout tier of config 5, the 2-D butterfly), with no copy between host and
 card inside a round and no K1-K4 launch; and the TCP control plane with
 payloads on the card: each wire mode's frame equal to the CPU copy's bytes,
 a deferred frame reading the stream that wrote its sums, and a 3-node
-cluster equal to the numpy mean.
+cluster equal to the numpy mean; and the elastic DP cycle (8 -> 6 -> 8
+ranks) with K1 once a step, bit-equal to its continuation oracle, with no
+memory left behind by five more re-mesh cycles.
 
 Marked ``gpu``; without a card every test skips (decided in the ``card``
 fixture, never at import). Run on the card with
@@ -1108,3 +1110,33 @@ def test_three_node_cluster_on_the_card_matches_the_numpy_mean(card):
         assert node.transport.stage_seconds["h2d"] > 0
         assert node.transport.stage_seconds["d2h"] > 0
     assert kernel_counts() == before
+
+
+def test_elastic_dp_cycle_launches_k1_once_a_step_equal_to_the_oracle(card):
+    """``ElasticDPTrainer`` over 4 nodes x 2 ranks on the card, 8 -> 6 -> 8
+    ranks: one K1 launch an elastic step, every step bit-equal to a fresh
+    ``DPTrainer`` restored from a ``Snapshot`` at each re-mesh, the final
+    parameters within ``STEP_TOL`` of the same cycle on the CPU."""
+    from chip_smoke import STEP_TOL_KW, elastic_dp_cycle
+
+    cyc = elastic_dp_cycle(card, (256,), 4, oracle=True)
+    assert cyc["k1_per_step"] == [1] * 6 and cyc["ranks"] == [8, 8, 6, 6, 8, 8]
+    assert all(cyc["oracle_equal"]) and len(cyc["oracle_equal"]) == 6
+    assert cyc["trainer"].trainer.device.type == "cuda"
+    cpu = elastic_dp_cycle(torch.device("cpu"), (256,), 4)
+    np.testing.assert_allclose(cyc["params"], cpu["params"], **STEP_TOL_KW)
+
+
+def test_elastic_remesh_cycles_leave_no_memory_behind(card):
+    """Five more drop/rejoin cycles after the first: the old trainers are
+    freed, ``memory_allocated`` ends within 1 MiB of its value after the
+    first cycle; once built, the elastic trainer holds one copy of the
+    weights on the card, not a template beside it."""
+    from chip_smoke import LEAK_BYTES, elastic_dp_cycle
+
+    cyc = elastic_dp_cycle(card, (1024, 1024), 8, leak_cycles=5)
+    weight_bytes = 4 * cyc["trainer"].param_count
+    assert weight_bytes <= cyc["built_bytes"] < 1.5 * weight_bytes
+    assert cyc["mem_after_first_cycle"] > 0
+    assert cyc["mem_after_cycles"] - cyc["mem_after_first_cycle"] <= LEAK_BYTES
+    assert cyc["k1_per_step"] == [1] * len(cyc["k1_per_step"])

@@ -6,13 +6,15 @@
   they raise instead of running on the CPU.
 - The CPU path launches no kernel (the threshold reduce, the ring, and a
   gated attention forward and backward alike).
-- The ``bench-suite`` (config 1, the host engine, first), ``bench`` and
+- The ``bench-suite`` (config 1, the host engine, first; config 5 last), ``bench`` and
   ``local-demo`` commands print parseable records at a tiny size, and the
   host engine's dev-mode chaos is refused.
 - Its copies of the configs and of the per-round metrics behave as the JAX
   package's.
-- The TCP control plane's commands are listed, refuse the chaos and adapt
-  flags, and put a node on the card unless given ``--device cpu``.
+- The TCP control plane's commands and the elastic ones (``elastic-demo``,
+  ``train-cluster-master``, ``train-cluster-node``) are listed, as in the JAX
+  CLI; the cluster commands refuse the chaos and adapt flags and put a node
+  on the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ def test_source_names_no_jax_package():
                 "control.statetransfer", "train.checkpoint", "train.zero1",
                 "control.cluster", "control.failure", "control.stripes",
                 "control.gossip", "control.remote", "control.bootstrap",
-                "native", "cluster_cli"):
+                "native", "cluster_cli", "train.elastic", "train.cluster"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
@@ -181,6 +183,28 @@ def test_entry_points_raise_without_cuda(monkeypatch, capsys):
         assert "CUDA is not available" in capsys.readouterr().err
 
 
+def test_elastic_entry_points_raise_without_cuda(monkeypatch, capsys):
+    from akka_allreduce_tpu_torch.train import ElasticDPTrainer, ElasticLongContextTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ElasticDPTrainer(MLP(hidden=(8,), device="cpu"), {0: [0, 1], 1: []})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ElasticLongContextTrainer({0: [0], 1: []}, vocab=16, d_model=32, n_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_suite.config5_dropout_recovery(1024)
+    assert capsys.readouterr().out == ""
+    for argv in (
+        ["elastic-demo", "--steps", "1"],
+        ["elastic-demo", "--family", "lc", "--steps", "1"],
+        ["train-cluster-node", "--seed", "127.0.0.1:1"],
+    ):
+        with pytest.raises(SystemExit) as exit_info:
+            cli_main(argv)
+        assert exit_info.value.code == 2
+        assert "CUDA is not available" in capsys.readouterr().err
+
+
 def test_cpu_path_counts_no_launches():
     before = dict(tlr.LAUNCHES)
     x = torch.randn(4, 300, generator=torch.Generator().manual_seed(0))
@@ -234,8 +258,11 @@ def test_bench_suite_cli_prints_records(capsys, tmp_path, one_torch_thread):
     assert rc == 0
     lines = capsys.readouterr().out.strip().splitlines()
     records = [json.loads(line) for line in lines]
-    assert [r["config"] for r in records] == [1, 2, 3, 4]
+    assert [r["config"] for r in records] == [1, 2, 3, 4, 5]
     assert out.read_text().strip().splitlines() == lines
+    dropout = records.pop()  # config 5: both tiers, the re-mesh on the CPU
+    assert dropout["name"] == "threshold_dropout_recovery" and dropout["remeshed"] is True
+    assert dropout["rounds_completed"] == 10 and dropout["device"] == "cpu"
     engine = records.pop(0)  # config 1: the host engine, 4 workers
     assert engine["name"] == "local_engine_allreduce" and engine["workers"] == 4
     assert engine["floats"] == 4096 and engine["rounds"] == 30
@@ -328,8 +355,10 @@ def test_cluster_commands_are_listed(capsys):
     from akka_allreduce_tpu.__main__ import COMMANDS as JAX_COMMANDS
     from akka_allreduce_tpu_torch.__main__ import COMMANDS
 
-    new = ("cluster-master", "cluster-node", "cluster-standby", "obs", "bench-wire")
+    new = ("cluster-master", "cluster-node", "cluster-standby", "obs", "bench-wire",
+           "elastic-demo", "train-cluster-master", "train-cluster-node")
     assert set(new) <= set(COMMANDS) and set(new) <= set(JAX_COMMANDS)
+    assert "soak" in JAX_COMMANDS and "soak" not in COMMANDS  # waits for FSDPLMTrainer
     assert cli_main([]) == 2
     usage = capsys.readouterr().err
     assert all(name in usage for name in new)
