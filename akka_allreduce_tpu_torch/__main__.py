@@ -9,7 +9,8 @@ Commands:
   engine's config-1 demo (``control/local.py``): N nodes allreduce seeded
   inputs in one process, their round buffers on the card; prints the
   rounds, the time, the throughput and the engine's device. A non-empty
-  ``--chaos-spec`` is refused (the chaos injector is not ported yet).
+  ``--chaos-spec`` arms the router's seeded chaos injector (drop,
+  duplicate, reorder, corrupt through the wire codec).
 - ``bench [--floats N] [--iters N] [--schedule psum|butterfly|ring]
   [--bucket N] [--compress bf16|int8] [--devices N] [--mesh line|grid]
   [--device cpu]`` — threshold-allreduce bandwidth over N virtual ranks on
@@ -80,7 +81,9 @@ Commands:
   holds no payload; ``cluster-node --seed HOST:PORT [--device cpu]
   [--flush-out FILE]`` joins it with its round buffers on the card;
   ``cluster-standby --seed HOST:PORT`` takes over when the master dies.
-  ``--chaos-*`` and ``--adapt*`` are refused (not ported yet).
+  ``--chaos-seed/--chaos-spec`` on the master arm every process's seeded
+  chaos injector, ``--chaos-log`` writes a process's event log, and
+  ``--adapt*`` run the leader's adaptive controller.
 - ``train-cluster-master [--nodes N] [--model mlp|lm] [model flags]
   [--rounds R] [--chunk N] [--th X] [--heartbeat S] [--wire-dtype f16]`` and
   ``train-cluster-node --seed HOST:PORT [model flags] [--steps N] [--batch N]
@@ -95,6 +98,14 @@ Commands:
   (dp: 8 virtual ranks split over the nodes, so 4 nodes drop 8 -> 6), then
   rejoins; lc runs one node of one rank beside zero-rank nodes. ``--family
   moe`` and ``pp`` are refused (not ported yet).
+- ``chaos``, ``chaos-recover``, ``chaos-gossip``, ``chaos-scale``,
+  ``chaos-failover``, ``chaos-adapt``, ``chaos-train`` (and its node role
+  ``chaos-train-node``) — the chaos drills (``chaos_cli.py``): each spawns a
+  real cluster under a seeded fault spec, its nodes on the card unless
+  ``--device cpu``, and prints one summary JSON line (exit 0 iff every
+  assertion held). ``chaos-train --family dp|zero1`` kills a training node
+  mid-step and checks the survivors' re-mesh and loss; its default family,
+  ``pipeline``, and ``fsdp`` are refused (not ported yet).
 """
 
 from __future__ import annotations
@@ -102,7 +113,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from akka_allreduce_tpu_torch import cluster_cli
+from akka_allreduce_tpu_torch import chaos_cli, cluster_cli
 
 
 def _cmd_bench_suite(argv: list[str]) -> int:
@@ -511,8 +522,12 @@ def _run_training(p, trainer, ds, args, *, label: str, flops: float, where: str,
     with ``--device-data``, chains with batches drawn on the device. With
     ``--checkpoint-dir`` it first resumes from the newest checkpoint there,
     saves every ``--checkpoint-every`` steps (between chains of that many
-    steps with ``--device-data``) and once more at the end. Then the step
-    time, TFLOP/s (MFU on a card with a known peak) and the loss trend."""
+    steps with ``--device-data``) and once more at the end. With
+    ``--profile-dir`` the step loop runs under ``torch.profiler`` (the host
+    and, on the card, CUDA activity) and its Chrome trace is written there.
+    Then the step time, TFLOP/s (MFU on a card with a known peak) and the
+    loss trend."""
+    import contextlib
     import time
 
     import numpy as np
@@ -535,42 +550,59 @@ def _run_training(p, trainer, ds, args, *, label: str, flops: float, where: str,
             torch.cuda.synchronize(dev)
 
     device_data = getattr(args, "device_data", False)
+    profile = contextlib.nullcontext()
+    if getattr(args, "profile_dir", None):
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        activities = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profile = torch_profile(activities=activities)
     sync()
-    t0 = time.perf_counter()
-    if device_data:
-        sampler, rows = ds.device_sampler(), args.batch // trainer.data_shards
-        block = args.checkpoint_every if ckpt and args.checkpoint_every else args.steps
-        history, remaining = [], args.steps
-        while remaining > 0:
-            n = min(block, remaining)
-            history.extend(trainer.train_chain(sampler, n, rows))
-            remaining -= n
-            if ckpt and remaining > 0:
-                ckpt.save(trainer)
-        total = time.perf_counter() - t0
-        for m in history:
-            logger.log_event(kind="train_step", workload=label, step=m.step,
-                             loss=m.loss, contributors=m.contributors)
-    else:
-        accum = getattr(args, "accum", 1)
-        history = []
-        for x, y in ds.batches(args.batch, args.steps):
-            st = time.perf_counter()
-            # each ends in its loss's host read
-            if accum > 1:
-                m = trainer.train_step_accum(x, y, accum)
-            else:
-                m = trainer.train_step(x, y)
-            dt = time.perf_counter() - st
-            history.append(m)
-            logger.log_event(
-                kind="train_step", workload=label, step=m.step, loss=m.loss,
-                contributors=m.contributors, step_time_s=round(dt, 6),
-                **_mfu_fields(flops, dt, dev),
-            )
-            if ckpt and args.checkpoint_every and m.step % args.checkpoint_every == 0:
-                ckpt.save(trainer)
-        total = time.perf_counter() - t0
+    with profile as prof:
+        t0 = time.perf_counter()
+        if device_data:
+            sampler, rows = ds.device_sampler(), args.batch // trainer.data_shards
+            block = args.checkpoint_every if ckpt and args.checkpoint_every else args.steps
+            history, remaining = [], args.steps
+            while remaining > 0:
+                n = min(block, remaining)
+                history.extend(trainer.train_chain(sampler, n, rows))
+                remaining -= n
+                if ckpt and remaining > 0:
+                    ckpt.save(trainer)
+            total = time.perf_counter() - t0
+            for m in history:
+                logger.log_event(kind="train_step", workload=label, step=m.step,
+                                 loss=m.loss, contributors=m.contributors)
+        else:
+            accum = getattr(args, "accum", 1)
+            history = []
+            for x, y in ds.batches(args.batch, args.steps):
+                st = time.perf_counter()
+                # each ends in its loss's host read
+                if accum > 1:
+                    m = trainer.train_step_accum(x, y, accum)
+                else:
+                    m = trainer.train_step(x, y)
+                dt = time.perf_counter() - st
+                history.append(m)
+                logger.log_event(
+                    kind="train_step", workload=label, step=m.step, loss=m.loss,
+                    contributors=m.contributors, step_time_s=round(dt, 6),
+                    **_mfu_fields(flops, dt, dev),
+                )
+                if ckpt and args.checkpoint_every and m.step % args.checkpoint_every == 0:
+                    ckpt.save(trainer)
+            total = time.perf_counter() - t0
+    if prof is not None:
+        import os
+
+        os.makedirs(args.profile_dir, exist_ok=True)
+        path = os.path.join(args.profile_dir, f"{label}_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profile trace written to {path}", flush=True)
     if ckpt:
         ckpt.save(trainer, force=True, block=True)
         ckpt.close()
@@ -643,6 +675,11 @@ def _dp_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--device-data", action="store_true",
         help="sample batches on the device inside one chain",
+    )
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="capture a torch.profiler trace of the step loop (host and CUDA "
+        "activity) as Chrome trace JSON in this directory",
     )
 
 
@@ -1166,6 +1203,14 @@ COMMANDS = {
     "train-cluster-master": _cmd_train_cluster_master,
     "train-cluster-node": _cmd_train_cluster_node,
     "elastic-demo": _cmd_elastic_demo,
+    "chaos": chaos_cli.cmd_chaos,
+    "chaos-recover": chaos_cli.cmd_chaos_recover,
+    "chaos-gossip": chaos_cli.cmd_chaos_gossip,
+    "chaos-scale": chaos_cli.cmd_chaos_scale,
+    "chaos-failover": chaos_cli.cmd_chaos_failover,
+    "chaos-adapt": chaos_cli.cmd_chaos_adapt,
+    "chaos-train-node": chaos_cli.cmd_chaos_train_node,
+    "chaos-train": chaos_cli.cmd_chaos_train,
 }
 
 

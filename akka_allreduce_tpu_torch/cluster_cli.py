@@ -17,8 +17,11 @@
   interpreters (``python -m akka_allreduce_tpu_torch``), never by forking a
   process that has started CUDA.
 
-The chaos injector and the adaptive controller are not ported yet: every
-``--chaos-*`` and ``--adapt*`` flag is refused.
+``--chaos-seed``/``--chaos-spec`` on a master arm the seeded chaos injector
+on every process of the cluster (the spec travels with ``Welcome``);
+``--chaos-log`` writes a process's deterministic event log on exit; the
+``--adapt*`` flags run the leader's adaptive controller. The chaos drills
+that drive these roles live in ``chaos_cli.py``.
 """
 
 from __future__ import annotations
@@ -61,40 +64,27 @@ def _write_trace(args) -> None:
         print(f"trace written to {path}", flush=True)
 
 
-#: the JAX CLI's flags that arm parts not ported yet: flag -> what is missing
-_UNPORTED = {
-    "--chaos-seed": "the chaos injector",
-    "--chaos-spec": "the chaos injector",
-    "--chaos-log": "the chaos injector",
-    "--adapt": "the adaptive controller",
-    "--adapt-floor": "the adaptive controller",
-    "--adapt-window": "the adaptive controller",
-    "--adapt-dwell": "the adaptive controller",
-    "--adapt-lag": "the adaptive controller",
-    "--adapt-log": "the adaptive controller",
-}
-
-
-def _add_unported_flags(p: argparse.ArgumentParser, *flags: str) -> None:
-    """The JAX command's chaos/adapt flags, accepted by the parser so that
-    :func:`_refuse_unported` can name them."""
-    for flag in flags:
-        if flag == "--adapt":
-            p.add_argument(flag, action="store_true", help="not ported yet")
-        else:
-            p.add_argument(flag, default=None, help="not ported yet")
-
-
-def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
-    for flag, what in _UNPORTED.items():
-        value = getattr(args, flag.lstrip("-").replace("-", "_"), None)
-        if value not in (None, False):
-            p.error(f"{flag} is not ported yet ({what})")
-
-
-def _add_retry_flags(p: argparse.ArgumentParser) -> None:
-    """Retry-policy flags of the cluster master roles (the policy travels
-    to every node with Welcome)."""
+def _add_chaos_flags(p: argparse.ArgumentParser) -> None:
+    """Chaos + retry-policy flags for the cluster master roles. The chaos
+    spec is distributed to every node via Welcome (like every other knob),
+    so one master flag arms the whole cluster with the same seed; the
+    retry policy travels the same way (RESILIENCE.md)."""
+    p.add_argument(
+        "--chaos-seed", type=int, default=0,
+        help="seed of the deterministic chaos schedule (same seed -> same "
+        "per-process event log)",
+    )
+    p.add_argument(
+        "--chaos-spec", default="",
+        metavar="SPEC",
+        help="fault spec, e.g. 'drop:p=0.05;delay:ms=20;corrupt:p=0.01;"
+        "partition:groups=m+0|1,at=round10,heal=5s' (empty = chaos off)",
+    )
+    p.add_argument(
+        "--chaos-log", default=None, metavar="FILE",
+        help="write this process's chaos event log (JSONL, deterministic "
+        "per seed) here on exit",
+    )
     p.add_argument(
         "--send-retries", type=int, default=1,
         help="transport reconnect-resend budget per failure burst "
@@ -108,6 +98,72 @@ def _add_retry_flags(p: argparse.ArgumentParser) -> None:
         "--send-backoff-max", type=float, default=2.0,
         help="backoff cap in seconds",
     )
+
+
+def _add_adapt_flags(p: argparse.ArgumentParser) -> None:
+    """Closed-loop adaptive degradation (``control/adapt.py``, RESILIENCE.md
+    'Tier 5'): the leader's per-round controller. Master-role flags only:
+    workers need no config, the policy rides every Prepare/Start."""
+    p.add_argument(
+        "--adapt", action="store_true",
+        help="enable the per-round adaptive controller: degrade th_reduce "
+        "and wire precision (f16 -> int8) when straggler evidence grows, "
+        "restore when the tail recovers",
+    )
+    p.add_argument(
+        "--adapt-floor", type=float, default=0.5,
+        help="th_reduce never degrades below this fraction",
+    )
+    p.add_argument(
+        "--adapt-window", type=int, default=8,
+        help="round completions per controller decision",
+    )
+    p.add_argument(
+        "--adapt-dwell", type=int, default=16,
+        help="minimum rounds at a level before the next transition "
+        "(the anti-flap hysteresis dwell)",
+    )
+    p.add_argument(
+        "--adapt-lag", type=int, default=12,
+        help="worker contribution lag (rounds) that triggers a degrade; "
+        "restore requires lag back under a third of this (min 1)",
+    )
+    p.add_argument(
+        "--adapt-log", default=None, metavar="FILE",
+        help="write the controller's decision log (JSONL, logical fields "
+        "only: same evidence replays the same bytes) here on exit",
+    )
+
+
+def adapt_config_from(args):
+    """The ``AdaptConfig`` the ``--adapt*`` flags describe (disabled
+    without ``--adapt``)."""
+    from akka_allreduce_tpu_torch.config import AdaptConfig
+
+    if not args.adapt:
+        return AdaptConfig()
+    lag = max(2, args.adapt_lag)
+    return AdaptConfig(
+        enabled=True,
+        floor_th_reduce=args.adapt_floor,
+        window=args.adapt_window,
+        min_dwell=args.adapt_dwell,
+        lag_degrade=lag,
+        lag_restore=max(1, lag // 3),
+    )
+
+
+def chaos_config_from(args):
+    """The ``ChaosConfig`` of ``--chaos-seed``/``--chaos-spec`` (disabled
+    with an empty spec); a malformed spec raises ``ValueError`` here,
+    before any process is spawned."""
+    from akka_allreduce_tpu_torch.config import ChaosConfig
+
+    if args.chaos_spec:
+        from akka_allreduce_tpu_torch.control.chaos import parse_spec
+
+        parse_spec(args.chaos_spec)
+    return ChaosConfig(seed=args.chaos_seed, spec=args.chaos_spec)
 
 
 def _add_gossip_flags(p: argparse.ArgumentParser) -> None:
@@ -187,6 +243,17 @@ def _add_data_plane_flags(p: argparse.ArgumentParser) -> None:
     )
 
 
+def node_device(p: argparse.ArgumentParser, device):
+    """The device of a ``cluster-node`` or ``chaos-train-node`` process (the
+    card unless ``"cpu"``; a parser error where it cannot be had)."""
+    from akka_allreduce_tpu_torch._device import resolve_device
+
+    try:
+        return resolve_device(device)
+    except (RuntimeError, ValueError) as e:
+        p.error(str(e))
+
+
 def _card_note(device) -> str:
     """``device=...`` for a result line, with the card's name and power
     limit on the card."""
@@ -239,12 +306,8 @@ def _cluster_master_parser() -> argparse.ArgumentParser:
     )
     _add_wire_dtype_flag(p)
     _add_data_plane_flags(p)
-    _add_unported_flags(p, "--chaos-seed", "--chaos-spec", "--chaos-log")
-    _add_retry_flags(p)
-    _add_unported_flags(
-        p, "--adapt", "--adapt-floor", "--adapt-window", "--adapt-dwell",
-        "--adapt-lag", "--adapt-log",
-    )
+    _add_chaos_flags(p)
+    _add_adapt_flags(p)
     _add_gossip_flags(p)
     _add_obs_flags(p)
     return p
@@ -260,7 +323,10 @@ def cluster_master_defaults() -> dict:
 def cmd_cluster_master(argv: list[str]) -> int:
     p = _cluster_master_parser()
     args = p.parse_args(argv)
-    _refuse_unported(p, args)
+    try:
+        chaos_config_from(args)  # fail fast on a malformed spec
+    except ValueError as e:
+        p.error(str(e))
     from akka_allreduce_tpu_torch.config import WorkerConfig
 
     worker_window = WorkerConfig().round_window
@@ -294,6 +360,7 @@ def _run_cluster_master(args) -> int:
     from akka_allreduce_tpu_torch.control.remote import observed_task
     from akka_allreduce_tpu_torch.utils.metrics import MetricsLogger
 
+    chaos = chaos_config_from(args)  # a malformed spec fails here
     grid_rows = grid_cols = 0
     if args.grid:
         from akka_allreduce_tpu_torch.control.pod import parse_grid
@@ -335,12 +402,21 @@ def _run_cluster_master(args) -> int:
             congestion=args.congestion,
         ),
         gossip=_gossip_config_from(args),
+        chaos=chaos,
+        adapt=adapt_config_from(args),
     )
     _install_obs(args)
 
     async def run() -> None:
         metrics = MetricsLogger(args.metrics_out) if args.metrics_out else None
-        master = MasterProcess(cfg, args.host, args.port, metrics=metrics)
+        master = MasterProcess(
+            cfg, args.host, args.port, metrics=metrics,
+            # a real OS process: the chaos `crash:node=m` fault may os._exit
+            # here (the chaos-failover drill's leader kill), and the
+            # injector writes the chaos log on its way down
+            allow_crash=True,
+            chaos_log=args.chaos_log,
+        )
         ep = await master.start()
         print(f"master listening on {ep}", flush=True)
         # SIGTERM ends an open-ended (--rounds -1) run gracefully: nodes get
@@ -367,6 +443,12 @@ def _run_cluster_master(args) -> int:
             await asyncio.sleep(2 * args.heartbeat)  # let Shutdown flush
         finally:
             await master.stop()
+            if args.chaos_log and master.transport.chaos:
+                path = master.transport.chaos.write_log(args.chaos_log)
+                print(f"chaos event log: {path}", flush=True)
+            if args.adapt_log and master.adapt is not None:
+                path = master.adapt.write_log(args.adapt_log)
+                print(f"adapt decision log: {path}", flush=True)
             if metrics is not None:
                 from akka_allreduce_tpu_torch.obs.metrics import REGISTRY
 
@@ -383,7 +465,7 @@ def _run_cluster_master(args) -> int:
 # -- cluster-node -----------------------------------------------------------
 
 
-def cmd_cluster_node(argv: list[str]) -> int:
+def _cluster_node_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         "cluster-node",
         description="worker-node role: joins the seed, serves one worker per "
@@ -409,7 +491,11 @@ def cmd_cluster_node(argv: list[str]) -> int:
         "--metrics-out", default=None,
         help="JSONL path for the node's per-stage protocol timing",
     )
-    _add_unported_flags(p, "--chaos-log")
+    p.add_argument(
+        "--chaos-log", default=None, metavar="FILE",
+        help="write this node's chaos event log (JSONL) on exit; the "
+        "chaos spec itself arrives from the master via Welcome",
+    )
     p.add_argument(
         "--state-dir", default=None, metavar="DIR",
         help="arm peer state transfer: delta-checkpoint this node's running "
@@ -439,8 +525,12 @@ def cmd_cluster_node(argv: list[str]) -> int:
         help="write the last flush (data, count, iteration) here as .npz",
     )
     _add_obs_flags(p)
+    return p
+
+
+def cmd_cluster_node(argv: list[str]) -> int:
+    p = _cluster_node_parser()
     args = p.parse_args(argv)
-    _refuse_unported(p, args)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     if args.grid:
         from akka_allreduce_tpu_torch.control import pod as _pod
@@ -461,12 +551,7 @@ def cmd_cluster_node(argv: list[str]) -> int:
             f"({row},{col}), node id {idx}",
             flush=True,
         )
-    from akka_allreduce_tpu_torch._device import resolve_device
-
-    try:
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        p.error(str(e))
+    device = node_device(p, args.device)
     _install_obs(args)
 
     import asyncio
@@ -541,6 +626,9 @@ def cmd_cluster_node(argv: list[str]) -> int:
             args.host,
             args.port,
             preferred_node_id=args.node_id,
+            # a real OS process: the chaos `crash` fault may os._exit here
+            allow_crash=True,
+            chaos_log=args.chaos_log,
             state_dir=args.state_dir,
             replicas=args.replicas,
             device=device,
@@ -583,6 +671,8 @@ def cmd_cluster_node(argv: list[str]) -> int:
             reason = await node.run_until_shutdown()
         finally:
             await node.stop()
+            if args.chaos_log and node.transport.chaos is not None:
+                node.transport.chaos.write_log(args.chaos_log)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - state["t0"]

@@ -24,8 +24,8 @@ pre-welcome return address (the joiner does not yet know its node id);
 The port's node holds its round buffers and its payload on ``device`` (the
 card unless the caller asks for the CPU); its transport moves payloads off
 and onto the card at the socket. The master holds no payload and opens no
-CUDA context. The chaos injector and the adaptive controller are not ported
-yet: a configuration that enables either is refused (:func:`refuse_unported`).
+CUDA context. A node arms the chaos injector from the spec its ``Welcome``
+carries; the leader arms its own and runs the adaptive controller.
 """
 
 from __future__ import annotations
@@ -80,19 +80,13 @@ _SOLICITS = _metrics.counter("failover.advert_solicits")
 # how often a freshly-admitted member was shielded from a stale rumor
 _GOSSIP_EXPULSIONS = _metrics.counter("gossip.expulsions")
 _GOSSIP_SHIELDED = _metrics.counter("gossip.rumors_shielded")
-
-
-def refuse_unported(config: AllreduceConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration that arms the chaos
-    injector or the adaptive controller, neither of which is ported yet."""
-    if config.chaos.enabled:
-        raise NotImplementedError(
-            "chaos injection is not ported yet (control/chaos.py)"
-        )
-    if config.adapt.enabled:
-        raise NotImplementedError(
-            "the adaptive controller is not ported yet (control/adapt.py)"
-        )
+# the AdaptiveController's registry evidence (control/adapt.py): cumulative
+# counters whose window deltas are degrade pressure / restore blockers,
+# held as objects so the per-round gather is attribute reads, not lookups
+_EV_RESTARTS = _metrics.counter("master.rounds_restarted")
+_EV_RECONNECTS = _metrics.counter("remote.endpoint_reconnects")
+_EV_DROPS = _metrics.counter("chaos.injected.drop")
+_EV_REORGS = _metrics.counter("master.reorganizations")
 
 
 class MasterProcess:
@@ -122,13 +116,16 @@ class MasterProcess:
         metrics=None,  # utils.metrics.MetricsLogger | None
         epoch: int = 1,
         standby_of: cl.Endpoint | None = None,
+        allow_crash: bool = False,
+        chaos_log: str | None = None,
     ) -> None:
-        refuse_unported(config)
         self.config = config
         self.clock = clock
         self.metrics = metrics
         self.epoch = epoch
         self.standby_of = standby_of
+        self.allow_crash = allow_crash
+        self.chaos_log = chaos_log
         self._took_over = False
         self._fenced_out = False
         self.shutdown_reason: str | None = None
@@ -160,6 +157,14 @@ class MasterProcess:
             self.watchdog = RoundWatchdog(
                 config.master.round_deadline_s, clock=clock
             )
+        # closed-loop adaptive degradation (control/adapt.py): the LEADER
+        # drives it; a passive standby builds its own at takeover (from
+        # the adopted config) and inherits the level via the digest
+        self.adapt = None
+        if config.adapt.enabled and standby_of is None:
+            from akka_allreduce_tpu_torch.control.adapt import AdaptiveController
+
+            self.adapt = AdaptiveController(config.adapt, config.threshold)
         self.grid = self._build_grid()
         self.monitor = HeartbeatMonitor(
             PhiAccrualFailureDetector(
@@ -178,6 +183,8 @@ class MasterProcess:
         self.transport.wire_f16 = config.metadata.wire_dtype == "f16"
         self.transport.retry_policy = config.master.retry
         self.transport.configure_data_plane(config.data_plane)
+        if config.chaos.enabled:
+            self._arm_chaos()
         # peer checkpoint registry (statetransfer, RESILIENCE.md "Recovery"):
         # origin node id -> newest advertised manifest + which nodes hold it.
         # The master never touches chunk BYTES — it is the directory a
@@ -230,7 +237,7 @@ class MasterProcess:
             self.config.line_master,
             on_round_complete=(
                 self._on_round_complete
-                if (self.metrics or self.watchdog)
+                if (self.metrics or self.watchdog or self.adapt)
                 else None
             ),
             on_round_start=(
@@ -241,6 +248,10 @@ class MasterProcess:
             on_reorganize=(self.watchdog.reset if self.watchdog else None),
             epoch=self.epoch,
         )
+        if self.adapt is not None:
+            # the controller's current level survives grid rebuilds (a
+            # takeover replaces the grid wholesale mid-incident)
+            grid.set_policy(self.adapt.policy())
         return grid
 
     def _build_gossip(self) -> None:
@@ -355,6 +366,21 @@ class MasterProcess:
             self._broadcast(self._address_book())
             + self.grid.member_up(nid)
             + self._digest_envelopes()
+        )
+
+    def _arm_chaos(self) -> None:
+        from akka_allreduce_tpu_torch.control.chaos import MASTER_ROLE, ChaosInjector
+
+        self.transport.chaos = ChaosInjector(
+            self.config.chaos.seed,
+            self.config.chaos.spec,
+            role=MASTER_ROLE,
+            dims=self.config.master.dimensions,
+            # crash:node=m fires for real only in a real OS process (the
+            # CLI roles arm this); in-process masters record a suppressed
+            # crash, exactly like nodes
+            allow_crash=self.allow_crash,
+            log_path=self.chaos_log,
         )
 
     @property
@@ -705,6 +731,11 @@ class MasterProcess:
             "completed": self.grid.total_completed,
             "config_id": self.grid.config_id,
         }
+        if self.adapt is not None:
+            # the controller's level/dwell/baseline ride the per-tick half:
+            # a promoted standby inherits the current policy mid-incident
+            # instead of resetting to full fidelity (RESILIENCE.md Tier 5)
+            round_state["adapt"] = self.adapt.digest()
         return (
             self._digest_static + ', "round": ' + json.dumps(round_state) + "}"
         )
@@ -753,9 +784,8 @@ class MasterProcess:
         """The lease expired: become the leader under a bumped epoch.
 
         Restores the digest's membership, round counters and checkpoint
-        registry, adopts the dead leader's config (retry knobs included;
-        one that arms chaos or the adaptive controller is refused), and
-        waits for nodes to walk the standby list and
+        registry, adopts the dead leader's config (chaos + retry knobs
+        included), and waits for nodes to walk the standby list and
         re-join — each re-join of a known member forces a reorganization,
         so rounds resume once the quorum is back, numbered PAST everything
         the old epoch started. A digest that lagged the leader's death by
@@ -765,7 +795,6 @@ class MasterProcess:
         assert digest is not None
         state = json.loads(digest.state_json)
         self.config = AllreduceConfig.from_json(json.dumps(state["config"]))
-        refuse_unported(self.config)
         # epoch bump, tie-broken by standby RANK in the replicated list:
         # two standbys whose leases expire on the same silence must not
         # both claim the same epoch (an equal-epoch pair could never fence
@@ -790,6 +819,18 @@ class MasterProcess:
         self.transport.wire_f16 = self.config.metadata.wire_dtype == "f16"
         self.transport.retry_policy = self.config.master.retry
         self.transport.configure_data_plane(self.config.data_plane)
+        if self.config.chaos.enabled and self.transport.chaos is None:
+            self._arm_chaos()
+            from akka_allreduce_tpu_torch.control.chaos import MASTER_ROLE
+
+            for f in self.transport.chaos.faults:
+                if f.name == "crash" and f.node == MASTER_ROLE:
+                    # the leader-kill fault consumed its one shot on the
+                    # epoch that died of it: a digest that lagged the death
+                    # (round counters below the trigger) must not let the
+                    # promoted master arm the same fault and kill itself
+                    # mid-failover
+                    f.done = True
         fresh_watchdog = None
         if self.watchdog is None and self.config.master.round_deadline_s > 0:
             # the leader ran a round-stall watchdog: the promoted master
@@ -848,7 +889,16 @@ class MasterProcess:
         # re-join (a "restart" of a known member) drives the reorganize
         # that re-prepares everyone under the new epoch
         rnd = state["round"]
-        self.grid = self._build_grid()  # stamps the bumped epoch
+        if self.config.adapt.enabled:
+            # inherit the dead leader's controller mid-incident: level,
+            # dwell and counter watermarks come from the digest, so the
+            # promoted master's first Prepare carries the inherited policy
+            # and the hysteresis clock does not reset with the leader
+            from akka_allreduce_tpu_torch.control.adapt import AdaptiveController
+
+            self.adapt = AdaptiveController(self.config.adapt, self.config.threshold)
+            self.adapt.restore(rnd.get("adapt"))
+        self.grid = self._build_grid()  # stamps the bumped epoch + policy
         live = set(self.book) - self.unreachable
         self.grid.nodes = set(live)
         self.grid.organized = bool(live)
@@ -1171,10 +1221,38 @@ class MasterProcess:
     ) -> None:
         """Per-round observability (SURVEY.md §6): one JSONL record per
         completed line-round — latency, contributors at threshold, config —
-        and the watchdog's completion signal (retires the round's
-        deadline)."""
+        the watchdog's completion signal (retires the round's deadline),
+        and one tick of straggler evidence into the AdaptiveController
+        (RESILIENCE.md "Tier 5"): the master gathers the grid's lag map
+        and the registry counters here and hands them in, so the
+        controller stays a pure, replayable state machine."""
         if self.watchdog is not None:
             self.watchdog.round_completed(line_id, r)
+        if self.adapt is not None and self.active:
+            # the O(lines x workers) lag merge + counter snapshot are only
+            # read on the window-boundary call: skip the gather otherwise
+            if self.adapt.deciding_next:
+                lags = self.grid.worker_lags()
+                counters = {
+                    "restarts": _EV_RESTARTS.value,
+                    "reconnects": _EV_RECONNECTS.value,
+                    "drops": _EV_DROPS.value,
+                    "reorgs": _EV_REORGS.value,
+                }
+                bandwidth = self._gather_bandwidth()
+            else:
+                lags, counters, bandwidth = {}, {}, None
+            pol = self.adapt.observe_round(
+                r, lags, counters, latency_s=latency_s, bandwidth=bandwidth
+            )
+            if pol is not None:
+                # rounds started from now on (this very completion's
+                # window refill included) carry the new stamp; the level
+                # rides the digest's per-tick round state, so the standby
+                # learns it within one lease heartbeat
+                self.grid.set_policy(pol)
+                if self.metrics is not None and self.adapt.last_decision:
+                    self.metrics.log_event(kind="adapt", **self.adapt.last_decision)
         if self.metrics is not None:
             self.metrics.log_event(
                 kind="round",
@@ -1191,11 +1269,30 @@ class MasterProcess:
         """Membership just expelled ``node_id``: evict its per-endpoint
         transport telemetry rows (tx/rx/stream/reconnect gauges are
         otherwise cumulative forever — a dead peer's frozen row would
-        pollute every later snapshot). A re-joining process regrows rows
+        pollute every later snapshot, and the adaptive controller's
+        bandwidth arm would read it). A re-joining process regrows rows
         from zero."""
         ep = self.book.get(node_id)
         if ep is not None:
             self.transport.forget_endpoint(ep)
+
+    def _gather_bandwidth(self) -> dict[str, float] | None:
+        """Per-endpoint cumulative tx+rx bytes from the transport's gauges,
+        as visible to this process (in-process transports all report
+        through the shared registry collector): the bandwidth evidence
+        arm's input, gathered only on window-boundary calls. None when the
+        arm is disabled (skips the collector sweep)."""
+        if self.adapt is None or self.adapt.config.bw_degrade_ratio <= 0:
+            return None
+        prefix = "transport.endpoint."
+        out: dict[str, float] = {}
+        for key, value in _metrics.REGISTRY.snapshot().items():
+            if not key.startswith(prefix):
+                continue
+            endpoint, _, field = key[len(prefix):].rpartition(".")
+            if field in ("tx_bytes", "rx_bytes") and endpoint:
+                out[endpoint] = out.get(endpoint, 0.0) + float(value)
+        return out
 
     def _standby_tuple(self) -> tuple[tuple[str, int], ...]:
         return tuple((ep.host, ep.port) for ep in self.standby_eps)
@@ -1354,6 +1451,8 @@ class NodeProcess:
         *,
         preferred_node_id: int = -1,
         join_retry_s: float = 0.5,
+        allow_crash: bool = False,
+        chaos_log: str | None = None,
         state_dir: str | None = None,
         replicas: int = 2,
         device=None,  # str | torch.device | None: the card unless "cpu"
@@ -1384,6 +1483,13 @@ class NodeProcess:
         # (insta-skipping) task must not shadow a still-running one at
         # stop() — all of them get cancelled at teardown
         self._replicate_tasks: set[asyncio.Task] = set()
+        # chaos plumbing: the spec itself arrives with Welcome (one master
+        # flag arms the cluster); allow_crash gates the `crash` fault to
+        # real subprocesses (the CLI role sets it: an in-process harness
+        # must record a suppressed crash, not end the process)
+        self.allow_crash = allow_crash
+        self.chaos_log = chaos_log
+        self._chaos_t0: float | None = None
         self.incarnation = _new_incarnation()
         self.node_id: int | None = None
         self.node: AllreduceNode | None = None
@@ -1784,12 +1890,38 @@ class NodeProcess:
         self.node_id = msg.node_id
         dims = self.config.master.dimensions
         if self.config.chaos.enabled:
-            # a master that arms chaos (the JAX package's can) expects
-            # every node to inject faults: leave rather than run without
-            log.error("node: chaos injection is not ported yet; leaving")
-            self.shutdown_reason = "chaos not ported"
-            self._shutdown.set()
-            return []
+            from akka_allreduce_tpu_torch.control.chaos import ChaosInjector
+
+            # anchor the fault timeline once per process: a rejoin rebuilds
+            # the injector (the role may even change with the assigned id)
+            # but must not restart partition/stall windows from zero
+            if self._chaos_t0 is None:
+                self._chaos_t0 = time.monotonic()
+            prev = self.transport.chaos
+            if (
+                prev is not None
+                and prev.seed == self.config.chaos.seed
+                and prev.spec == self.config.chaos.spec
+                and prev.role == msg.node_id
+            ):
+                pass  # re-welcome under the same identity: keep the injector
+            else:
+                inj = ChaosInjector(
+                    self.config.chaos.seed,
+                    self.config.chaos.spec,
+                    role=msg.node_id,
+                    dims=dims,
+                    t0=self._chaos_t0,
+                    allow_crash=self.allow_crash,
+                    log_path=self.chaos_log,
+                )
+                if prev is not None:
+                    # a rejoin (or id change) rebuilds the decision streams,
+                    # but the process's event history must survive: the
+                    # exit-time log write reports the whole run, not just
+                    # the last membership epoch
+                    inj.events = list(prev.events) + inj.events
+                self.transport.chaos = inj
         self.node = AllreduceNode(
             msg.node_id,
             dims,

@@ -4,9 +4,12 @@ package's ``control/local.py``.
 
 ``LocalRouter`` is the whole transport: FIFO delivery between registered
 handlers, with a pluggable drop filter for fault injection (the reference's
-tests inject faults exactly this way — by omitting messages). The JAX
-router's second strength, the seeded chaos injector, is not ported yet; a
-configuration that enables it is refused.
+tests inject faults exactly this way — by omitting messages) and the shared
+``chaos`` hook point (``control/chaos.py``, the same injector the TCP
+transport takes). A corrupted payload goes through the real wire codec: its
+values are copied off the card on the current stream (the stream that wrote
+them), framed, flipped and decoded, so the checksum rejects it as it would
+on a socket.
 
 ``LocalAllreduceSystem`` keeps every node's payloads on one device: the card
 unless the caller passes ``device="cpu"``.
@@ -36,6 +39,7 @@ import torch
 from akka_allreduce_tpu_torch._device import resolve_device
 from akka_allreduce_tpu_torch.config import (
     AllreduceConfig,
+    ChaosConfig,
     LineMasterConfig,
     MasterConfig,
     MetaDataConfig,
@@ -53,13 +57,22 @@ DropFilter = Callable[[Envelope], bool]
 
 
 class LocalRouter:
-    """FIFO in-process message delivery with fault injection by omission."""
+    """FIFO in-process message delivery with fault injection.
+
+    Fault injection comes in two strengths: the ``drop_filter`` (omit
+    matching messages, the reference's own technique) and the ``chaos``
+    hook point: drop, duplicate, reorder (push-to-back; also how a planned
+    delay shows in a synchronous router) and payload corruption through a
+    wire-codec round trip, so the in-process mode exercises the real
+    checksum rejection too.
+    """
 
     def __init__(self, drop_filter: DropFilter | None = None) -> None:
         self._handlers: dict[str, Callable[[Any], list[Envelope]]] = {}
         self._prefix_handlers: dict[str, Callable[[int, Any], list[Envelope]]] = {}
         self._queue: deque[Envelope] = deque()
         self.drop_filter = drop_filter
+        self.chaos = None  # control.chaos.ChaosInjector | None
         self.delivered = 0
         self.dropped = 0
 
@@ -73,11 +86,53 @@ class LocalRouter:
         self._prefix_handlers[prefix] = handler
 
     def send_all(self, envelopes: list[Envelope]) -> None:
+        held: list[Envelope] = []
         for env in envelopes:
             if self.drop_filter is not None and self.drop_filter(env):
                 self.dropped += 1
                 continue
+            if self.chaos is not None:
+                act = self.chaos.plan_send(env)
+                if act is not None:
+                    self._apply_chaos(env, act, held)
+                    continue
             self._queue.append(env)
+        # a synchronous router has no clock to hold a message against:
+        # delay/reorder become hold-until-end-of-batch, so every message
+        # sent later in the same batch overtakes the held one (the FIFO
+        # violation the TCP transport's delay produces)
+        self._queue.extend(held)
+
+    def _apply_chaos(self, env: Envelope, act, held: list[Envelope]) -> None:
+        if act.drop or act.fail:
+            self.dropped += 1  # no failure callbacks in-process: both drop
+            return
+        if act.corrupt:
+            corrupted = self._corrupt_roundtrip(env, act)
+            if corrupted is None:
+                self.dropped += 1  # the checksum rejected the flip, as it must
+                return
+            env = corrupted
+        sink = held if act.delay_s > 0 else self._queue
+        sink.append(env)
+        if act.duplicate:
+            sink.append(env)
+
+    def _corrupt_roundtrip(self, env: Envelope, act) -> Envelope | None:
+        """Apply the payload bit flip through the real wire codec: encode
+        (in the envelope's own wire mode, so an int8 or f16 round corrupts
+        the bytes the TCP path would send), flip, decode. None when decode
+        rejects the frame (the checksum doing its job)."""
+        from akka_allreduce_tpu_torch.control import wire
+
+        try:
+            parts = wire.encode_frame_parts(env.dest, wire.to_host(env.msg), wire=env.wire)
+            parts = self.chaos.corrupt_frame_parts(parts, act)
+            body = b"".join(bytes(p) for p in parts)[4:]
+            dest, msg = wire.decode_frame_body(body)
+            return Envelope(dest, msg, via=env.via)
+        except Exception:
+            return None
 
     def run(self, max_messages: int = 1_000_000) -> int:
         """Deliver until quiescent; returns messages delivered."""
@@ -119,15 +174,20 @@ class LocalAllreduceSystem:
                 f"need {n_nodes} data sources and sinks, got "
                 f"{len(data_sources)} and {len(data_sinks)}"
             )
-        if config.chaos.enabled:
-            raise NotImplementedError(
-                "dev-mode chaos is not ported yet: it needs the chaos "
-                "injector (ROADMAP.md Queue 1, item 7)"
-            )
         self.config = config
         self.device = resolve_device(device)
         self.master = GridMaster(config.threshold, config.master, config.line_master)
         self.router = LocalRouter(drop_filter)
+        if config.chaos.enabled:
+            # dev-mode chaos: one injector plays the whole single-process
+            # cluster (role: master, which owns the router), with the spec
+            # grammar and seed determinism of the TCP deployment
+            from akka_allreduce_tpu_torch.control.chaos import MASTER_ROLE, ChaosInjector
+
+            self.router.chaos = ChaosInjector(
+                config.chaos.seed, config.chaos.spec, role=MASTER_ROLE,
+                dims=config.master.dimensions,
+            )
         self.nodes: dict[int, AllreduceNode] = {}
         for i in range(n_nodes):
             self.add_node(i, data_sources[i], data_sinks[i], join=False)
@@ -205,12 +265,14 @@ def local_engine(
     drop_worker: int | None = None,
     device: str | torch.device | None = None,
     keep_outputs: bool = False,
+    chaos: ChaosConfig | None = None,
 ) -> EngineRun:
     """A ``LocalAllreduceSystem``, not started, in which ``nodes`` nodes
     allreduce ``size`` seeded floats each for ``rounds`` rounds (round
     window 2, every threshold ``th``, zero-copy scatter of fixed input
     tensors already on the device). With ``drop_worker`` every message from
-    that worker to another is lost, as the JAX suite's config 5 loses it."""
+    that worker to another is lost, as the JAX suite's config 5 loses it;
+    with an enabled ``chaos`` the router's injector runs that spec."""
     dev = resolve_device(device)
     cfg = AllreduceConfig(
         threshold=ThresholdConfig(th, th, th),
@@ -218,6 +280,7 @@ def local_engine(
         line_master=LineMasterConfig(round_window=2, max_rounds=rounds),
         master=MasterConfig(node_num=nodes, dimensions=dims),
         worker=WorkerConfig(zero_copy_scatter=True),  # fixed input tensors
+        chaos=chaos or ChaosConfig(),
     )
     # seeded by numpy, so every device gets the same floats, and moved to the
     # device once, before any clock starts
@@ -263,8 +326,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--chaos-seed", type=int, default=0)
     parser.add_argument(
         "--chaos-spec", default="",
-        help="dev-mode chaos on the in-process router; not ported yet, so "
-        "a non-empty spec is refused",
+        help="dev-mode chaos on the in-process router (drop/duplicate/"
+        "reorder/corrupt, RESILIENCE.md); empty = off",
     )
     parser.add_argument(
         "--device", default=None,
@@ -272,14 +335,20 @@ def main(argv: list[str] | None = None) -> int:
     )
     args = parser.parse_args(argv)
     if args.chaos_spec:
-        parser.error("--chaos-spec is not ported yet (the chaos injector)")
+        from akka_allreduce_tpu_torch.control.chaos import parse_spec
+
+        try:
+            parse_spec(args.chaos_spec)  # a bad spec fails before any run
+        except ValueError as e:
+            parser.error(str(e))
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from akka_allreduce_tpu_torch.utils.benchmarking import device_fields
 
     dev = resolve_device(args.device)
     run = local_engine(args.size, nodes=args.nodes, chunk=args.chunk, rounds=args.rounds,
-                       th=args.th, dims=args.dims, device=dev).run()
+                       th=args.th, dims=args.dims, device=dev,
+                       chaos=ChaosConfig(seed=args.chaos_seed, spec=args.chaos_spec)).run()
     # a "round" is one collective across ALL nodes; count rounds every node
     # flushed, not per-node flush events
     total_bytes = args.size * 4 * run.rounds

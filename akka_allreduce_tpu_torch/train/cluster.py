@@ -79,8 +79,11 @@ class ElasticClusterNode:
         ``trainer -> (x, y) | None`` for elastic trainers (the batch follows
         the current mesh; None ends training).
       elastic_rate: pull strength toward the group average.
-      allow_crash, chaos_log: arm the chaos tools, which are not ported
-        yet; either raises ``NotImplementedError``.
+      allow_crash: let a seeded chaos ``crash`` end this process (a real
+        OS process only; in-process the injector records a suppressed
+        crash).
+      chaos_log: the injector's event-log path (written when a seeded
+        crash ends the process).
     """
 
     def __init__(
@@ -97,10 +100,6 @@ class ElasticClusterNode:
         allow_crash: bool = False,
         chaos_log: str | None = None,
     ) -> None:
-        if allow_crash or chaos_log:
-            raise NotImplementedError(
-                "allow_crash and chaos_log arm the chaos tools, which are not "
-                "ported yet (control/chaos.py)")
         self.trainer = trainer
         self.batches = batches
         self.on_step = on_step
@@ -127,6 +126,7 @@ class ElasticClusterNode:
         self.binder = ElasticAverageBinder(self._read_snapshot, self._deposit, elastic_rate)
         self.node = NodeProcess(seed, self.binder.data_source, self.binder.data_sink,
                                 host, port, preferred_node_id=preferred_node_id,
+                                allow_crash=allow_crash, chaos_log=chaos_log,
                                 device=self.device)
         if self._elastic:
             self.node.on_members = self._on_members

@@ -44,6 +44,7 @@ import torch
 from torch import nn
 
 from akka_allreduce_tpu_torch._device import resolve_device
+from akka_allreduce_tpu_torch.control.adapt import WIRE_TO_COMPRESS
 from akka_allreduce_tpu_torch.control.failure import (
     HeartbeatMonitor,
     MembershipEvent,
@@ -65,10 +66,6 @@ _COMPRESS_LEVEL = _metrics.gauge("elastic.compress_level")
 
 #: trainer ``compress`` mode -> degrade-ladder level (the gauge's unit)
 COMPRESS_LEVELS = {None: 0, "bf16": 1, "int8": 2}
-
-#: a ``RoundPolicy`` wire stamp -> the trainer's ``compress`` mode (the
-#: port's own copy of ``akka_allreduce_tpu/control/adapt.py``'s table)
-WIRE_TO_COMPRESS = {"f32": None, "f16": "bf16", "int8": "int8"}
 
 #: sentinel: no compress override in force; rebuilds run the factory at
 #: its construction-time mode (``apply_policy_wire("")`` restores this)

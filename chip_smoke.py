@@ -197,7 +197,35 @@ Phases, each printed as it ends:
    ``--model mlp`` and ``--model lm`` side by side (each node's steps, sync rounds
    applied, falling loss and device printed; the master without a CUDA
    context); ``elastic-demo --family dp --nodes 4`` (8 -> 6 -> 8 ranks, 30
-   K1 launches);
+   K1 launches); (l) chaos: ``ElasticDPTrainer`` on ``MLP(2048, 2048)``
+   over 4 nodes x 2 virtual ranks, 16 rows a rank, f32, for 24 steps, its
+   live nodes at each step set by the first ``membership_schedule(seed, 4,
+   24)`` from seed 0 that re-meshes at least twice (seed, schedule and
+   ``leader_kill_step`` printed): K1 once a step, every step bit-equal to
+   the continuation oracle, the final parameters within rtol 2e-4, atol
+   2e-5 of the same schedule on the CPU, each re-mesh's seconds alone and
+   with its first step printed; the zoo's ``zero1`` trainer (ZeRO-1, SGD
+   with momentum 0.9, the momentum sharded over the ranks) at the same width
+   under the same schedule: K1 once a step, at every re-mesh the gathered
+   momentum bit-equal to what it was before and nonzero, every step's
+   parameters and momentum within rtol 2e-4, atol 2e-5 of one unsharded
+   ``torch.optim.SGD`` over the whole batch that never re-meshes;
+   ``chaos-train --family dp`` and ``zero1``
+   at the JAX defaults (3 nodes, the victim's seeded crash at round 30)
+   with the nodes on the card: the victim's exit 23, every survivor's
+   device, steps, K1 launches (one an f32 step), re-meshes and loss before
+   and after the kill printed, no CUDA context in the drill's process or
+   the master; the ``chaos`` drill at config 1's size (1,000,000 floats,
+   chunk 262,144, seed 1234, the default spec; the injected counts and the
+   median round printed); ``LocalAllreduceSystem`` at config 1's size
+   under a spec that drops, duplicates, reorders and corrupts (thresholds
+   0.75, 10 rounds), every flush bit-equal to the same run on the CPU and
+   the event log byte-identical; ``chaos-adapt``, ``chaos-recover``,
+   ``chaos-failover``, ``chaos-gossip`` and ``chaos-scale`` (2x4 grid, 2
+   shards) with the JAX Makefile's levers, every summary printed on its own
+   line with the drill's wall seconds and the drills it ran beside (three
+   groups, a group's drills started together); ``train-mlp --profile-dir`` (a Chrome trace
+   holding K1, 5 launches);
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -243,6 +271,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import sys
 import time
@@ -316,6 +345,16 @@ ELASTIC_NODES, ELASTIC_PER_NODE, ELASTIC_LOST = 4, 2, 3
 LEAK_CYCLES, LEAK_BYTES = 5, 1 << 20
 CLUSTER_TRAIN_STEPS = {"mlp": 1000, "lm": 500}
 STEP_TOL_KW = dict(rtol=2e-4, atol=2e-5)  # tests/test_torch_dp.py's STEP_TOL
+# chaos (phase l): the elastic trainer's steps under the seeded membership
+# schedule (over ELASTIC_NODES nodes); the host engine under a spec that
+# drops, duplicates, reorders and corrupts (config 1's size, thresholds 0.75);
+# chaos-scale's pod, cut from the JAX Makefile's 2x8 grid in 4 shards to 2x4
+# in 2 so that the script stays inside its time limit on a slower host
+# (every node process pays for its interpreter, torch and a CUDA context)
+CHAOS_STEPS = 24
+CHAOS_LOCAL_SPEC = "drop:p=0.02;duplicate:p=0.05;reorder:p=0.05;corrupt:p=0.05"
+CHAOS_LOCAL_SEED, CHAOS_LOCAL_CHUNK, CHAOS_LOCAL_ROUNDS = 0, 262_144, 10
+CHAOS_SCALE_GRID, CHAOS_SCALE_SHARDS = "2x4", 2
 
 
 def ring_name(mode: str | None) -> str:
@@ -1962,6 +2001,19 @@ def snapshot_bytes(snap) -> int:
     return walk(snap.params) + walk(snap.opt_state) + walk(snap.ef) + walk(snap.custom)
 
 
+def continuation_oracle(source, hidden, n_ranks: int, dev):
+    """A fresh ``DPTrainer`` on ``MLP(hidden)`` over ``n_ranks`` ranks,
+    restored from a ``Snapshot`` of ``source``: what an elastic trainer must
+    equal bit for bit from a re-mesh on."""
+    from akka_allreduce_tpu_torch.models import MLP
+    from akka_allreduce_tpu_torch.parallel import line_mesh
+    from akka_allreduce_tpu_torch.train import DPTrainer, Snapshot
+
+    o = DPTrainer(MLP(hidden=hidden, seed=SEED, device=dev), line_mesh(n_ranks, device=dev))
+    Snapshot.capture(source).restore_into(o)
+    return o
+
+
 def elastic_dp_cycle(dev, hidden, rows: int, *, oracle: bool = False,
                      leak_cycles: int = 0) -> dict:
     """``ElasticDPTrainer`` on ``MLP(hidden)`` over 4 nodes x 2 virtual ranks,
@@ -1983,8 +2035,7 @@ def elastic_dp_cycle(dev, hidden, rows: int, *, oracle: bool = False,
 
     from akka_allreduce_tpu_torch.models import MLP, mnist_like
     from akka_allreduce_tpu_torch.ops import local_reduce as lr
-    from akka_allreduce_tpu_torch.parallel import line_mesh
-    from akka_allreduce_tpu_torch.train import DPTrainer, ElasticDPTrainer, Snapshot
+    from akka_allreduce_tpu_torch.train import ElasticDPTrainer, Snapshot
 
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -2007,10 +2058,7 @@ def elastic_dp_cycle(dev, hidden, rows: int, *, oracle: bool = False,
     state = {"offset": 0, "oracle": None}
 
     def fresh_oracle(source):
-        o = DPTrainer(MLP(hidden=hidden, seed=SEED, device=dev),
-                      line_mesh(e.n_devices, device=dev))
-        Snapshot.capture(source).restore_into(o)
-        return o
+        return continuation_oracle(source, hidden, e.n_devices, dev)
 
     def step():
         """One elastic step (and the oracle's); returns its metrics and the
@@ -2299,6 +2347,418 @@ def elastic_path(dev, card: dict) -> dict:
     require(count["masked_average"] == k1(30), f"elastic-demo: {dict(count)}")
     launches["elastic_demo"] = count["masked_average"]
     out["elastic_demo"] = [ln for ln in text.splitlines() if "re-meshed" in ln]
+    out["launches_by_part"] = launches
+    out["launches"] = sum(launches.values())
+    return out
+
+
+# -- phase (l): chaos -----------------------------------------------------------
+
+
+def chaos_schedule(nodes: int, steps: int) -> tuple[int, dict, list]:
+    """The first seed from 0 whose ``membership_schedule(seed, nodes,
+    steps)`` (the JAX defaults ``flap_p`` 0.03, ``flap_len`` (3, 8)) changes
+    the live set at least twice; returns it, the schedule and the live
+    nodes at each step."""
+    from akka_allreduce_tpu_torch.control.chaos import membership_schedule
+
+    everyone = tuple(range(nodes))
+    for seed in range(1000):
+        sched = membership_schedule(seed, nodes, steps)
+        lives = [tuple(n for n in everyone if n not in sched.get(s, ())) for s in range(steps)]
+        if sum(a != b for a, b in zip([everyone, *lives], lives)) >= 2:
+            return seed, sched, lives
+    raise RuntimeError("no seed below 1000 re-meshes twice")
+
+
+def elastic_schedule_run(dev, lives, *, oracle: bool) -> dict:
+    """``ElasticDPTrainer`` on ``MLP(DP_HIDDEN)`` over 4 nodes x 2 virtual
+    ranks, ``DP_ROWS`` rows a rank, f32, one step at each entry of
+    ``lives`` with the membership set to it first (``apply_membership``,
+    as the TCP cluster's view drives it). With ``oracle``, a fresh
+    ``DPTrainer`` restored from a ``Snapshot`` of the one before it at every
+    re-mesh (``continuation_oracle``, as in elastic_dp_cycle) takes each step beside
+    it, compared bit for bit. Returns the K1 launches a step, each re-mesh's
+    seconds alone and with its first step, and the final parameters."""
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.train import ElasticDPTrainer
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    nodes = {n: list(range(n * ELASTIC_PER_NODE, (n + 1) * ELASTIC_PER_NODE))
+             for n in range(ELASTIC_NODES)}
+    e = ElasticDPTrainer(MLP(hidden=DP_HIDDEN, seed=SEED, device=dev), nodes, device=dev)
+    ds = mnist_like(seed=SEED)
+    orc = continuation_oracle(e.trainer, DP_HIDDEN, e.n_devices, dev) if oracle else None
+    out: dict = {"k1_per_step": [], "ranks": [], "losses": [], "remesh": [], "equal": []}
+    for s, live in enumerate(lives):
+        remesh_s = None
+        if live != e.member_nodes:
+            sync()
+            t0 = time.perf_counter()
+            require(e.apply_membership(live), f"step {s}: no re-mesh to {live}")
+            remesh_s = time.perf_counter() - t0
+            if orc is not None:
+                orc = continuation_oracle(orc, DP_HIDDEN, e.n_devices, dev)
+        x, y = next(iter(ds.batches(DP_ROWS * e.n_devices, 1, seed_offset=s)))
+        before = lr.LAUNCHES["masked_average"]
+        t0 = time.perf_counter()
+        m = e.train_step(x, y)  # ends in its loss's host read
+        step_s = time.perf_counter() - t0
+        out["k1_per_step"].append(lr.LAUNCHES["masked_average"] - before)
+        out["ranks"].append(e.n_devices)
+        out["losses"].append(m.loss)
+        if remesh_s is not None:
+            out["remesh"].append({"step": s, "to": list(live), "ranks": e.n_devices,
+                                  "remesh_s": remesh_s, "first_step_s": remesh_s + step_s})
+        if orc is not None:
+            mo = orc.train_step(x, y)
+            out["equal"].append(mo.loss == m.loss and mo.contributors == m.contributors
+                                and np.array_equal(orc.get_flat_params(), e.get_flat_params()))
+    out["generation"] = e.generation
+    out["params"] = e.get_flat_params()
+    return out
+
+
+def zero1_schedule_run(dev, lives) -> dict:
+    """The zoo's ``zero1`` trainer (``Zero1DPTrainer``, SGD at the zoo's
+    rate with momentum 0.9, each rank's momentum on its shard) in an
+    ``ElasticTrainer`` on ``MLP(DP_HIDDEN)`` over 4 nodes x 2 virtual
+    ranks, ``DP_ROWS`` rows a rank, f32, one step at each entry of
+    ``lives``. Beside it one unsharded ``torch.optim.SGD`` with the same
+    rate and momentum over the whole batch, which never re-meshes, takes
+    each step. At every re-mesh the rebuilt trainer's gathered momentum must
+    equal the old one's bit for bit and be nonzero (a re-mesh that lost the
+    sharded state fails here); after every step its parameters and momentum
+    must be within ``STEP_TOL`` (the momentum's atol scaled by its largest
+    entry) of the unsharded optimizer's. Returns the K1 launches a step, each
+    re-mesh's seconds and the largest differences."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from akka_allreduce_tpu_torch._device import ieee_f32
+    from akka_allreduce_tpu_torch.binder.api import leaf_order
+    from akka_allreduce_tpu_torch.models import MLP, mnist_like
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.train import ElasticTrainer, Zero1DPTrainer
+    from akka_allreduce_tpu_torch.train.zoo import _ZERO1_LR
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=_ZERO1_LR, momentum=0.9)
+
+    def factory(mesh, compress=None):  # the zoo's _make_zero1 at the DP cell's width
+        return Zero1DPTrainer(MLP(hidden=DP_HIDDEN, seed=SEED, device=mesh.device), mesh,
+                              optimizer=sgd, compress=compress,
+                              error_feedback=compress is not None)
+
+    def momentum(t) -> torch.Tensor:
+        """The trainer's momentum, its ranks' shards gathered, unpadded."""
+        shards = t.checkpoint_capture()["opt_state"]["trace"]
+        return torch.cat([m.reshape(-1) for m in shards])[:t.param_count].clone()
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    nodes = {n: list(range(n * ELASTIC_PER_NODE, (n + 1) * ELASTIC_PER_NODE))
+             for n in range(ELASTIC_NODES)}
+    e = ElasticTrainer(factory, nodes, device=dev)
+    ref = MLP(hidden=DP_HIDDEN, seed=SEED, device=dev)
+    names = leaf_order(ref)
+    named = dict(ref.named_parameters())
+    ref_opt = sgd([named[n] for n in names])
+    ds = mnist_like(seed=SEED)
+    out: dict = {"k1_per_step": [], "remesh": [], "param_err": 0.0, "momentum_err": 0.0}
+    for s, live in enumerate(lives):
+        if live != e.member_nodes:
+            before = momentum(e.trainer)
+            sync()
+            t0 = time.perf_counter()
+            require(e.apply_membership(live), f"zero1 step {s}: no re-mesh to {live}")
+            remesh_s = time.perf_counter() - t0
+            after = momentum(e.trainer)
+            require(torch.equal(before, after) and float(before.abs().max()) > 0,
+                    f"zero1 re-mesh at step {s}: the sharded momentum was not carried "
+                    f"(max |m| {float(before.abs().max())} -> {float(after.abs().max())})")
+            out["remesh"].append({"step": s, "to": list(live), "ranks": e.n_devices,
+                                  "remesh_s": remesh_s,
+                                  "momentum_max_abs": float(before.abs().max())})
+        x, y = next(iter(ds.batches(DP_ROWS * e.n_devices, 1, seed_offset=s)))
+        k1 = lr.LAUNCHES["masked_average"]
+        m = e.train_step(x, y)
+        out["k1_per_step"].append(lr.LAUNCHES["masked_average"] - k1)
+        require(math.isfinite(m.loss), f"zero1 step {s}: loss {m.loss}")
+        ref_opt.zero_grad()
+        with ieee_f32():
+            F.cross_entropy(ref(torch.as_tensor(x, device=dev)),
+                            torch.as_tensor(y, device=dev).long()).backward()
+        ref_opt.step()
+        with torch.no_grad():
+            want_p = torch.cat([named[n].reshape(-1) for n in names]).cpu().numpy()
+            want_m = torch.cat([ref_opt.state[named[n]]["momentum_buffer"].reshape(-1)
+                                for n in names]).cpu().numpy()
+        got_p, got_m = e.get_flat_params(), momentum(e.trainer).cpu().numpy()
+        scale = float(np.abs(want_m).max())
+        require(np.allclose(got_p, want_p, **STEP_TOL_KW)
+                and np.allclose(got_m, want_m, rtol=STEP_TOL_KW["rtol"],
+                                atol=STEP_TOL_KW["atol"] * scale),
+                f"zero1 step {s}: params {np.abs(got_p - want_p).max()}, momentum "
+                f"{np.abs(got_m - want_m).max()} of max {scale}")
+        out["param_err"] = max(out["param_err"], float(np.abs(got_p - want_p).max()))
+        out["momentum_err"] = max(out["momentum_err"], float(np.abs(got_m - want_m).max()))
+    out["generation"] = e.generation
+    out["loss"] = m.loss
+    return out
+
+
+def run_drills(root, group, *, dev, timeout: float = 480) -> list[dict]:
+    """Start the drills of ``group`` (``(name, argv)`` pairs) together, each
+    ``python -m akka_allreduce_tpu_torch <name> <argv>`` with its nodes on
+    ``dev``, its stderr (and its roles') in a log and its own process
+    group, killed whole if it outlives ``timeout``; each must exit 0 with
+    an empty ``failures`` list in its summary JSON (its last stdout line).
+    Returns the summaries, each with its wall seconds, the drills it ran
+    beside (``with``: its readings were taken under their load) and its
+    output directory."""
+    import signal
+    import subprocess
+
+    runs = []
+    try:
+        for name, argv in group:
+            d = root / "_".join((name, *argv[:2]))
+            d.mkdir()
+            cli = [name, *argv, "--out-dir", str(d / "out"), "--device", str(dev)]
+            with open(d / "drill.log", "w") as err:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "akka_allreduce_tpu_torch", *cli],
+                    stdout=subprocess.PIPE, stderr=err, text=True, start_new_session=True)
+            runs.append({"name": name, "argv": list(argv), "dir": d, "cli": cli,
+                         "proc": proc, "t0": time.perf_counter()})
+        t_end = time.perf_counter() + timeout
+        # a drill prints a few lines before its summary, far below a pipe's
+        # buffer, so polling cannot stall one
+        while any("wall_s" not in r for r in runs) and time.perf_counter() < t_end:
+            for r in runs:
+                if "wall_s" not in r and r["proc"].poll() is not None:
+                    r["wall_s"] = time.perf_counter() - r["t0"]
+            time.sleep(0.1)
+        for r in runs:
+            r.setdefault("wall_s", time.perf_counter() - r["t0"])
+            r["stdout"] = r["proc"].communicate(timeout=5)[0] if r["proc"].poll() is not None else ""
+    finally:
+        for r in runs:
+            try:
+                os.killpg(r["proc"].pid, signal.SIGKILL)  # the drill's roles, if any are left
+            except ProcessLookupError:
+                pass
+            r["proc"].wait(timeout=30)
+    out = []
+    for r in runs:
+        lines = r["stdout"].strip().splitlines()
+        tail = "\n".join((r["dir"] / "drill.log").read_text().splitlines()[-25:])
+        require(r["proc"].returncode == 0 and lines,
+                f"{' '.join(r['cli'])}: rc {r['proc'].returncode} after {r['wall_s']:.1f} s "
+                f"(limit {timeout} s)\n{r['stdout'][-3000:]}\n{tail}")
+        summary = json.loads(lines[-1])
+        require(summary.get("failures", []) == [], f"{r['name']}: {summary}")
+        summary["wall_s"] = r["wall_s"]
+        summary["with"] = [" ".join((o["name"], *o["argv"][:2])) for o in runs if o is not r]
+        print(json.dumps({"drill": r["name"], "argv": r["argv"], **summary}), flush=True)
+        summary["out_dir"] = str(r["dir"] / "out")
+        out.append(summary)
+    return out
+
+
+def chaos_path(dev, card: dict) -> dict:
+    """Phase (l): the chaos tools on the card. (l1) ``ElasticDPTrainer`` at
+    the DP cell's width under the first seeded ``membership_schedule`` that
+    re-meshes twice: K1 once a step, every step bit-equal to the
+    continuation oracle, the final parameters within ``STEP_TOL`` of the
+    same schedule on the CPU, each re-mesh timed; ``leader_kill_step``
+    printed beside the schedule. (l2) ``chaos-train --family dp`` and
+    ``zero1`` at the JAX defaults, the nodes on the card: the victim ends
+    with exit 23, every survivor re-meshes within the loss band, K1 once an
+    f32 step in each node, neither the drill's process nor the master with
+    a CUDA context. (l3) the ``chaos`` drill at config 1's size. (l4)
+    ``LocalAllreduceSystem`` under a spec that drops, duplicates, reorders
+    and corrupts, on the card against the CPU: every flush bit-equal, the
+    event log byte-identical. (l5) ``chaos-adapt``, ``chaos-recover``,
+    ``chaos-failover``, ``chaos-gossip`` and ``chaos-scale`` with the JAX
+    Makefile's levers. The drills run in three groups, the drills of a
+    group started together (each its own cluster on its own ports): (l2)
+    and (l3); adapt, recover and failover;
+    gossip and scale. Then ``train-mlp --profile-dir``. Returns K1's
+    launches in this process and the figures."""
+    import shutil
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.config import ChaosConfig
+    from akka_allreduce_tpu_torch.control.chaos import CRASH_EXIT_CODE, leader_kill_step
+    from akka_allreduce_tpu_torch.control.local import local_engine
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+
+    count = lr.LAUNCHES
+    out: dict = {"card": card["smi"]}
+    launches = {}
+
+    # (l1) the elastic DP trainer under the seeded membership schedule
+    seed, sched, lives = chaos_schedule(ELASTIC_NODES, CHAOS_STEPS)
+    kill = leader_kill_step(seed, CHAOS_STEPS)
+    print(f"membership schedule (seed {seed}, {ELASTIC_NODES} nodes, {CHAOS_STEPS} steps): "
+          f"{ {s: sorted(v) for s, v in sorted(sched.items())} }; leader_kill_step {kill}",
+          flush=True)
+    zero(count)
+    run = elastic_schedule_run(dev, lives, oracle=True)
+    torch.cuda.synchronize(dev)
+    require(run["k1_per_step"] == [1] * CHAOS_STEPS, f"K1 once a step: {run['k1_per_step']}")
+    # the oracle's steps launch K1 too (as many again); the path's are the elastic steps'
+    require(count["masked_average"] == 2 * CHAOS_STEPS, f"K1 launches: {dict(count)}")
+    launches["schedule"] = sum(run["k1_per_step"])
+    require(all(run["equal"]) and len(run["equal"]) == CHAOS_STEPS,
+            f"continuation oracle: {run['equal']}")
+    require(len(run["remesh"]) >= 2 and run["generation"] == len(run["remesh"])
+            and all(math.isfinite(v) for v in run["losses"]), f"schedule run: {run['remesh']}")
+    cpu = elastic_schedule_run(torch.device("cpu"), lives, oracle=False)
+    cpu_err = float(np.abs(run["params"] - cpu["params"]).max())
+    require(np.allclose(run["params"], cpu["params"], **STEP_TOL_KW),
+            f"schedule run on the card vs the CPU: max abs {cpu_err}")
+    for r in run["remesh"]:
+        print(f"chaos re-mesh at step {r['step']} (-> nodes {r['to']}, {r['ranks']} ranks, "
+              f"MLP{DP_HIDDEN}, {card['name']}, {card['power_limit']}): re-mesh "
+              f"{r['remesh_s'] * 1e3:.3f} ms, with its first step "
+              f"{r['first_step_s'] * 1e3:.3f} ms", flush=True)
+    out["schedule"] = {"seed": seed, "silent": {str(s): sorted(v) for s, v in sched.items()},
+                       "leader_kill_step": kill, "ranks": run["ranks"],
+                       "losses": [run["losses"][0], run["losses"][-1]],
+                       "remesh": run["remesh"], "oracle": "bit-equal at every step",
+                       "vs_cpu_max_abs": cpu_err}
+    del run, cpu
+    # ZeRO-1 under the same schedule: the sharded momentum carried at every re-mesh
+    zero(count)
+    z1 = zero1_schedule_run(dev, lives)
+    torch.cuda.synchronize(dev)
+    require(z1["k1_per_step"] == [1] * CHAOS_STEPS and count["masked_average"] == CHAOS_STEPS
+            and len(z1["remesh"]) == len(out["schedule"]["remesh"]),
+            f"zero1 schedule: K1 {z1['k1_per_step']}, re-meshes {z1['remesh']}")
+    launches["schedule_zero1"] = sum(z1["k1_per_step"])
+    for r in z1["remesh"]:
+        print(f"zero1 re-mesh at step {r['step']} (-> nodes {r['to']}, {r['ranks']} ranks, "
+              f"MLP{DP_HIDDEN}, {card['name']}, {card['power_limit']}): "
+              f"{r['remesh_s'] * 1e3:.3f} ms, momentum (max |m| {r['momentum_max_abs']:.6g}) "
+              "carried bit for bit", flush=True)
+    out["schedule_zero1"] = {k: z1[k] for k in ("remesh", "param_err", "momentum_err",
+                                                 "generation", "loss")}
+    torch.cuda.empty_cache()
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_chaos_"))
+    try:
+        # (l2) chaos-train, the nodes' trainers on the card, beside (l3) the
+        # chaos drill at config 1's size, the nodes' payloads on the card
+        levers = ("--uring", "--intra-chunk", "1048576", "--congestion")
+        groups = [
+            [("chaos-train", ("--family", "dp")), ("chaos-train", ("--family", "zero1")),
+             ("chaos", ("--size", str(CLUSTER_FLOATS), "--chunk", str(CLUSTER_CHUNK),
+                        "--seed", "1234"))],
+            # (l5) the other drills, with the JAX Makefile's levers
+            [("chaos-adapt", ("--seed", "1234", "--streams", "2", "--gossip", *levers)),
+             ("chaos-recover", ("--seed", "1234", "--streams", "2", "--gossip", *levers)),
+             ("chaos-failover", ("--seed", "1234", "--streams", "2", "--gossip", *levers))],
+            [("chaos-gossip", ("--seed", "1234", "--streams", "2", *levers)),
+             ("chaos-scale", ("--seed", "1234", "--grid", CHAOS_SCALE_GRID, "--line-shards",
+                              str(CHAOS_SCALE_SHARDS), "--streams", "2", *levers))],
+        ]
+        # On an H100 host a drill is bound by its processes' start-up, not
+        # its rounds (chaos-train dp: 45.9 of 50.6 s before its first round;
+        # import torch alone 6.7 s): one after another the eight took 422.6
+        # s and the script 1,063 s of its 1,200. Started three at a time
+        # their start-ups overlap (groups of 57.7-71.8 s; a drill's wall
+        # 0.92-1.23x its wall alone, on another host). A drill's readings in
+        # a group are taken beside its siblings' load, which its summary
+        # line names (``with``).
+        summaries = {}
+        for group in groups:
+            t0 = time.perf_counter()
+            for (name, argv), s in zip(group, run_drills(root, group, dev=dev)):
+                summaries["_".join((name, *argv[:2])) if name == "chaos-train" else name] = s
+            out.setdefault("drill_groups_s", []).append(time.perf_counter() - t0)
+        for family in ("dp", "zero1"):
+            s = summaries[f"chaos-train_--family_{family}"]
+            require(s["victim_exit"] == CRASH_EXIT_CODE and s["master_done"]
+                    and s["parent_cuda_initialized"] is False
+                    and s["master_cuda_initialized"] is False, f"chaos-train {family}: {s}")
+            for k, node in s["node_summaries"].items():
+                require(node["remeshes"] >= 1 and node["device"].startswith("device=cuda")
+                        and node["k1_launches"] == node["steps"],
+                        f"chaos-train {family} node {k}: {node}")
+                c, rec = s["continuity"][k], s["crash_to_first_post_remesh_step"].get(k, {})
+                print(f"chaos-train {family} survivor {k}: {node['device']}; {node['steps']} "
+                      f"steps, {node['k1_launches']} K1 launches, {node['remeshes']} re-meshes "
+                      f"(generation {node['generation']}); loss median {c['pre_median']} before "
+                      f"the kill -> {c['post_median']} after (bar {c['bar']}); crash to first "
+                      f"post-re-mesh step {rec.get('from_victim_last_step_s')} s", flush=True)
+            out[f"chaos_train_{family}"] = {k: s[k] for k in (
+                "wall_s", "victim_exit", "survivor_rounds", "continuity", "node_summaries",
+                "crash_to_first_post_remesh_step")}
+        s = summaries.pop("chaos")
+        lat = [r["latency_s"] for r in jsonl(Path(s["out_dir"]) / "rounds.jsonl")
+               if r.get("kind") == "round"]
+        require(s["rounds_completed"] > 0 and s["master_done"] and lat, f"chaos: {s}")
+        out["chaos"] = {"wall_s": s["wall_s"], "rounds_completed": s["rounds_completed"],
+                        "chaos_events": s["chaos_events"], "node_exits": s["node_exits"],
+                        "median_round_ms": statistics.median(lat) * 1e3}
+        print(f"chaos drill at {CLUSTER_FLOATS} floats ({card['name']}, "
+              f"{card['power_limit']}): {s['rounds_completed']} rounds under "
+              f"{s['chaos_events']}, median round {out['chaos']['median_round_ms']:.3f} ms",
+              flush=True)
+        for name in ("chaos-adapt", "chaos-recover", "chaos-failover", "chaos-gossip",
+                     "chaos-scale"):
+            s = summaries[name]
+            s.pop("out_dir")
+            out[name.replace("-", "_")] = s
+
+        # (l4) the host engine's router under chaos, on the card against the CPU
+        zero(count)
+        spec = ChaosConfig(seed=CHAOS_LOCAL_SEED, spec=CHAOS_LOCAL_SPEC)
+        runs = [local_engine(CLUSTER_FLOATS, chunk=CHAOS_LOCAL_CHUNK, rounds=CHAOS_LOCAL_ROUNDS,
+                             th=0.75, device=d, keep_outputs=True, chaos=spec).run()
+                for d in (dev, torch.device("cpu"))]
+        logs = [r.system.router.chaos.event_log_jsonl() for r in runs]
+        require(logs[0] == logs[1] and runs[0].rounds >= 1
+                and set(runs[0].system.router.chaos.counts()) == {
+                    "drop", "duplicate", "reorder", "corrupt"},
+                f"local chaos: logs equal {logs[0] == logs[1]}, rounds {runs[0].rounds}, "
+                f"{runs[0].system.router.chaos.counts()}")
+        flushes = engine_flushes_equal(*runs)
+        require(count["masked_average"] == 0, f"local chaos launched K1: {dict(count)}")
+        out["local_chaos"] = {"rounds": runs[0].rounds, "flushes_equal": flushes,
+                              "events": runs[0].system.router.chaos.counts(),
+                              "seconds": runs[0].seconds, "cpu_seconds": runs[1].seconds}
+        print(f"local engine under chaos ({CLUSTER_FLOATS} floats, {card['name']}): "
+              f"{runs[0].rounds} rounds, {flushes} flushes bit-equal to the CPU's, "
+              f"event log byte-identical ({len(logs[0].splitlines())} events)", flush=True)
+        del runs
+
+        # train-mlp --profile-dir on the card: the trace holds K1
+        zero(count)
+        prof = root / "profile"
+        rc, text = run_cli(["train-mlp", "--steps", "5", "--profile-dir", str(prof)])
+        torch.cuda.synchronize(dev)
+        traces = list(prof.glob("*.json"))
+        require(rc == 0 and len(traces) == 1 and "masked_average" in traces[0].read_text(),
+                f"train-mlp --profile-dir: rc {rc}, {traces}\n{text}")
+        require(count["masked_average"] == 5, f"train-mlp: one K1 a step: {dict(count)}")
+        launches["train_mlp_profile"] = count["masked_average"]
+        out["train_mlp_profile"] = {"trace_bytes": traces[0].stat().st_size,
+                                    "line": text.strip().splitlines()[-1]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     out["launches_by_part"] = launches
     out["launches"] = sum(launches.values())
     return out
@@ -3236,6 +3696,13 @@ def main() -> int:
           **{k: el[k] for k in ("config5", "dp_cycle", "ladder", "int8_ef",
                                 "train_cluster_mlp", "train_cluster_lm", "elastic_demo")})
 
+    # -- 4l. chaos: the seeded schedule, the drills, the router's injector ------
+    t0 = time.perf_counter()
+    ch = chaos_path(dev, card)
+    phase("chaos_path", t0, card=card["smi"], launches={"masked_average": ch["launches"]},
+          launches_by_part=ch["launches_by_part"],
+          **{k: v for k, v in ch.items() if k not in ("card", "launches", "launches_by_part")})
+
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
     k = K_WORKERS
@@ -3399,7 +3866,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     path_launches = {**launches, **ring_launches}
-    path_launches["masked_average"] += dp_launches + el["launches"]
+    path_launches["masked_average"] += dp_launches + el["launches"] + ch["launches"]
     for part in (lm["launches"], train["launches"], ck["launches"]):
         for name, n in part.items():
             path_launches[name] = path_launches.get(name, 0) + n

@@ -4,7 +4,8 @@ the CPU: the port's versions of ``tests/test_remote.py``'s cluster tests
 the wire codec, the nodes' buffers at ``device="cpu"``), the two mixed
 clusters (a JAX master with port nodes, a port master with JAX nodes),
 chunk pulls between port nodes and between port and JAX nodes, a standby
-takeover, and the CLI as real processes.
+takeover, a master arming chaos and the adaptive controller, and the CLI as
+real processes.
 
 Every asyncio test runs under its own deadline, so a hang fails the test.
 Heartbeats are 0.2 s with a 1 s timeout, except in the tests about failure
@@ -434,19 +435,27 @@ def test_standby_takeover_resumes_rounds_under_the_new_epoch():
     _run(run())
 
 
-def test_unported_parts_are_refused():
+def test_master_arms_chaos_and_the_adaptive_controller():
+    """A configuration that arms chaos gives the master's transport an
+    injector in the master's role; one that enables the adaptive controller
+    builds it, its policy stamped on the grid."""
+    from akka_allreduce_tpu_torch.control.adapt import AdaptiveController
+    from akka_allreduce_tpu_torch.control.chaos import MASTER_ROLE, ChaosInjector
+
     cfg = _config(2)
     chaos = t_config.AllreduceConfig.from_json(
         cfg.to_json().replace('"spec": ""', '"spec": "drop:p=0.1"')
     )
     assert chaos.chaos.enabled
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        MasterProcess(chaos, port=0)
+    inj = MasterProcess(chaos, port=0).transport.chaos
+    assert isinstance(inj, ChaosInjector) and inj.role == MASTER_ROLE
+    assert inj.spec == "drop:p=0.1" and not inj.allow_crash
     adapt = t_config.AllreduceConfig.from_json(
         json.dumps({**json.loads(cfg.to_json()), "adapt": {"enabled": True}})
     )
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        MasterProcess(adapt, port=0)
+    master = MasterProcess(adapt, port=0)
+    assert isinstance(master.adapt, AdaptiveController)
+    assert master.grid.policy == master.adapt.policy() and master.transport.chaos is None
 
 
 def _spawn(*argv):

@@ -6,7 +6,7 @@ over loopback TCP on the CPU, the port's versions of
 started); a node whose model does not match the cluster's ``data_size`` is
 refused; when the other member departs, a node wrapping an
 ``ElasticDPTrainer`` re-meshes through ``apply_membership`` and keeps
-training; the chaos arguments are refused; and ``train-cluster-master``
+training; the chaos arguments reach its ``NodeProcess``; and ``train-cluster-master``
 with two ``train-cluster-node --device cpu`` processes.
 
 Every asyncio test runs under its own deadline, so a hang fails the test.
@@ -158,11 +158,12 @@ def test_survivor_remeshes_its_elastic_trainer_when_a_member_departs():
     _run(run())
 
 
-def test_chaos_arguments_are_refused():
+def test_chaos_arguments_pass_through_to_the_node():
     ep = Endpoint("127.0.0.1", 1)
     for kw in (dict(allow_crash=True), dict(chaos_log="x.jsonl")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ElasticClusterNode(ep, _trainer(0), iter(()), **kw)
+        node = ElasticClusterNode(ep, _trainer(0), iter(()), **kw).node
+        assert node.allow_crash is kw.get("allow_crash", False)
+        assert node.chaos_log == kw.get("chaos_log")
 
 
 def test_snapshot_cell_hands_over_new_tensors():

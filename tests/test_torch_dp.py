@@ -21,8 +21,8 @@ both see the same numpy batches (``mnist_like``), ``MLP(hidden=(32,))``:
 - ``train_chain`` against the port's own steps on the same generator's
   batches; the guards and the refusals (overlap and accumulation are held
   in ``tests/test_torch_overlap.py``); ``dense_train_flops``;
-  ``train-mlp``, ``bench-suite`` config 3 and ``bench-mfu --workload mlp``
-  on the CPU at a tiny size.
+  ``train-mlp`` (and its ``--profile-dir`` trace), ``bench-suite`` config 3
+  and ``bench-mfu --workload mlp`` on the CPU at a tiny size.
 
 Each JAX trainer is built once (eight builds in all).
 """
@@ -406,6 +406,18 @@ def test_train_mlp_on_the_cpu(capsys, tmp_path, extra):
     events = [json.loads(line) for line in out.read_text().splitlines()]
     steps = [e for e in events if e["kind"] == "train_step"]
     assert len(steps) == 4 and all(e["contributors"] == 8.0 for e in steps)
+
+
+def test_train_mlp_profile_dir_writes_a_trace(capsys, tmp_path):
+    """``--profile-dir`` runs the step loop under ``torch.profiler`` and
+    writes its Chrome trace there, with the steps' ops in it."""
+    prof = tmp_path / "prof"
+    assert cli_main(["train-mlp", "--device", "cpu", "--hidden", "16", "--steps", "2",
+                     "--batch", "16", "--profile-dir", str(prof)]) == 0
+    (trace,) = prof.glob("*.json")
+    assert f"profile trace written to {trace}" in capsys.readouterr().out
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any("aten::" in str(e.get("name", "")) for e in events)
 
 
 def test_config3_record_on_the_cpu():

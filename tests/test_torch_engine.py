@@ -575,10 +575,12 @@ def test_config_json_round_trip_and_errors_match_jax(raw):
     assert ours.gossip.suspicion_window_s == theirs.gossip.suspicion_window_s
 
 
-def test_chaos_config_is_refused_by_the_local_system():
+def test_chaos_config_arms_the_local_system():
     cfg = tconfig.AllreduceConfig(chaos=tconfig.ChaosConfig(seed=1, spec="drop:p=0.1"))
-    with pytest.raises(NotImplementedError, match="chaos"):
-        LocalAllreduceSystem(1, [None], [None], cfg, device="cpu")
+    inj = LocalAllreduceSystem(1, [None], [None], cfg, device="cpu").router.chaos
+    assert (inj.seed, inj.spec, inj.role) == (1, "drop:p=0.1", -1)
+    plain = LocalAllreduceSystem(1, [None], [None], tconfig.AllreduceConfig(), device="cpu")
+    assert plain.router.chaos is None
 
 
 def test_pod_functions_match_jax(monkeypatch):

@@ -7,14 +7,15 @@
 - The CPU path launches no kernel (the threshold reduce, the ring, and a
   gated attention forward and backward alike).
 - The ``bench-suite`` (config 1, the host engine, first; config 5 last), ``bench`` and
-  ``local-demo`` commands print parseable records at a tiny size, and the
-  host engine's dev-mode chaos is refused.
+  ``local-demo`` commands print parseable records at a tiny size, and
+  ``local-demo --chaos-spec`` arms the host engine's dev-mode chaos.
 - Its copies of the configs and of the per-round metrics behave as the JAX
   package's.
 - The TCP control plane's commands and the elastic ones (``elastic-demo``,
   ``train-cluster-master``, ``train-cluster-node``) are listed, as in the JAX
-  CLI; the cluster commands refuse the chaos and adapt flags and put a node
-  on the card unless given ``--device cpu``.
+  CLI, with the eight chaos drills (26 of the JAX CLI's 30 commands); the
+  cluster commands parse the chaos and adapt flags as the JAX CLI does and
+  put a node on the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -101,7 +102,9 @@ def test_source_names_no_jax_package():
                 "control.statetransfer", "train.checkpoint", "train.zero1",
                 "control.cluster", "control.failure", "control.stripes",
                 "control.gossip", "control.remote", "control.bootstrap",
-                "native", "cluster_cli", "train.elastic", "train.cluster"):
+                "native", "cluster_cli", "train.elastic", "train.cluster",
+                "control.chaos", "control.adapt", "control.simfabric", "train.zoo",
+                "chaos_cli"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
@@ -321,15 +324,20 @@ def test_local_demo_cli_prints_one_line(capsys):
     assert "per-node flushes: [3, 3, 3, 3]" in line
 
 
-def test_chaos_is_refused(capsys):
+def test_local_demo_arms_chaos(capsys):
+    rc = cli_main(["local-demo", "--device", "cpu", "--size", "1000", "--chunk", "64",
+                   "--rounds", "3", "--chaos-seed", "1", "--chaos-spec", "duplicate:p=0.1"])
+    assert rc == 0
+    assert "rounds_completed=3" in capsys.readouterr().out.strip().splitlines()[-1]
     with pytest.raises(SystemExit) as exit_info:
-        cli_main(["local-demo", "--device", "cpu", "--chaos-spec", "drop:p=0.1"])
+        cli_main(["local-demo", "--device", "cpu", "--chaos-spec", "explode:p=1"])
     assert exit_info.value.code == 2
-    assert "--chaos-spec is not ported yet" in capsys.readouterr().err
+    assert "unknown chaos fault" in capsys.readouterr().err
     chaos = AllreduceConfig(chaos=config.ChaosConfig(seed=1, spec="drop:p=0.1"))
     assert chaos.chaos.enabled
-    with pytest.raises(NotImplementedError, match="chaos injector"):
-        LocalAllreduceSystem(1, [None], [None], chaos, device="cpu")
+    system = LocalAllreduceSystem(1, [None], [None], chaos, device="cpu")
+    inj = system.router.chaos
+    assert (inj.seed, inj.spec, inj.role, inj.dims) == (1, "drop:p=0.1", -1, 1)
 
 
 @pytest.mark.parametrize(
@@ -344,11 +352,37 @@ def test_chaos_is_refused(capsys):
         ["cluster-node", "--seed", "127.0.0.1:1", "--device", "cpu", "--chaos-log", "x"],
     ],
 )
-def test_cluster_cli_refuses_chaos_and_adapt(argv, capsys):
-    with pytest.raises(SystemExit) as exit_info:
-        cli_main(argv)
-    assert exit_info.value.code == 2
-    assert "is not ported yet" in capsys.readouterr().err
+def test_cluster_cli_parses_chaos_and_adapt_like_jax(argv):
+    """Each argv parses into the flag values, ``ChaosConfig`` and
+    ``AdaptConfig`` that the JAX CLI builds from it."""
+    import argparse
+    import dataclasses
+
+    import akka_allreduce_tpu.__main__ as jmain
+    from akka_allreduce_tpu_torch import cluster_cli
+
+    if argv[0] == "cluster-node":
+        ours = cluster_cli._cluster_node_parser().parse_args(argv[1:])
+        assert ours.chaos_log == "x"
+        return
+    ours = cluster_cli._cluster_master_parser().parse_args(argv[1:])
+    p = argparse.ArgumentParser()
+    jmain._add_chaos_flags(p)
+    jmain._add_adapt_flags(p)
+    theirs, _ = p.parse_known_args(argv[1:])
+    for name in ("chaos_seed", "chaos_spec", "chaos_log", "adapt", "adapt_floor",
+                 "adapt_window", "adapt_dwell", "adapt_lag", "adapt_log", "send_retries",
+                 "send_backoff_base", "send_backoff_max"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert dataclasses.asdict(cluster_cli.adapt_config_from(ours)) == dataclasses.asdict(
+        jmain._adapt_config_from(theirs))
+    chaos = cluster_cli.chaos_config_from(ours)
+    assert (chaos.seed, chaos.spec, chaos.enabled) == (
+        theirs.chaos_seed, theirs.chaos_spec, bool(theirs.chaos_spec))
+
+
+DRILLS = ("chaos", "chaos-recover", "chaos-gossip", "chaos-scale", "chaos-failover",
+          "chaos-adapt", "chaos-train", "chaos-train-node")
 
 
 def test_cluster_commands_are_listed(capsys):
@@ -356,9 +390,12 @@ def test_cluster_commands_are_listed(capsys):
     from akka_allreduce_tpu_torch.__main__ import COMMANDS
 
     new = ("cluster-master", "cluster-node", "cluster-standby", "obs", "bench-wire",
-           "elastic-demo", "train-cluster-master", "train-cluster-node")
+           "elastic-demo", "train-cluster-master", "train-cluster-node", *DRILLS)
     assert set(new) <= set(COMMANDS) and set(new) <= set(JAX_COMMANDS)
-    assert "soak" in JAX_COMMANDS and "soak" not in COMMANDS  # waits for FSDPLMTrainer
+    # the four that wait for ROADMAP items 9 to 11
+    assert set(JAX_COMMANDS) - set(COMMANDS) == {"soak", "train-fsdp", "train-moe",
+                                                  "train-pp"}
+    assert len(COMMANDS) == 26 and set(COMMANDS) <= set(JAX_COMMANDS)
     assert cli_main([]) == 2
     usage = capsys.readouterr().err
     assert all(name in usage for name in new)
