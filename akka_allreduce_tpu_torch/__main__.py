@@ -19,15 +19,16 @@ Commands:
   ``path``).
 - ``lm-generate [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
   [--layers N] [--batch N] [--prompt-len N] [--gen N] [--temperature X]
-  [--train-steps N] [--seq-len N] [--bf16] [--device cpu]`` — KV-cache
-  decoding of a Transformer LM with seeded random weights, or, with
+  [--train-steps N] [--seq-len N] [--bf16] [--cache-quant int8] [--device
+  cpu]`` — KV-cache decoding of a Transformer LM with seeded random weights
+  (``--cache-quant int8``: the int8 cache with per-row scales), or, with
   ``--train-steps``, after that many copy-task training steps on the card
   (``LongContextTrainer.train_chain`` at ``--seq-len``; the copy accuracy is
   printed when ``--prompt-len`` is ``seq_len / 2 + 1``): prints the generated
   tokens, the ``decode: X ms/token`` line (slope between two generation
   lengths) and one JSON record with ``prefill_ms``, the prefill's model
-  TFLOP/s and MFU, ``ms_per_token``, ``device`` and ``power_limit``.
-  ``--sp``, ``--tp`` and ``--cache-quant`` are not ported yet and are
+  TFLOP/s and MFU, ``ms_per_token``, ``cache_quant``, ``device`` and
+  ``power_limit``. ``--sp`` and ``--tp`` are not ported yet and are
   refused.
 - ``train-lm [--steps N] [--batch N] [--lr X] [--seq-len N] [--impl
   ring|ulysses] [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
@@ -71,8 +72,17 @@ Commands:
   save's stall against the async save's capture stall, its wall time and
   the step time while it drains (the flagship LM by default; ``orbax`` names
   the port's full store, as the JAX CLI names its Orbax one).
-- ``bench-mfu [--workload lm|mlp|resnet] ...`` — the slope-timed MFU record
-  of ``bench_mfu.py`` (the flagship LM by default).
+- ``train-moe [--steps N] [--batch N] [--lr X] [--seq-len N] [--experts N]
+  [--capacity-factor X] [--topk 1|2] [--mu-bf16] [--dispatch
+  auto|einsum|scatter] [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
+  [--layers N] [--impl ring|ulysses] [--device-data] [--device cpu]`` — the
+  Switch/GShard MoE LM (f32) on the copy task with ``MoETrainer`` on one
+  card; prints the parameter count and mesh, then the step time, MFU (on
+  the active parameters) and the loss, aux and dropped trend. ``--dp``,
+  ``--ep`` or ``--sp`` above 1, ``--compress`` and ``--overlap`` are not
+  ported yet and are refused.
+- ``bench-mfu [--workload lm|mlp|resnet|moe] ...`` — the slope-timed MFU
+  record of ``bench_mfu.py`` (the flagship LM by default).
 - ``cluster-master``, ``cluster-node``, ``cluster-standby``, ``bench-wire``
   and ``obs {demo,inspect,merge-trace}`` — the TCP control plane
   (``cluster_cli.py``), with the JAX commands' flags and output lines:
@@ -92,12 +102,12 @@ Commands:
   the master derives ``data_size`` from the model (built on the CPU, no
   CUDA context); each node trains its own shard on the card and prints
   ``trained N steps ... (R sync rounds applied); loss a -> b; device=...``.
-- ``elastic-demo [--family dp|lc] [--nodes N] [--steps N] [--drop-at K]
+- ``elastic-demo [--family dp|lc|moe] [--nodes N] [--steps N] [--drop-at K]
   [--rejoin-at K] [--batch-per-device N] [--device cpu]`` — config 5's
   re-mesh cycle: the last node goes silent and its ranks leave the mesh
   (dp: 8 virtual ranks split over the nodes, so 4 nodes drop 8 -> 6), then
-  rejoins; lc runs one node of one rank beside zero-rank nodes. ``--family
-  moe`` and ``pp`` are refused (not ported yet).
+  rejoins; lc and moe run one node of one rank beside zero-rank nodes.
+  ``--family pp`` is refused (not ported yet).
 - ``chaos``, ``chaos-recover``, ``chaos-gossip``, ``chaos-scale``,
   ``chaos-failover``, ``chaos-adapt``, ``chaos-train`` (and its node role
   ``chaos-train-node``) — the chaos drills (``chaos_cli.py``): each spawns a
@@ -228,17 +238,20 @@ def _cmd_lm_generate(argv: list[str]) -> int:
         "--device", default=None,
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
+    p.add_argument(
+        "--cache-quant", choices=("int8",), default=None,
+        help="quantize the KV cache to int8 + per-row scales (4x fewer "
+        "cache bytes than f32; ~0.4%% per-element error)",
+    )
     # the JAX command's options that need parts not ported yet
     p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--tp", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--cache-quant", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    for flag, value, default, what in (
-        ("--sp", args.sp, 1, "sequence-sharded decode"),
-        ("--tp", args.tp, 1, "tensor-parallel decode"),
-        ("--cache-quant", args.cache_quant, None, "the int8 KV cache"),
+    for flag, value, what in (
+        ("--sp", args.sp, "sequence-sharded decode"),
+        ("--tp", args.tp, "tensor-parallel decode"),
     ):
-        if value != default:
+        if value != 1:
             p.error(f"{flag} is not ported yet ({what})")
     if args.gen < 2:
         p.error("--gen must be >= 2 (the slope timing needs two lengths)")
@@ -288,7 +301,7 @@ def _cmd_lm_generate(argv: list[str]) -> int:
     x, _ = next(SyntheticCopyLM(seq_len, vocab=args.vocab).batches(
         args.batch, 1, seed_offset=123))
     prompt = torch.from_numpy(x[:, : args.prompt_len]).to(dev)
-    gen = LMGenerator(model, max_len=args.prompt_len + args.gen)
+    gen = LMGenerator(model, max_len=args.prompt_len + args.gen, cache_quant=args.cache_quant)
 
     def sync() -> None:
         if dev.type == "cuda":
@@ -344,10 +357,11 @@ def _cmd_lm_generate(argv: list[str]) -> int:
     else:
         rate = "n/a (noise-dominated at this size)"
     kv = args.kv_heads or args.heads
+    qnote = f" {args.cache_quant}-quantized" if args.cache_quant else ""
     print(
         f"decode: {ms_per_tok:.2f} ms/token, {rate} "
         f"(batch {args.batch}, cache (B,{gen.max_len},{kv},"
-        f"{args.d_model // args.heads}))"
+        f"{args.d_model // args.heads}){qnote})"
     )
     record = {
         "metric": "lm_generate",
@@ -366,6 +380,7 @@ def _cmd_lm_generate(argv: list[str]) -> int:
         "kv_heads": kv,
         "layers": args.layers,
         "compute_dtype": "bfloat16" if args.bf16 else "float32",
+        "cache_quant": args.cache_quant,
         "temperature": args.temperature,
         **device_fields(dev),
     }
@@ -478,6 +493,124 @@ def _cmd_train_lm(argv: list[str]) -> int:
     return _run_training(p, trainer, lm_copy_task(args.seq_len, vocab=args.vocab), args,
                          label=f"lm_{args.impl}", flops=flops,
                          where=f"on {trainer.n_devices} device", ms_digits=1)
+
+
+def _cmd_train_moe(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        "train-moe",
+        description="Switch/GShard MoE LM on the copy task, one card (MoETrainer "
+        "on a one-rank mesh)",
+    )
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--batch", type=int, default=8, help="global batch size")
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--seq-len", type=int, default=64)
+    p.add_argument("--experts", type=int, default=4)
+    p.add_argument("--capacity-factor", type=float, default=1.25)
+    p.add_argument(
+        "--mu-bf16", action="store_true",
+        help="adam first moment in bf16: halves the biggest traffic stream of the "
+        "all-expert optimizer update; the variance stays f32",
+    )
+    p.add_argument(
+        "--topk", type=int, choices=(1, 2), default=1,
+        help="router: 1 = Switch top-1, 2 = GShard top-2",
+    )
+    p.add_argument("--vocab", type=int, default=64)
+    p.add_argument("--d-model", type=int, default=128)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument(
+        "--kv-heads", type=int, default=None,
+        help="grouped-query attention: K/V heads (divides --heads; 1 = MQA)",
+    )
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument(
+        "--dispatch", choices=("auto", "einsum", "scatter"), default="auto",
+        help="token->expert data movement: one-hot einsums or scatter/gather "
+        "(auto: scatter past ~4M one-hot elements)",
+    )
+    p.add_argument(
+        "--device-data", action="store_true",
+        help="sample batches on the device inside one chain",
+    )
+    p.add_argument("--impl", choices=("ring", "ulysses"), default="ring",
+                   help="attention schedule over the seq axis (the same at sp 1)")
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' runs the plain PyTorch path; default: the CUDA card",
+    )
+    # the JAX command's options that need parts not ported yet
+    p.add_argument("--dp", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--ep", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--compress", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--overlap", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    for flag, value, ok, what in (
+        ("--dp", args.dp, (None, 1), "data parallelism needs several ranks"),
+        ("--ep", args.ep, (1,), "expert parallelism needs several ranks"),
+        ("--sp", args.sp, (1,), "sequence parallelism needs several ranks"),
+        ("--compress", args.compress, (None,), "gradient wire compression"),
+        ("--overlap", args.overlap, (False,), "per-leaf gradient collectives"),
+    ):
+        if value not in ok:
+            p.error(f"{flag} is not ported yet ({what}; ROADMAP item 10)")
+
+    import time
+
+    import torch
+
+    from akka_allreduce_tpu_torch._device import resolve_device
+    from akka_allreduce_tpu_torch.models import lm_copy_task
+    from akka_allreduce_tpu_torch.train import MoETrainer
+    from akka_allreduce_tpu_torch.utils.benchmarking import (
+        moe_active_params,
+        transformer_train_flops,
+    )
+
+    dev = resolve_device(args.device)
+    trainer = MoETrainer(
+        vocab=args.vocab, d_model=args.d_model, n_heads=args.heads,
+        n_kv_heads=args.kv_heads, n_layers=args.layers, n_experts=args.experts,
+        seq_len=args.seq_len, capacity_factor=args.capacity_factor, router_topk=args.topk,
+        seq_impl=args.impl, learning_rate=args.lr, dispatch_impl=args.dispatch,
+        mu_dtype=torch.bfloat16 if args.mu_bf16 else None, device=dev,
+    )
+    print(f"MoE params: {trainer.param_count / 1e6:.2f}M ({args.experts} experts), mesh "
+          f"dp={trainer.dp} x sp={trainer.sp} x ep={trainer.ep}", flush=True)
+    if args.steps <= 0:
+        return 0
+    ds = lm_copy_task(args.seq_len, vocab=args.vocab)
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    if args.device_data:
+        coords = trainer.dp * trainer.ep
+        rows = max(1, args.batch // coords)
+        eff = rows * coords
+        if eff != args.batch:
+            print(f"--device-data: global batch rounded {args.batch} -> {eff} ({rows} rows "
+                  "per data x expert coordinate)")
+        hist = trainer.train_chain(ds.device_sampler(), args.steps, rows)
+    else:
+        eff = args.batch
+        hist = [trainer.train_step(x, y) for x, y in ds.batches(args.batch, args.steps)]
+    dt = time.perf_counter() - t0
+    perf = _mfu_fields(
+        transformer_train_flops(
+            n_params=moe_active_params(trainer.model, args.topk, args.experts),
+            batch=eff, seq=args.seq_len, d_model=args.d_model, n_layers=args.layers),
+        dt / args.steps, dev)
+    mode = "on-device " if args.device_data else ""
+    print(f"moe: {args.steps} {mode}steps on {trainer.n_devices} devices in {dt:.2f}s "
+          f"({dt / args.steps * 1e3:.1f} ms/step){_mfu_note(perf)}; "
+          f"loss {hist[0].loss:.4f} -> {hist[-1].loss:.4f} "
+          f"(aux {hist[-1].aux_loss:.3f}, dropped {hist[-1].dropped:.1%})", flush=True)
+    return 0
 
 
 def _checkpoint_flags(p: argparse.ArgumentParser) -> None:
@@ -1114,17 +1247,18 @@ def _cmd_elastic_demo(argv: list[str]) -> int:
     p.add_argument(
         "--family", choices=("dp", "moe", "pp", "lc"), default="dp",
         help="which elastic trainer rides the cycle: dp = the MLP's DPTrainer over "
-        "8 virtual ranks split across the nodes; lc = the long-context LM on one "
-        "node of one rank beside zero-rank nodes; moe and pp are not ported yet",
+        "8 virtual ranks split across the nodes; lc and moe = the long-context or "
+        "the MoE LM on one node of one rank beside zero-rank nodes; pp is not "
+        "ported yet",
     )
     p.add_argument(
         "--device", default=None,
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
     args = p.parse_args(argv)
-    if args.family in ("moe", "pp"):
-        p.error(f"--family {args.family} is not ported yet (its trainer waits for a "
-                "later slice of the port)")
+    if args.family == "pp":
+        p.error("--family pp is not ported yet (its trainer waits for a later slice "
+                "of the port)")
     from akka_allreduce_tpu_torch._device import resolve_device
 
     try:
@@ -1133,7 +1267,11 @@ def _cmd_elastic_demo(argv: list[str]) -> int:
         p.error(str(e))
 
     from akka_allreduce_tpu_torch.models import MLP, lm_copy_task, mnist_like
-    from akka_allreduce_tpu_torch.train import ElasticDPTrainer, ElasticLongContextTrainer
+    from akka_allreduce_tpu_torch.train import (
+        ElasticDPTrainer,
+        ElasticLongContextTrainer,
+        ElasticMoETrainer,
+    )
 
     now = {"t": 0.0}
     if args.family == "dp":
@@ -1145,14 +1283,21 @@ def _cmd_elastic_demo(argv: list[str]) -> int:
         ds = mnist_like()
         batch_rows = lambda t: args.batch_per_device * t.n_devices  # noqa: E731
         shape_of = lambda t: f"{t.n_devices} ranks"  # noqa: E731
-    else:  # lc: the port's LongContextTrainer takes one rank
+    else:  # lc and moe: the port's LM trainers take one rank
         assignment = {n: [0] if n == 0 else [] for n in range(args.nodes)}
-        trainer = ElasticLongContextTrainer(
-            assignment, seq_len=32, max_sp=4, n_layers=1, vocab=16, d_model=32,
-            n_heads=2, learning_rate=1e-2, seed=0, clock=lambda: now["t"], device=device)
+        fam_kw = dict(vocab=16, d_model=32, n_heads=2, learning_rate=1e-2, seed=0,
+                      clock=lambda: now["t"], device=device)
         ds = lm_copy_task(32, vocab=16)
-        batch_rows = lambda t: t.dp * args.batch_per_device  # noqa: E731
-        shape_of = lambda t: f"dp{t.dp} x sp{t.sp}"  # noqa: E731
+        if args.family == "moe":
+            trainer = ElasticMoETrainer(assignment, n_experts=4, n_layers=1, seq_len=32,
+                                        capacity_factor=4.0, **fam_kw)
+            batch_rows = lambda t: t.dp * t.ep * args.batch_per_device  # noqa: E731
+            shape_of = lambda t: f"dp{t.dp} x ep{t.ep}"  # noqa: E731
+        else:
+            trainer = ElasticLongContextTrainer(assignment, seq_len=32, max_sp=4,
+                                                n_layers=1, **fam_kw)
+            batch_rows = lambda t: t.dp * args.batch_per_device  # noqa: E731
+            shape_of = lambda t: f"dp{t.dp} x sp{t.sp}"  # noqa: E731
     print(f"elastic-demo: {args.family}, {args.nodes} nodes, "
           f"{trainer.n_devices} ranks on {device}", flush=True)
     dead = args.nodes - 1
@@ -1193,6 +1338,7 @@ COMMANDS = {
     "train-mlp": _cmd_train_mlp,
     "train-resnet": _cmd_train_resnet,
     "train-zero1": _cmd_train_zero1,
+    "train-moe": _cmd_train_moe,
     "bench-checkpoint": _cmd_bench_checkpoint,
     "bench-mfu": _cmd_bench_mfu,
     "cluster-master": cluster_cli.cmd_cluster_master,

@@ -1,9 +1,10 @@
 """MFU benchmark of the port: slope-timed training chains + a FLOP model.
 
-Counterpart of ``akka_allreduce_tpu/bench_mfu.py``, the ``lm``, ``mlp`` and
-``resnet`` workloads. ``lm``: the flagship LM (``--workload lm`` defaults: vocab 256, d_model 2048, 16
-heads of D 128, 8 layers, 404M parameters, seq 2048, batch 8, bf16 compute,
-f32 parameters and Adam moments, no remat) trained by
+Counterpart of ``akka_allreduce_tpu/bench_mfu.py``, the ``lm``, ``mlp``,
+``resnet`` and ``moe`` workloads. ``lm``: the flagship LM (``--workload lm``
+defaults: vocab 256, d_model 2048, 16 heads of D 128, 8 layers, 404M
+parameters, seq 2048, batch 8, bf16 compute, f32 parameters and Adam
+moments, no remat) trained by
 ``LongContextTrainer.train_chain`` (batches drawn on the card, one host read
 a chain). A step's time is the difference between a short and a long chain
 (constant set-up and synchronisation cancel), with the JAX package's
@@ -17,11 +18,17 @@ over 8 virtual ranks, ``--batch`` rows split across them, lr 0.1, its FLOPs
 compute (f32 parameters) trained by ``DPTrainer`` over ``line_mesh(8)``, lr
 0.1, on ``--image-size`` (64) px images, ``--batch`` (8) rows a step split
 across the ranks, the gradient unbucketed (the JAX record's trainer); its
-FLOPs ``3 · resnet_fwd_flops``.
+FLOPs ``3 · resnet_fwd_flops``. ``moe``: the Switch/GShard MoE LM at the
+same width (``--experts`` 8, ``--topk`` 1, ``--capacity-factor`` 1.25,
+``--dispatch auto``, bf16 compute, 2.28B parameters at the defaults) trained
+by ``MoETrainer.train_chain`` at lr 1e-3 (``--mu-bf16``: Adam's first moment
+in bf16), its FLOPs ``transformer_train_flops`` on the active parameters
+(``moe_active_params``), the dropped fraction of a 2-step chain after the
+timing in the record.
 
 The record has the JAX record's fields, plus ``device`` and ``power_limit``;
 ``compile_s`` is the warm-up (the first chains), since nothing is compiled
-ahead here. The moe and fsdp workloads are not ported yet.
+ahead here. The fsdp workload is not ported yet.
 Runs on the card unless ``--device cpu`` (where MFU is None: no peak).
 """
 
@@ -242,11 +249,82 @@ def run_resnet(args) -> dict:
     )
 
 
+def run_moe(args) -> dict:
+    import torch
+
+    from akka_allreduce_tpu_torch.models import lm_copy_task
+    from akka_allreduce_tpu_torch.train import MoETrainer
+    from akka_allreduce_tpu_torch.utils.benchmarking import (
+        moe_active_params,
+        transformer_train_flops,
+    )
+
+    heads = args.heads or max(1, args.d_model // 128)
+    trainer = MoETrainer(
+        vocab=args.vocab,
+        d_model=args.d_model,
+        n_heads=heads,
+        n_layers=args.layers,
+        n_experts=args.experts,
+        seq_len=args.seq_len,
+        router_topk=args.topk,
+        capacity_factor=args.capacity_factor,
+        learning_rate=1e-3,
+        compute_dtype=torch.bfloat16,
+        dispatch_impl=args.dispatch,
+        mu_dtype=torch.bfloat16 if args.mu_bf16 else None,
+        device=args.device,
+    )
+    rows = max(1, args.batch // trainer.n_devices)
+    batch = rows * trainer.n_devices
+    sampler = lm_copy_task(args.seq_len, vocab=args.vocab).device_sampler()
+
+    def timed(steps: int) -> float:
+        t0 = time.perf_counter()
+        trainer.train_chain(sampler, steps, rows)  # ends in its one host read
+        return time.perf_counter() - t0
+
+    active = moe_active_params(trainer.model, args.topk, args.experts)
+    flops = transformer_train_flops(
+        n_params=active,
+        batch=batch,
+        seq=args.seq_len,
+        d_model=args.d_model,
+        n_layers=args.layers,
+    )
+    rec = _chain_mfu_record(
+        "moe",
+        timed,
+        flops,
+        n_devices=trainer.n_devices,
+        device=trainer.device,
+        extra={
+            "params_m": round(trainer.param_count / 1e6, 1),
+            "active_params_m": round(active / 1e6, 1),
+            "dispatch": args.dispatch,
+            "experts": args.experts,
+            "topk": args.topk,
+            "mu_bf16": args.mu_bf16,
+            "capacity_factor": args.capacity_factor,
+            "d_model": args.d_model,
+            "n_layers": args.layers,
+            "seq_len": args.seq_len,
+            "batch": batch,
+            "compute_dtype": "bf16",
+        },
+    )
+    # the capacity trade rides the record: a 2-step chain after the timing
+    drop_sample = trainer.train_chain(sampler, 2, rows)
+    rec["dropped_frac"] = round(
+        float(sum(m.dropped for m in drop_sample) / len(drop_sample)), 4)
+    return rec
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         "bench-mfu",
         description="slope-timed MFU of the training workloads on the card "
-        "(one JSON line; flagship = lm; lm, mlp and resnet ported so far)",
+        "(one JSON line; flagship = lm; lm, mlp, resnet and moe ported so far)",
     )
     p.add_argument("--workload", choices=WORKLOADS, default="lm")
     p.add_argument("--batch", type=int, default=8, help="global batch size")
@@ -269,17 +347,37 @@ def main(argv: list[str] | None = None) -> int:
         "--remat", nargs="?", const="full", default=False, choices=("full",),
         help="'full' = recompute each block in the backward",
     )
+    p.add_argument("--experts", type=int, default=8, help="moe only")
+    p.add_argument(
+        "--capacity-factor", type=float, default=None,
+        help="moe only: expert slot slack (E*C = cf*topk*T). 1.0 removes "
+        "the 25%% of expert FFN compute the default spends on empty "
+        "slots, at the cost of more dropped assignments (recorded)",
+    )
+    p.add_argument(
+        "--mu-bf16", action="store_true",
+        help="moe only: adam first moment in bf16, halving the biggest "
+        "traffic stream of the all-expert optimizer update",
+    )
+    p.add_argument("--topk", type=int, choices=(1, 2), default=1)
+    p.add_argument("--dispatch", choices=("auto", "einsum", "scatter"), default="auto")
     p.add_argument(
         "--device", default=None,
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
     args = p.parse_args(argv)
-    if args.workload not in ("lm", "mlp", "resnet"):
-        p.error(f"--workload {args.workload} is not ported yet (lm, mlp and resnet only)")
+    if args.workload == "fsdp":
+        p.error("--workload fsdp is not ported yet (lm, mlp, resnet and moe only)")
     for flag, value in (("--dp", args.dp), ("--sp", args.sp)):
         if value not in (None, 1):
             p.error(f"{flag} > 1 is not ported yet (one card, a 1 x 1 mesh)")
-    run = {"lm": run_lm, "mlp": run_mlp, "resnet": run_resnet}[args.workload]
+    if args.mu_bf16 and args.workload != "moe":
+        p.error("--mu-bf16 is the MoE optimizer knob; moe workload only")
+    if args.capacity_factor is not None and args.workload != "moe":
+        p.error("--capacity-factor is the MoE slot knob; moe workload only")
+    if args.capacity_factor is None:
+        args.capacity_factor = 1.25  # MoETrainer's default
+    run = {"lm": run_lm, "mlp": run_mlp, "resnet": run_resnet, "moe": run_moe}[args.workload]
     print(json.dumps(run(args)), flush=True)
     return 0
 

@@ -20,8 +20,8 @@ elastic re-mesh (``train.elastic``) around a node's loss and a late joiner,
 timed with each re-mesh's first step. On one card the rank count cannot
 change, so, as the JAX record does on one chip, a zero-rank control node
 drops and rejoins and the full snapshot -> rebuild -> restore -> first step
-cycle runs on the card. Its MoE and pipeline fields are null until those
-trainers are ported (``families_not_ported``).
+cycle runs on the card. Its pipeline fields are null until that trainer
+is ported (``families_not_ported``).
 
 The multi-rank collective branch waits for a later slice of the port; it
 is not stubbed.
@@ -49,6 +49,7 @@ from akka_allreduce_tpu_torch.train import (
     DPTrainer,
     ElasticDPTrainer,
     ElasticLongContextTrainer,
+    ElasticMoETrainer,
     ElasticTrainer,
     Zero1DPTrainer,
 )
@@ -353,10 +354,11 @@ def config5_dropout_recovery(
     ``size`` floats, chunk 16,384, thresholds 0.75, 10 rounds, every message
     of worker 3 lost (node 0's flushes counted). Tier 2: the re-mesh cycle
     of :func:`remesh_cycle` on ``ElasticDPTrainer`` (``MLP(hidden=(16,))``),
-    ``ElasticTrainer`` over ``Zero1DPTrainer`` (SGD 0.1) and
-    ``ElasticLongContextTrainer`` (vocab 16, d_model 32, 2 heads, seq_len
-    32, 1 layer), over ``{0: [rank], 1: []}``: one rank on the device and a
-    zero-rank control node that drops and rejoins."""
+    ``ElasticTrainer`` over ``Zero1DPTrainer`` (SGD 0.1),
+    ``ElasticMoETrainer`` (4 experts, capacity factor 4.0) and
+    ``ElasticLongContextTrainer`` (both vocab 16, d_model 32, 2 heads,
+    seq_len 32, 1 layer), over ``{0: [rank], 1: []}``: one rank on the
+    device and a zero-rank control node that drops and rejoins."""
     dev = resolve_device(device)
     n, rounds = 4, 10
     run = local_engine(size, nodes=n, chunk=16_384, rounds=rounds, th=0.75,
@@ -386,11 +388,15 @@ def config5_dropout_recovery(
                       clock, lost, mnist_for)
 
     lm_ds = lm_copy_task(32, vocab=16)
-    lc_trainer = ElasticLongContextTrainer(
-        assignment, seq_len=32, max_sp=4, n_layers=1, vocab=16, d_model=32, n_heads=2,
-        learning_rate=1e-2, seed=0, clock=now, device=dev)
-    lc = remesh_cycle(lc_trainer, clock, lost,
-                      lambda t, s: next(lm_ds.batches(t.dp, 1, seed_offset=s)))
+    fam_kw = dict(vocab=16, d_model=32, n_heads=2, learning_rate=1e-2, seed=0, clock=now,
+                  device=dev)
+    moe = remesh_cycle(
+        ElasticMoETrainer(assignment, n_experts=4, n_layers=1, seq_len=32,
+                          capacity_factor=4.0, **fam_kw),
+        clock, lost, lambda t, s: next(lm_ds.batches(t.dp * t.ep, 1, seed_offset=s)))
+    lc = remesh_cycle(
+        ElasticLongContextTrainer(assignment, seq_len=32, max_sp=4, n_layers=1, **fam_kw),
+        clock, lost, lambda t, s: next(lm_ds.batches(t.dp, 1, seed_offset=s)))
 
     def family(prefix: str, c: dict | None) -> dict:
         keys = ("remeshed", "drop_remesh_and_first_step_s",
@@ -428,10 +434,10 @@ def config5_dropout_recovery(
         post_remesh_loss=dp["m_drop"].loss,
         post_rejoin_loss=dp["m_join"].loss,
         **family("zero1", z1),
-        **family("moe", None),
+        **family("moe", moe),
         **family("pipeline", None),
         **family("long_context", lc),
-        families_not_ported=["moe", "pipeline"],
+        families_not_ported=["pipeline"],
         path="host_engine + elastic_remesh",
         **device_fields(dev),
     )

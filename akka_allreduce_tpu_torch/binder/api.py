@@ -49,8 +49,10 @@ class AllreduceBinder(Protocol):
 
 
 def leaf_order(model: nn.Module) -> list[str]:
-    """The model's parameter names in the JAX package's flat-vector order."""
-    return sorted((name for name, _ in model.named_parameters()), key=flax_path)
+    """The model's parameter names in the JAX package's flat-vector order
+    (by the model's own ``flax_path`` where it has one, as the MoE LM)."""
+    key = getattr(model, "flax_path", flax_path)
+    return sorted((name for name, _ in model.named_parameters()), key=key)
 
 
 def flatten_params(

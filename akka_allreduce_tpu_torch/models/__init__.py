@@ -1,9 +1,10 @@
 """The models of the port on one device: the Transformer LM and its
-decoder, the MLP of config 3, ResNet-50 of config 4, their data and the
-carrying-over of flax weights."""
+decoder, the mixture-of-experts LM, the MLP of config 3, ResNet-50 of
+config 4, their data and the carrying-over of flax weights."""
 
 from akka_allreduce_tpu_torch.models.convert import (
     mlp_state_dict_from_flax,
+    moe_state_dict_from_flax,
     resnet_state_dict_from_flax,
     transformer_state_dict_from_flax,
 )
@@ -22,6 +23,8 @@ from akka_allreduce_tpu_torch.models.transformer import (
     Attention,
     Block,
     KVCache,
+    MoEBlock,
+    MoETransformerLM,
     TransformerLM,
     rope,
 )
@@ -33,6 +36,8 @@ __all__ = [
     "KVCache",
     "LMGenerator",
     "MLP",
+    "MoEBlock",
+    "MoETransformerLM",
     "ResNet",
     "ResNet50",
     "SyntheticClassification",
@@ -42,6 +47,7 @@ __all__ = [
     "lm_copy_task",
     "mlp_state_dict_from_flax",
     "mnist_like",
+    "moe_state_dict_from_flax",
     "resnet_fwd_flops",
     "resnet_state_dict_from_flax",
     "rope",

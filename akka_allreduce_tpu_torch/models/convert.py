@@ -1,15 +1,17 @@
 """Weights carried across from the JAX package's flax parameter trees.
 
-:func:`transformer_state_dict_from_flax`, :func:`mlp_state_dict_from_flax`
-and :func:`resnet_state_dict_from_flax` map a ``TransformerLM``, ``MLP`` or
-``ResNet`` flax tree, given as nested dicts of numpy arrays (``{"params":
-{...}}`` or the inner dict), to the ``state_dict`` of
-:class:`.transformer.TransformerLM`, :class:`.mlp.MLP` or
+:func:`transformer_state_dict_from_flax`, :func:`moe_state_dict_from_flax`,
+:func:`mlp_state_dict_from_flax` and :func:`resnet_state_dict_from_flax`
+map a ``TransformerLM``, ``MoETransformerLM``, ``MLP`` or ``ResNet`` flax
+tree, given as nested dicts of numpy arrays (``{"params": {...}}`` or the
+inner dict), to the ``state_dict`` of :class:`.transformer.TransformerLM`,
+:class:`.transformer.MoETransformerLM`, :class:`.mlp.MLP` or
 :class:`.resnet.ResNet`. The port keeps the flax shapes (a conv kernel
 stays HWIO), so each leaf is renamed, never transposed. An unknown or a
 missing leaf raises ``ValueError``. :func:`flax_path` maps the other way,
-one port parameter name of any of them to its flax path (the binder orders
-a flat parameter vector by it).
+one port parameter name of the dense models to its flax path, and
+:func:`moe_flax_path` one of the MoE LM's (the binder orders a flat
+parameter vector by them).
 """
 
 from __future__ import annotations
@@ -38,6 +40,15 @@ _BLOCK_LEAVES = {
     "mlp_down/kernel": "mlp_down_kernel",
     "mlp_bias": "mlp_bias",
 }
+# MoEBlock_i: the attention and norms of Block_i, the router and the experts
+_MOE_BLOCK_LEAVES = {
+    **{path: name for path, name in _BLOCK_LEAVES.items()
+       if path.startswith(("Attention_0/", "LayerNorm_"))},
+    "router": "router",
+    "moe_w1": "moe_w1",
+    "moe_b1": "moe_b1",
+    "moe_w2": "moe_w2",
+}
 _TOP_LEAVES = {
     "Embed_0/embedding": "embedding",
     "LayerNorm_0/scale": "ln_f.scale",
@@ -46,6 +57,7 @@ _TOP_LEAVES = {
     "Dense_0/bias": "head_bias",
 }
 _BLOCK = re.compile(r"Block_(\d+)/(.+)")
+_MOE_BLOCK = re.compile(r"MoEBlock_(\d+)/(.+)")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -61,6 +73,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 
 _TOP_PATHS = {name: tuple(path.split("/")) for path, name in _TOP_LEAVES.items()}
 _BLOCK_PATHS = {name: tuple(path.split("/")) for path, name in _BLOCK_LEAVES.items()}
+_MOE_BLOCK_PATHS = {name: tuple(path.split("/")) for path, name in _MOE_BLOCK_LEAVES.items()}
 _PORT_BLOCK = re.compile(r"blocks\.(\d+)\.(.+)")
 _DENSE = re.compile(r"Dense_(\d+)/(kernel|bias)")
 _PORT_DENSE = re.compile(r"dense\.(\d+)\.(kernel|bias)")
@@ -102,13 +115,23 @@ def flax_path(name: str) -> tuple[str, ...]:
     return (f"Block_{m.group(1)}", *_BLOCK_PATHS[m.group(2)])
 
 
-def transformer_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """The port's ``TransformerLM`` ``state_dict`` from a flax tree.
+def moe_flax_path(name: str) -> tuple[str, ...]:
+    """The flax path of the port's ``MoETransformerLM`` parameter ``name``,
+    e.g. ``blocks.1.moe_w1`` -> ``("MoEBlock_1", "moe_w1")`` or
+    ``head_kernel`` -> ``("Dense_0", "kernel")``; ``ValueError`` for a name
+    with no flax counterpart."""
+    if name in _TOP_PATHS:
+        return _TOP_PATHS[name]
+    m = _PORT_BLOCK.fullmatch(name)
+    if m is None or m.group(2) not in _MOE_BLOCK_PATHS:
+        raise ValueError(f"parameter {name!r} has no flax counterpart")
+    return (f"MoEBlock_{m.group(1)}", *_MOE_BLOCK_PATHS[m.group(2)])
 
-    Raises ``ValueError`` on a leaf with no counterpart in the port and on
-    a leaf the port needs that the tree lacks (blocks numbered from 0 with
-    no gap, each with all its leaves).
-    """
+
+def _lm_state_dict(tree: Mapping, block: re.Pattern, leaves: dict[str, str],
+                   prefix: str) -> dict[str, torch.Tensor]:
+    """The LM ``state_dict`` of a flax tree whose blocks (``<prefix>_i``)
+    match ``block``, each with ``leaves``."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: dict[str, torch.Tensor] = {}
@@ -116,11 +139,11 @@ def transformer_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     unknown = []
     for path, arr in _flatten(tree).items():
         name = _TOP_LEAVES.get(path)
-        m = _BLOCK.fullmatch(path)
-        if name is None and m is not None and m.group(2) in _BLOCK_LEAVES:
+        m = block.fullmatch(path)
+        if name is None and m is not None and m.group(2) in leaves:
             i = int(m.group(1))
             blocks.setdefault(i, set()).add(m.group(2))
-            name = f"blocks.{i}.{_BLOCK_LEAVES[m.group(2)]}"
+            name = f"blocks.{i}.{leaves[m.group(2)]}"
         if name is None:
             unknown.append(path)
             continue
@@ -129,12 +152,33 @@ def transformer_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
         raise ValueError(f"flax leaves with no counterpart in the port: {sorted(unknown)}")
     missing = [p for p, n in _TOP_LEAVES.items() if n not in out]
     if blocks and sorted(blocks) != list(range(len(blocks))):
-        missing.append(f"Block_i for i in {sorted(set(range(max(blocks) + 1)) - set(blocks))}")
-    for i, leaves in sorted(blocks.items()):
-        missing += [f"Block_{i}/{p}" for p in _BLOCK_LEAVES if p not in leaves]
+        missing.append(f"{prefix}_i for i in "
+                       f"{sorted(set(range(max(blocks) + 1)) - set(blocks))}")
+    for i, have in sorted(blocks.items()):
+        missing += [f"{prefix}_{i}/{p}" for p in leaves if p not in have]
     if missing:
         raise ValueError(f"flax tree lacks leaves: {missing}")
     return out
+
+
+def transformer_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ``TransformerLM`` ``state_dict`` from a flax tree.
+
+    Raises ``ValueError`` on a leaf with no counterpart in the port and on
+    a leaf the port needs that the tree lacks (blocks numbered from 0 with
+    no gap, each with all its leaves).
+    """
+    return _lm_state_dict(tree, _BLOCK, _BLOCK_LEAVES, "Block")
+
+
+def moe_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ``MoETransformerLM`` ``state_dict`` from a flax tree:
+    ``MoEBlock_i/{Attention_0, LayerNorm_0, LayerNorm_1}`` onto
+    ``blocks.i.{attn, ln1, ln2}``, ``MoEBlock_i/{router, moe_w1, moe_b1,
+    moe_w2}`` onto the same names in ``blocks.i``, and ``Embed_0``, the
+    final ``LayerNorm_0`` and ``Dense_0`` as for ``TransformerLM``. Raises
+    ``ValueError`` as :func:`transformer_state_dict_from_flax` does."""
+    return _lm_state_dict(tree, _MOE_BLOCK, _MOE_BLOCK_LEAVES, "MoEBlock")
 
 
 def mlp_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:

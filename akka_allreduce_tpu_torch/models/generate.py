@@ -2,7 +2,7 @@
 
 Counterpart of ``akka_allreduce_tpu/models/generate.py::LMGenerator``, single
 device only (``mesh=None``): tensor-parallel and sequence-sharded decode
-and the int8 cache wait for later slices.
+wait for a later slice.
 
 - Prefill consumes the prompt in one forward over an empty cache, so at a
   gated prompt length every layer's attention runs K4, the flash kernel;
@@ -10,7 +10,10 @@ and the int8 cache wait for later slices.
   (the dense path: a (B, H, 1, L) score matrix).
 - The cache is one (B, max_len, H_kv, D) tensor per layer and per K and V,
   in the compute dtype, so grouped-query attention shrinks it by H/H_kv;
-  its index is a host int.
+  its index is a host int. With ``cache_quant="int8"`` the payloads are
+  int8 with one f32 scale a (token, head) row, (B, max_len, H_kv): D + 4
+  bytes a row of K or of V against D · itemsize (132 against 256 at D 128
+  in bf16).
 - Sampling is greedy (``temperature=0``) or a categorical draw at a
   temperature from a ``torch.Generator`` seeded with ``seed``. The draw
   cannot reproduce JAX's PRNG; it is deterministic per seed.
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from akka_allreduce_tpu_torch.models.transformer import KVCache, TransformerLM
+from akka_allreduce_tpu_torch.models.transformer import CACHE_QUANTS, KVCache, TransformerLM
 
 
 class LMGenerator:
@@ -33,10 +36,14 @@ class LMGenerator:
     Args:
       model: the LM, on the device decoding should run on.
       max_len: cache capacity = prompt length + generated tokens budget.
+      cache_quant: None (the compute dtype) or "int8" (quantized payloads
+        and f32 row scales); anything else raises at the first use, as the
+        JAX module raises at its first apply.
       mesh: must be None (single device); sharded decode is not ported yet.
     """
 
-    def __init__(self, model: TransformerLM, max_len: int, mesh: object | None = None) -> None:
+    def __init__(self, model: TransformerLM, max_len: int, cache_quant: str | None = None,
+                 mesh: object | None = None) -> None:
         if mesh is not None:
             raise NotImplementedError(
                 "sharded decode (mesh) is not ported yet; use mesh=None"
@@ -45,19 +52,27 @@ class LMGenerator:
             raise ValueError(f"max_len must be >= 1, got {max_len}")
         self.model = model
         self.max_len = max_len
+        self.cache_quant = cache_quant
 
     def init_cache(self, batch: int) -> KVCache:
         """Fresh zero cache for ``batch`` rows: (B, max_len, H_kv, D) per
-        layer, in the model's compute dtype, on its device; index 0."""
+        layer on the model's device, in its compute dtype or, quantized,
+        int8 with (B, max_len, H_kv) f32 scales; index 0."""
+        if self.cache_quant not in CACHE_QUANTS:
+            raise ValueError(f"cache_quant must be None or 'int8', got {self.cache_quant!r}")
         m = self.model
         dev = m.embedding.device
         shape = (batch, self.max_len, m.n_kv_heads, m.head_dim)
+        quant = self.cache_quant == "int8"
 
-        def zeros():
-            return [torch.zeros(shape, dtype=m.compute_dtype, device=dev)
-                    for _ in range(m.n_layers)]
+        def zeros(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(m.n_layers)]
 
-        return KVCache(zeros(), zeros(), 0)
+        if not quant:
+            return KVCache(zeros(shape, m.compute_dtype), zeros(shape, m.compute_dtype), 0)
+        return KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8), 0,
+                       k_scale=zeros(shape[:3], torch.float32),
+                       v_scale=zeros(shape[:3], torch.float32))
 
     @torch.no_grad()
     def generate(

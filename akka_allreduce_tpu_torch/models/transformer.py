@@ -36,8 +36,24 @@ backward re-runs each block's forward (K4's included, with its row
 statistic) instead of keeping its activations. It changes memory, never the
 parameters or their names.
 
-Tensor and sequence parallelism, ``MoEBlock`` and the int8 cache wait for
-later slices.
+``cache_quant="int8"`` (:class:`KVCache` with scales) stores the cache
+quantized per (token, head) row: an int8 payload and one f32 scale a row,
+as the JAX ``Attention`` stores it (:func:`quantize`). A chunk attends over
+the live int8 slots with the scales folded in
+(``quantized_cache_attention``) when ``t == 1``, when its f32 scores cost no
+more bytes a key than a dequantized copy (``4·H·t <= 2·H_kv·D·itemsize``),
+or when ``t * max_len <= 512²``; otherwise the live slots are dequantized
+once and go through ``local_attention``, so an empty-cache prefill at a
+gated length runs K4. The gate takes the cache's full length, as the JAX
+gate does.
+
+:class:`MoEBlock` and :class:`MoETransformerLM` are the Switch/GShard
+mixture-of-experts LM on one device (``ops.moe``, ``ep_size`` 1): each
+returns its output with the load-balancing loss and the dropped fraction,
+the LM both averaged over its layers.
+
+Tensor and sequence parallelism and expert parallelism wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -51,7 +67,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from akka_allreduce_tpu_torch._device import resolve_device
-from akka_allreduce_tpu_torch.ops.local_attention import local_attention
+from akka_allreduce_tpu_torch.models.convert import moe_flax_path
+from akka_allreduce_tpu_torch.ops import local_attention as attention_ops
+from akka_allreduce_tpu_torch.ops.moe import moe_dispatch_compute
 
 LN_EPS = 1e-6
 
@@ -75,8 +93,10 @@ def rope(x: torch.Tensor, offset: int, *, base: float = 10000.0) -> torch.Tensor
 
 
 def _param(gen: torch.Generator | None, *shape: int, fan_in: int) -> nn.Parameter:
-    """A normal(0, 1/fan_in) f32 parameter (flax's lecun-normal scale)."""
-    w = torch.randn(shape, generator=gen) / math.sqrt(fan_in)
+    """A normal(0, 1/fan_in) f32 parameter (flax's lecun-normal scale), drawn
+    where ``gen`` lives."""
+    device = None if gen is None else gen.device
+    w = torch.randn(shape, generator=gen, device=device) / math.sqrt(fan_in)
     return nn.Parameter(w)
 
 
@@ -111,18 +131,43 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+CACHE_QUANTS = (None, "int8")
+_INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))  # f32(1/127)
+
+
 @dataclass
 class KVCache:
-    """Per-layer K/V caches, (B, max_len, H_kv, D) in the compute dtype, and
-    the host-int index of the next free slot."""
+    """Per-layer K/V caches, (B, max_len, H_kv, D), and the host-int index of
+    the next free slot. In the compute dtype, or (``k_scale``/``v_scale``
+    given) int8 payloads with one f32 scale a (token, head) row, (B,
+    max_len, H_kv)."""
 
     k: list[torch.Tensor]
     v: list[torch.Tensor]
     index: int = 0
+    k_scale: list[torch.Tensor] | None = None
+    v_scale: list[torch.Tensor] | None = None
 
     @property
     def max_len(self) -> int:
         return self.k[0].shape[1]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per (token, head) row int8 quantization of ``x`` (..., D): the
+    payload ``clip(round(x / s), -127, 127)`` and the f32 scale ``s =
+    max(amax(|x|) / 127, 1e-8)``, each step in x's dtype as the JAX cache
+    takes it (``/ 127`` as a multiply by f32(1/127), as XLA folds it), so
+    the payloads and the scales are bit-equal to the jitted JAX ones."""
+    amax = x.abs().amax(dim=-1)
+    s = (amax.float() * _INV_127).to(x.dtype)
+    s = torch.clamp_min(s, 1e-8).float()
+    q = torch.clamp(torch.round(x / s[..., None].to(x.dtype)), -127, 127)
+    return q.to(torch.int8), s
 
 
 class Attention(nn.Module):
@@ -165,7 +210,9 @@ class Attention(nn.Module):
         offset = 0 if cache is None else cache.index
         q, k = rope(q, offset), rope(k, offset)
         if cache is None:
-            out = local_attention(q, k, v, causal=True)
+            out = attention_ops.local_attention(q, k, v, causal=True)
+        elif cache.quantized:
+            out = self._int8_cache_attention(q, k, v, cache, layer, offset)
         else:
             t = x.shape[1]
             ck, cv = cache.k[layer], cache.v[layer]
@@ -173,7 +220,7 @@ class Attention(nn.Module):
             cv[:, offset:offset + t] = v
             # the live slots only: at an empty-cache prefill this is causal
             # self-attention over the chunk (K4 on gated lengths)
-            out = local_attention(
+            out = attention_ops.local_attention(
                 q, ck[:, :offset + t], cv[:, :offset + t], causal=True,
                 q_offset=offset,
             )
@@ -181,6 +228,33 @@ class Attention(nn.Module):
         y = _dense(out.reshape(*out.shape[:-2], h * hd),
                    self.out_kernel.reshape(h * hd, d), None, self.dtype)
         return y + self.out_bias.to(y.dtype)
+
+    def _int8_cache_attention(self, q, k, v, cache: KVCache, layer: int,
+                              offset: int) -> torch.Tensor:
+        """Write the chunk's quantized K/V and scales at ``offset``, then
+        attend over the live slots: fused over the int8 payloads, or through
+        ``local_attention`` over one dequantized copy (the JAX gate, on the
+        cache's full length)."""
+        t = q.shape[1]
+        live = slice(0, offset + t)
+        ck, cv = cache.k[layer], cache.v[layer]
+        cks, cvs = cache.k_scale[layer], cache.v_scale[layer]
+        (kq, ks), (vq, vs) = quantize(k), quantize(v)
+        ck[:, offset:offset + t], cks[:, offset:offset + t] = kq, ks
+        cv[:, offset:offset + t], cvs[:, offset:offset + t] = vq, vs
+        heads, kv_heads, head = q.shape[2], k.shape[2], k.shape[3]
+        score_b = 4 * heads * t
+        dequant_b = 2 * kv_heads * head * k.element_size()
+        dense_max = attention_ops._DENSE_MAX_T
+        if t == 1 or score_b <= dequant_b or t * cache.max_len <= dense_max * dense_max:
+            return attention_ops.quantized_cache_attention(
+                q, ck[:, live], cks[:, live], cv[:, live], cvs[:, live], q_offset=offset)
+
+        def dequant(c, s):
+            return c[:, live].to(k.dtype) * s[:, live, :, None].to(k.dtype)
+
+        return attention_ops.local_attention(
+            q, dequant(ck, cks), dequant(cv, cvs), causal=True, q_offset=offset)
 
 
 class Block(nn.Module):
@@ -274,3 +348,114 @@ class TransformerLM(nn.Module):
         if cache is not None:
             cache.index += tokens.shape[1]
         return logits.float()
+
+
+class MoEBlock(nn.Module):
+    """Pre-norm block whose MLP is a Switch/GShard mixture of experts:
+    x + attn(LN(x)), then x + moe(LN(x)); returns ``(x, aux, dropped)``.
+    The router (d, E) and the stacked experts ``moe_w1`` (E, d, hidden),
+    ``moe_b1`` (E, hidden), ``moe_w2`` (E, hidden, d) are f32 parameters
+    (lecun-normal scales over flax's fans, which count the expert dim),
+    cast to the compute dtype inside :func:`..ops.moe.moe_dispatch_compute`;
+    the router's logits are f32."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None, n_experts: int,
+                 mlp_ratio: int, capacity_factor: float, compute_dtype: torch.dtype,
+                 router_topk: int, dispatch_impl: str, gen: torch.Generator | None) -> None:
+        super().__init__()
+        hidden = mlp_ratio * d_model
+        self.n_experts, self.capacity_factor = n_experts, capacity_factor
+        self.router_topk, self.dispatch_impl = router_topk, dispatch_impl
+        self.ln1 = LayerNorm(d_model, compute_dtype)
+        self.attn = Attention(d_model, n_heads, n_kv_heads, compute_dtype, gen)
+        self.ln2 = LayerNorm(d_model, compute_dtype)
+        self.router = _param(gen, d_model, n_experts, fan_in=d_model)
+        self.moe_w1 = _param(gen, n_experts, d_model, hidden, fan_in=n_experts * d_model)
+        self.moe_b1 = _zeros(n_experts, hidden)
+        self.moe_w2 = _param(gen, n_experts, hidden, d_model, fan_in=n_experts * hidden)
+
+    def forward(self, x: torch.Tensor):
+        x = x + self.attn(self.ln1(x))
+        h = self.ln2(x)
+        y, aux, dropped = moe_dispatch_compute(
+            h.reshape(-1, h.shape[-1]), self.router, self.moe_w1, self.moe_b1, self.moe_w2,
+            n_experts=self.n_experts, capacity_factor=self.capacity_factor,
+            router_topk=self.router_topk, dispatch_impl=self.dispatch_impl,
+        )
+        return x + y.reshape(x.shape), aux, dropped
+
+
+class MoETransformerLM(nn.Module):
+    """Decoder-only LM with Switch/GShard MoE MLPs: tokens (B, T) ->
+    ``(logits f32, aux / n_layers, dropped / n_layers)``.
+
+    The JAX ``MoETransformerLM`` at ``ep_size`` 1 on one device: ``n_experts``
+    experts all local, ``router_topk`` 1 (Switch) or 2 (GShard),
+    ``dispatch_impl`` "einsum", "scatter" or "auto" (``ops.moe``). Parameters
+    are drawn from ``seed`` by a generator on ``device`` (the card unless
+    ``"cpu"``), at :class:`TransformerLM`'s scales: at the bench width the
+    2.28B weights would take tens of seconds to draw on the host. So one seed
+    gives other weights on the card than on the CPU; carry them across
+    (``set_flat_params``) to compare the two. ``expert_axis``,
+    ``ep_size`` above 1 and ``seq_axis`` need several ranks and raise
+    ``NotImplementedError``. Its parameter names map onto the flax tree's
+    ``MoEBlock_i`` (:func:`..models.convert.moe_flax_path`)."""
+
+    flax_path = staticmethod(moe_flax_path)
+
+    def __init__(
+        self,
+        vocab: int = 256,
+        d_model: int = 128,
+        n_heads: int = 4,
+        n_kv_heads: int | None = None,
+        n_layers: int = 2,
+        n_experts: int = 4,
+        mlp_ratio: int = 4,
+        capacity_factor: float = 1.25,
+        compute_dtype: torch.dtype = torch.float32,
+        router_topk: int = 1,
+        dispatch_impl: str = "auto",
+        *,
+        expert_axis: str | None = None,
+        ep_size: int = 1,
+        seq_axis: str | None = None,
+        seed: int = 0,
+        device: torch.device | str | None = None,
+    ) -> None:
+        super().__init__()
+        if expert_axis is not None or ep_size != 1 or seq_axis is not None:
+            raise NotImplementedError(
+                f"expert_axis={expert_axis!r}, ep_size={ep_size}, seq_axis={seq_axis!r}: "
+                "expert and sequence parallelism are not ported yet (ROADMAP item 10)")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+        self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
+        self.n_heads = n_heads
+        self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
+        self.n_experts, self.router_topk = n_experts, router_topk
+        self.compute_dtype = compute_dtype
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.embedding = _param(gen, vocab, d_model, fan_in=d_model)
+        self.blocks = nn.ModuleList(
+            MoEBlock(d_model, n_heads, n_kv_heads, n_experts, mlp_ratio, capacity_factor,
+                     compute_dtype, router_topk, dispatch_impl, gen)
+            for _ in range(n_layers)
+        )
+        self.ln_f = LayerNorm(d_model, compute_dtype)
+        self.head_kernel = _param(gen, d_model, vocab, fan_in=d_model)
+        self.head_bias = _zeros(vocab)
+        self.to(dev)
+
+    def forward(self, tokens: torch.Tensor):
+        x = self.embedding.to(self.compute_dtype)[tokens.long()]
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        dropped_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for block in self.blocks:
+            x, aux, dropped = block(x)
+            aux_total = aux_total + aux
+            dropped_total = dropped_total + dropped
+        x = self.ln_f(x)
+        logits = _dense(x, self.head_kernel, self.head_bias, self.compute_dtype)
+        return logits.float(), aux_total / self.n_layers, dropped_total / self.n_layers

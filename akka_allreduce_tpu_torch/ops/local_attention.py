@@ -20,8 +20,13 @@ K4's plain PyTorch version. So on the CPU a gated shape takes K4's plain
 version, and on the card it takes the kernel, never a silent fallback.
 
 Convention for a query row with no visible keys: the output row is zero.
-``quantized_cache_attention``, ``seq_decode_attention`` and their score
-helpers wait for the int8 cache and the sequence-sharded decode.
+
+:func:`quantized_cache_attention` attends over an int8 KV cache with its
+per-row scales folded into the scores and the weights
+(:func:`_scaled_masked_scores`, :func:`_weighted_v`), so no dequantized
+copy of the cache is made. As in the JAX package these are plain einsums
+outside any kernel. ``seq_decode_attention`` waits for the
+sequence-sharded decode.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from akka_allreduce_tpu_torch.ops.flash_attention import flash_attention
 from akka_allreduce_tpu_torch.ops.ring_attention import (
     _MASK_VALUE,
     attention_reference,
+    causal_mask,
     online_softmax_update,
     repeat_kv,
 )
@@ -159,3 +165,56 @@ def local_attention(
         q, k, v, causal=causal, sm_scale=scale,
         q_offset=q_offset, k_offset=k_offset,
     )
+
+
+def _scaled_masked_scores(q, k, k_scale, scale: float, q_offset: int, k_offset: int):
+    """f32 (B, H, Tq, L) causally masked scores of ``q`` against a K slice:
+    grouped-query heads repeat at the compute site, and an int8 slice's
+    per-row scales fold into the scores (q·(k·s) = (q·k)·s), the product
+    ``k_scale * scale`` taken first as the JAX function takes it."""
+    h = q.shape[2]
+    kc = repeat_kv(k.to(q.dtype), h)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc.float())
+    if k_scale is not None:
+        ks = torch.repeat_interleave(k_scale, h // k.shape[2], dim=2)  # (B, L, H)
+        scores = scores * (ks.transpose(1, 2)[:, :, None, :] * scale)
+    else:
+        scores = scores * scale
+    mask = causal_mask(q.shape[1], k.shape[1], q_offset, k_offset, q.device)
+    return torch.where(mask[None, None], scores, _MASK_VALUE)
+
+
+def _weighted_v(p, v, v_scale):
+    """(B, H, Tq, L) weights times a V slice -> (B, H, Tq, D) f32, an int8
+    slice's row scales folded into the weights (sum p·s·v = (p·s)·v)."""
+    h = p.shape[1]
+    vc = repeat_kv(v, h)
+    if v_scale is not None:
+        vs = torch.repeat_interleave(v_scale, h // v.shape[2], dim=2)
+        p = p * vs.transpose(1, 2)[:, :, None, :]
+    return torch.einsum("bhqk,bkhd->bhqd", p.float(), vc.float())
+
+
+def quantized_cache_attention(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    *,
+    q_offset: int,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Causal attention over an int8-quantized KV cache without a
+    dequantized copy of it: the per-row scales fold into the scores and the
+    weights, so the cache is read as int8 payloads only.
+
+    Shapes: ``q`` (B, Tq, H, D); ``k_q``/``v_q`` (B, L, H_kv, D) int8 with
+    (B, L, H_kv) f32 scales. Built for the decode shape (small Tq over a
+    long cache); the scores are (B, H, Tq, L) f32.
+    """
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    scores = _scaled_masked_scores(q, k_q, k_scale, scale, q_offset, 0)
+    probs = torch.softmax(scores, dim=-1)
+    out = _weighted_v(probs, v_q, v_scale)
+    return out.transpose(1, 2).to(q.dtype)

@@ -1,7 +1,7 @@
 """Elastic training: the cross-round tier of BASELINE config 5's fault model.
 
 Counterpart of ``akka_allreduce_tpu/train/elastic.py`` (``ElasticTrainer``,
-``ElasticDPTrainer``, ``ElasticLongContextTrainer``,
+``ElasticDPTrainer``, ``ElasticLongContextTrainer``, ``ElasticMoETrainer``,
 ``adaptive_parallel_factor``). Within a round, stragglers are absorbed by
 the threshold mask; across rounds, a node that stays silent trips the
 phi-accrual detector and its ranks leave the mesh through the cycle
@@ -27,7 +27,7 @@ factory must therefore give every build its own weights (``ElasticDPTrainer``
 deep-copies its model for each build): a module shared between the old
 trainer and the new one would take the restore's in-place writes.
 
-The MoE and pipeline subclasses wait for their trainers.
+The pipeline subclass waits for its trainer.
 """
 
 from __future__ import annotations
@@ -399,6 +399,42 @@ class ElasticLongContextTrainer(ElasticTrainer):
             if compress is not _INHERIT:
                 kw["compress"] = compress
             return LongContextTrainer(mesh, seq_len=seq_len, **kw)
+
+        super().__init__(factory, devices_by_node, mesh_factory=mesh_factory,
+                         detector=detector, min_nodes=min_nodes, clock=clock,
+                         device=device)
+
+
+class ElasticMoETrainer(ElasticTrainer):
+    """Elastic MoE training over a ``(data,)`` line of the live ranks (the
+    JAX trainer's expert axis comes with ROADMAP item 10). The port's
+    ``MoETrainer`` takes one rank, so this runs where the live
+    rank count is 1 (config 5 on one card: a one-rank node and zero-rank
+    control nodes); any other count raises the trainer's own
+    ``NotImplementedError``. Each build draws its own model from ``seed``
+    and the snapshot overwrites it."""
+
+    def __init__(
+        self,
+        devices_by_node: Mapping[int, Sequence],
+        *,
+        n_experts: int = 4,
+        detector: PhiAccrualFailureDetector | None = None,
+        min_nodes: int = 1,
+        clock: Callable[[], float] = time.monotonic,
+        device: str | torch.device | None = None,
+        **trainer_kwargs,
+    ) -> None:
+        from akka_allreduce_tpu_torch.train.moe import MoETrainer
+
+        def mesh_factory(n: int, *, device=None) -> RankMesh:
+            return line_mesh(n, device=device, axis="data")
+
+        def factory(mesh, compress=_INHERIT):
+            kw = dict(trainer_kwargs)
+            if compress is not _INHERIT:
+                kw["compress"] = compress
+            return MoETrainer(mesh, n_experts=n_experts, **kw)
 
         super().__init__(factory, devices_by_node, mesh_factory=mesh_factory,
                          detector=detector, min_nodes=min_nodes, clock=clock,

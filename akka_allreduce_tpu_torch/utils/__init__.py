@@ -9,6 +9,7 @@ from akka_allreduce_tpu_torch.utils.benchmarking import (  # noqa: F401
     device_peak_flops,
     median_slope,
     mfu,
+    moe_active_params,
     transformer_forward_flops,
     transformer_train_flops,
 )

@@ -9,8 +9,8 @@
 - :func:`card_info`: the card's name, power limit and count, as
   ``nvidia-smi`` reports them; every number measured on a card is written
   down beside them.
-- FLOP accounting: the port's copies of ``dense_train_flops`` and
-  ``transformer_train_flops``, a
+- FLOP accounting: the port's copies of ``dense_train_flops``,
+  ``transformer_train_flops`` and ``moe_active_params``, a
   forward-only form for serving (:func:`transformer_forward_flops`),
   :func:`device_peak_flops`, the card's dense bf16 peak, and the port's copy
   of :func:`mfu`.
@@ -114,6 +114,20 @@ def transformer_forward_flops(
     attention products ``4·B·T²·d`` per layer, halved for causal."""
     attn = 4.0 * batch * float(seq) ** 2 * d_model * n_layers
     return 2.0 * float(n_params) * batch * seq + (0.5 * attn if causal else attn)
+
+
+def moe_active_params(model: torch.nn.Module, topk: int, n_experts: int) -> float:
+    """Active parameter count of a Switch/GShard MoE model: each token runs
+    ``topk`` of the ``n_experts`` expert MLPs, so a parameter whose name
+    holds ``moe_`` counts at topk/n_experts and every other one fully (the
+    JAX function's rule over flax paths, here over ``named_parameters``).
+    Feed it to :func:`transformer_train_flops` as ``n_params``."""
+    total = expert = 0
+    for name, p in model.named_parameters():
+        total += p.numel()
+        if "moe_" in name:
+            expert += p.numel()
+    return total - expert + expert * topk / n_experts
 
 
 @dataclass(frozen=True)

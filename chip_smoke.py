@@ -225,7 +225,25 @@ Phases, each printed as it ends:
    shards) with the JAX Makefile's levers, every summary printed on its own
    line with the drill's wall seconds and the drills it ran beside (three
    groups, a group's drills started together); ``train-mlp --profile-dir`` (a Chrome trace
-   holding K1, 5 launches);
+   holding K1, 5 launches); (m) the int8 KV cache and MoE: the flagship LM
+   in bf16 served from an int8 cache (B 8, prompt 2048): the cache's bytes
+   against the bf16 cache's ((D + 4) / 2D), K4 once a layer at the prefill
+   (the dequantize branch) and the prefill's logits within 2e-2 of max|logit|
+   of the plain attention over the same dequantized cache, no K4 launch in
+   decode, one decode step of ``quantized_cache_attention`` within 1e-5 of
+   max|out| of the CPU's, the greedy tokens' agreement and the prefill
+   logits' difference between the int8 and bf16 caches, ``lm-generate
+   --cache-quant int8`` beside ``lm-generate`` (prefill_ms, ms_per_token);
+   the MoE LM at ``bench-mfu --workload moe``'s defaults (8 experts, top-1,
+   capacity factor 1.25, scatter dispatch, bf16, 2.28B parameters, B 8 x T
+   2048): K4's bf16 forward and backward once a layer a step, a 20-step
+   chain whose loss falls (the dropped fraction printed), two steps under
+   ``torch.profiler``, the peak memory, the floor on the active parameters,
+   ``bench-mfu --workload moe`` and ``--mu-bf16``; at a dense width (d 128,
+   T 256) three SGD steps on the card within 1e-4 of the CPU's and the
+   scatter dispatch within 1e-5 of the einsum; ``train-moe`` at its defaults
+   with a falling loss, ``elastic-demo --family moe``, and config 5's MoE
+   fields from (k)'s record;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -355,6 +373,22 @@ CHAOS_STEPS = 24
 CHAOS_LOCAL_SPEC = "drop:p=0.02;duplicate:p=0.05;reorder:p=0.05;corrupt:p=0.05"
 CHAOS_LOCAL_SEED, CHAOS_LOCAL_CHUNK, CHAOS_LOCAL_ROUNDS = 0, 262_144, 10
 CHAOS_SCALE_GRID, CHAOS_SCALE_SHARDS = "2x4", 2
+# the int8 KV cache and MoE (phase m): the serving cell is the flagship's; the
+# MoE cell is bench-mfu --workload moe's defaults (8 experts, top-1, capacity
+# factor 1.25, auto -> scatter, bf16, 2.28B parameters), its chain long enough
+# to see the loss fall (Adam at the bench's lr 1e-3 first lifts it: 6.02 ->
+# 9.93 by the third step, back to 6.13 by the seventh); the small card-vs-CPU
+# width keeps attention dense (T 256) so that routing decisions see the same
+# logits to ~1e-6 on both sides, and steps by SGD (the Adam hazard: a first
+# Adam step is nearly a sign step)
+MOE = dict(vocab=256, d_model=2048, n_heads=16, n_layers=8, n_experts=8, seq_len=2048)
+MOE_BATCH, MOE_CHAIN = 8, 20
+MOE_SMALL = dict(vocab=64, d_model=128, n_heads=4, n_layers=2, n_experts=4, seq_len=256)
+MOE_SMALL_BATCH, MOE_SMALL_STEPS, MOE_SMALL_TOL = 8, 3, 1e-4  # relative
+# quantized_cache_attention on the card vs the CPU, of max|out|, with decode's
+# bf16 q: f32 scores and sums on both sides, the output rounded to bf16, so
+# an element may round one bf16 ulp apart (at most 2^-7 of its magnitude)
+QCA_TOL = 2.0 ** -7
 
 
 def ring_name(mode: str | None) -> str:
@@ -2223,7 +2257,7 @@ def elastic_path(dev, card: dict) -> dict:
     print(json.dumps(rec), flush=True)
     launches["config5"] = count["masked_average"]
     flags = [k for k, v in rec.items() if k.endswith("remeshed") and v is not None]
-    require(all(rec[k] is True for k in flags) and len(flags) == 5
+    require(all(rec[k] is True for k in flags) and len(flags) == 6
             and rec["zero_device_control_node"] is True and rec["rounds_completed"] == 10
             and 2.0 <= rec["mean_contributors"] <= 3.0, f"config 5 record {rec}")
     # the DP and ZeRO-1 trainers: 5 f32 steps each, one K1 launch a step
@@ -2233,7 +2267,10 @@ def elastic_path(dev, card: dict) -> dict:
         "rounds_completed", "mean_contributors", "drop_remesh_and_first_step_s",
         "rejoin_remesh_and_first_step_s", "warm_drop_remesh_and_first_step_s",
         "drop_remesh_s", "rejoin_remesh_s", "warm_drop_remesh_s",
-        "zero1_drop_remesh_and_first_step_s", "long_context_drop_remesh_and_first_step_s")}
+        "zero1_drop_remesh_and_first_step_s", "long_context_drop_remesh_and_first_step_s",
+        "moe_remeshed", "moe_drop_remesh_and_first_step_s",
+        "moe_rejoin_remesh_and_first_step_s", "moe_warm_drop_remesh_and_first_step_s",
+        "moe_post_rejoin_loss")}
 
     # the DP cycle at the DP cell's width, against the continuation oracle
     zero(count)
@@ -2762,6 +2799,328 @@ def chaos_path(dev, card: dict) -> dict:
     out["launches_by_part"] = launches
     out["launches"] = sum(launches.values())
     return out
+
+
+def int8_serving(dev, card: dict) -> dict:
+    """(m1) The flagship LM (bf16, B 8, prompt 2048) served from an int8 KV
+    cache: the cache's bytes against the bf16 cache's; the prefill's K4
+    launches (once a layer: the dequantize branch reaches ``local_attention``)
+    and its logits against the plain attention over the same dequantized
+    cache; no K4 launch in decode; one decode step of
+    ``quantized_cache_attention`` on the card against the CPU; the greedy
+    tokens and prefill logits of the int8 and the bf16 cache; and
+    ``lm-generate --cache-quant int8`` beside ``lm-generate`` (both ``--bf16``
+    at the flagship), their records printed. Returns K4's launches and the
+    figures."""
+    from unittest import mock
+
+    import torch
+
+    from akka_allreduce_tpu_torch.models import LMGenerator, SyntheticCopyLM, TransformerLM
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops import local_attention as la
+
+    count = fa.LAUNCHES
+    n_layers, hd = LM["n_layers"], LM["d_model"] // LM["n_heads"]
+    x, _ = next(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED).batches(LM_BATCH, 1))
+    tokens = torch.from_numpy(x).to(dev)
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, seed=SEED, device=dev)
+    gen8 = LMGenerator(model, max_len=LM_SEQ + LM_GEN, cache_quant="int8")
+    gen16 = LMGenerator(model, max_len=LM_SEQ + LM_GEN)
+    out: dict = {}
+    launches = 0
+
+    def new_cache(gen):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        cache = gen.init_cache(LM_BATCH)
+        torch.cuda.synchronize()
+        return cache, torch.cuda.memory_allocated() - before
+
+    c8, bytes8 = new_cache(gen8)
+    c16, bytes16 = new_cache(gen16)
+    out["cache_bytes"] = {"int8": bytes8, "bf16": bytes16, "ratio": bytes8 / bytes16,
+                          "expected_ratio": (hd + 4) / (2 * hd)}
+    require(abs(bytes8 / bytes16 - (hd + 4) / (2 * hd)) < 0.005,
+            f"int8 cache bytes {bytes8} vs bf16 {bytes16}")
+    require(c8.k[0].dtype == torch.int8 and c8.k_scale[0].dtype == torch.float32,
+            "int8 cache dtypes")
+
+    # the prefill: the dequantize branch, K4 once a layer
+    zero(count)
+    with torch.no_grad():
+        logits8 = model(tokens, c8)
+    torch.cuda.synchronize()
+    out["prefill_launches"] = dict(count)
+    require(count["flash_attention"] == count["flash_attention_wgmma"] == n_layers
+            and count["flash_attention_3xtf32"] == 0, f"int8 prefill: K4 launches {count}")
+    launches += count["flash_attention_wgmma"]
+    with mock.patch.object(la, "flash_attention", lambda q, k, v, causal, sm_scale:
+                           fa.flash_attention_reference(q, k, v, causal=causal,
+                                                        sm_scale=sm_scale)), torch.no_grad():
+        plain = model(tokens, gen8.init_cache(LM_BATCH))
+    torch.cuda.synchronize()
+    require(count["flash_attention"] == n_layers, "the plain prefill launched K4")
+    scale = float(plain.abs().max())
+    err = float((logits8 - plain).abs().max()) / scale
+    out["prefill_vs_plain_of_max_logit"] = err
+    require(bool(torch.isfinite(logits8).all()) and err <= FLASH_TOL["bfloat16"],
+            f"int8 prefill vs the plain attention: {err} of max|logit| {scale}")
+    del plain
+
+    # decode: the fused branch over the int8 slots, no K4
+    zero(count)
+    tok = torch.argmax(logits8[:, -1], dim=-1)[:, None]
+    with torch.no_grad():
+        for _ in range(4):
+            tok = torch.argmax(model(tok, c8)[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    require(all(n == 0 for n in count.values()), f"int8 decode launched K4: {count}")
+    live = c8.index
+    q = torch.randn((LM_BATCH, 1, LM["n_heads"], hd), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev, dtype=torch.bfloat16)  # as decode's q
+    args = (q, c8.k[0][:, :live], c8.k_scale[0][:, :live], c8.v[0][:, :live],
+            c8.v_scale[0][:, :live])
+    got = la.quantized_cache_attention(*args, q_offset=live - 1).cpu()
+    want = la.quantized_cache_attention(*(a.cpu() for a in args), q_offset=live - 1)
+    qca_err = float((got - want).abs().max()) / float(want.abs().max())
+    out["decode_step_card_vs_cpu_of_max"] = qca_err
+    require(qca_err <= QCA_TOL, f"quantized_cache_attention card vs CPU: {qca_err}")
+    del c8, c16, args
+
+    # the int8 cache against the bf16 one: greedy tokens, prefill logits
+    zero(count)
+    out8 = gen8.generate(tokens, LM_GEN)
+    out16 = gen16.generate(tokens, LM_GEN)
+    with torch.no_grad():
+        logits16 = model(tokens, gen16.init_cache(LM_BATCH))
+    torch.cuda.synchronize()
+    require(count["flash_attention_wgmma"] == count["flash_attention"] == 3 * n_layers,
+            f"two generations and a prefill: K4 launches {count}")
+    launches += count["flash_attention_wgmma"]
+    diff = (logits8 - logits16).abs()
+    out["greedy_agreement"] = float((out8 == out16).float().mean())
+    out["first_token_agreement"] = float((out8[:, 0] == out16[:, 0]).float().mean())
+    out["logits_int8_vs_bf16"] = {"max": float(diff.max()), "mean": float(diff.mean()),
+                                  "max_abs_logit": float(logits16.abs().max())}
+    del logits8, logits16, diff, model, gen8, gen16
+    torch.cuda.empty_cache()
+
+    # the command, int8 beside bf16, at the flagship
+    argv = ["lm-generate", "--vocab", str(LM["vocab"]), "--d-model", str(LM["d_model"]),
+            "--heads", str(LM["n_heads"]), "--layers", str(n_layers), "--batch",
+            str(LM_BATCH), "--prompt-len", str(LM_SEQ), "--gen", str(LM_GEN), "--bf16"]
+    for name, extra in (("int8", ["--cache-quant", "int8"]), ("bf16", [])):
+        zero(count)
+        rc, text = run_cli(argv + extra)
+        torch.cuda.synchronize()
+        rec = json.loads(text.strip().splitlines()[-1])
+        print(json.dumps(rec), flush=True)
+        require(rc == 0 and rec["prefill_ms"] > 0 and rec["ms_per_token"] > 0
+                and rec["cache_quant"] == (extra[-1] if extra else None)
+                and count["flash_attention_wgmma"] == count["flash_attention"] > 0,
+                f"lm-generate {name}: rc {rc}, {rec}, {count}")
+        launches += count["flash_attention_wgmma"]
+        out[f"lm_generate_{name}"] = {k: rec[k] for k in (
+            "prefill_ms", "ms_per_token", "tokens_per_s", "device", "power_limit")}
+    torch.cuda.empty_cache()
+    r8, r16 = out["lm_generate_int8"], out["lm_generate_bf16"]
+    print(f"int8 KV cache (B {LM_BATCH}, prompt {LM_SEQ}, bf16, {card['name']}, "
+          f"{card['power_limit']}): cache {bytes8} B vs bf16 {bytes16} B "
+          f"({bytes8 / bytes16:.4f}x); prefill {r8['prefill_ms']:.3f} ms vs "
+          f"{r16['prefill_ms']:.3f} ms; decode {r8['ms_per_token']:.3f} vs "
+          f"{r16['ms_per_token']:.3f} ms/token; greedy agreement "
+          f"{out['greedy_agreement']:.3f}; logits max |diff| "
+          f"{out['logits_int8_vs_bf16']['max']:.4f}, mean "
+          f"{out['logits_int8_vs_bf16']['mean']:.5f}", flush=True)
+    out["launches"] = {"flash_attention_bf16": launches}
+    return out
+
+
+def moe_training(dev, card: dict) -> dict:
+    """(m2) The MoE LM at ``bench-mfu --workload moe``'s defaults: one
+    ``train_step`` with K4's forward and backward once a layer; a chain
+    whose loss falls (the dropped fraction printed); two steps under
+    ``torch.profiler``; the peak memory; the floor from
+    ``transformer_train_flops`` on the active parameters; ``bench-mfu
+    --workload moe`` and ``--mu-bf16``, their records printed. Then at a
+    small width three steps on the card against the same steps on the CPU,
+    and the scatter dispatch against the einsum on the card. Returns K4's
+    launches and the figures."""
+    from unittest import mock
+
+    import torch
+
+    from akka_allreduce_tpu_torch.models import lm_copy_task
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.train import MoETrainer
+    from akka_allreduce_tpu_torch.utils import moe_active_params, transformer_train_flops
+
+    count = fa.LAUNCHES
+    n_layers = MOE["n_layers"]
+    out: dict = {}
+    launches = {"flash_attention_bf16": 0, "flash_attention_bwd_bf16": 0}
+
+    def take(what: str, steps: int) -> None:
+        require(count["flash_attention"] == count["flash_attention_wgmma"] == n_layers * steps
+                and count["flash_attention_bwd"] == count["flash_attention_bwd_wgmma"]
+                == n_layers * steps and count["flash_attention_3xtf32"] == 0
+                and count["flash_attention_bwd_3xtf32"] == 0,
+                f"{what}: K4 once a layer a step, forward and backward: {count}")
+        launches["flash_attention_bf16"] += count["flash_attention_wgmma"]
+        launches["flash_attention_bwd_bf16"] += count["flash_attention_bwd_wgmma"]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = MoETrainer(**MOE, compute_dtype=torch.bfloat16, learning_rate=1e-3,
+                         seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    ds = lm_copy_task(MOE["seq_len"], vocab=MOE["vocab"], seed=SEED)
+    batches = list(ds.batches(MOE_BATCH, 3))
+    zero(count)
+    m = trainer.train_step(*batches[0])
+    torch.cuda.synchronize()
+    take("one step", 1)
+    require(math.isfinite(m.loss) and m.contributors == 1.0, f"MoE step {m}")
+    zero(count)
+    hist = trainer.train_chain(ds.device_sampler(), MOE_CHAIN, MOE_BATCH)
+    torch.cuda.synchronize()
+    take("the chain", MOE_CHAIN)
+    losses = [m.loss] + [h.loss for h in hist]
+    out["losses"] = losses
+    out["dropped"] = [m.dropped] + [h.dropped for h in hist]
+    out["aux"] = [m.aux_loss] + [h.aux_loss for h in hist]
+    require(all(math.isfinite(v) for v in losses) and sum(losses[-3:]) / 3 < losses[0],
+            f"MoE loss does not fall: {losses}")
+
+    def two_steps():
+        for x, y in batches[1:]:
+            trainer.train_step(x, y)
+
+    zero(count)
+    prof = profile_window(two_steps, top=12)
+    take("the profiled steps", 2)
+    out["profile"] = {**prof, "steps": 2}
+    print(json.dumps({"moe_train_profile": out["profile"]}), flush=True)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    active = moe_active_params(trainer.model, 1, MOE["n_experts"])
+    out["params"], out["active_params"] = trainer.param_count, active
+    out["floor_ms"] = transformer_train_flops(
+        n_params=active, batch=MOE_BATCH, seq=MOE["seq_len"], d_model=MOE["d_model"],
+        n_layers=n_layers) / BF16_OPS_PER_S * 1e3
+    del trainer, hist
+    torch.cuda.empty_cache()
+
+    chain = MoETrainer.train_chain
+    for name, extra in (("bench_mfu", []), ("bench_mfu_mu_bf16", ["--mu-bf16"])):
+        ran = [0]  # the steps of every chain the bench runs, counted apart from K4
+
+        def counted(self, sampler, steps, *a, **k):
+            ran[0] += steps
+            return chain(self, sampler, steps, *a, **k)
+
+        zero(count)
+        with mock.patch.object(MoETrainer, "train_chain", counted):
+            rc, text = run_cli(["bench-mfu", "--workload", "moe", *extra])
+        torch.cuda.synchronize()
+        rec = json.loads(text.strip().splitlines()[-1])
+        print(json.dumps(rec), flush=True)
+        require(rc == 0 and rec["value"] is not None and 0 < rec["value"] < 1
+                and rec["device"] == card["name"] and rec["mu_bf16"] == bool(extra),
+                f"bench-mfu --workload moe {extra}: {rec}")
+        require(ran[0] > 0, f"bench-mfu {name} ran no training step")
+        take(f"bench-mfu {name}", ran[0])
+        out[name] = {k: rec[k] for k in (
+            "value", "ms_per_step", "spread_pct", "params_m", "active_params_m",
+            "dropped_frac", "tflops_per_s", "compile_s")}
+        out[name]["steps"] = ran[0]
+        torch.cuda.empty_cache()
+
+    # a small width: the card against the CPU, the scatter against the einsum
+    kw = dict(**MOE_SMALL, seed=SEED, optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1))
+    cpu = MoETrainer(**kw, device="cpu")
+    on_card = MoETrainer(**kw, device=dev)
+    on_card.set_flat_params(cpu.get_flat_params())
+    small = list(lm_copy_task(MOE_SMALL["seq_len"], vocab=MOE_SMALL["vocab"],
+                              seed=SEED).batches(MOE_SMALL_BATCH, MOE_SMALL_STEPS))
+    zero(count)
+    worst = 0.0
+    for x, y in small:
+        a, b = on_card.train_step(x, y), cpu.train_step(x, y)
+        for key in ("loss", "aux_loss", "dropped"):
+            e = abs(getattr(a, key) - getattr(b, key)) / max(abs(getattr(b, key)), 1e-6)
+            worst = max(worst, e)
+            require(e <= MOE_SMALL_TOL, f"small MoE step {key}: card {a} vs CPU {b}")
+    got, want = on_card.get_flat_params(), cpu.get_flat_params()
+    perr = float(abs(got - want).max() / abs(want).max())
+    require(perr <= MOE_SMALL_TOL and all(n == 0 for n in count.values()),
+            f"small MoE parameters card vs CPU: {perr} of max|param|; launches {count}")
+    tokens = torch.from_numpy(small[0][0]).to(dev)
+    with torch.no_grad():
+        ys = {}
+        for impl in ("scatter", "einsum"):
+            for block in on_card.model.blocks:
+                block.dispatch_impl = impl
+            ys[impl] = on_card.model(tokens)
+    serr = float((ys["scatter"][0] - ys["einsum"][0]).abs().max()) / float(
+        ys["einsum"][0].abs().max())
+    require(serr <= 1e-5 and float(ys["scatter"][1]) == float(ys["einsum"][1])
+            and float(ys["scatter"][2]) == float(ys["einsum"][2]),
+            f"scatter vs einsum on the card: {serr} of max|logit|")
+    out["small"] = {"steps": MOE_SMALL_STEPS, "metrics_rel_err": worst,
+                    "params_err_of_max": perr, "scatter_vs_einsum_of_max_logit": serr,
+                    "tolerance": MOE_SMALL_TOL}
+    del cpu, on_card, ys
+    torch.cuda.empty_cache()
+    b = out["bench_mfu"]
+    print(f"MoE training (bench-mfu --workload moe defaults: {out['params'] / 1e9:.3f}B "
+          f"parameters, {out['active_params'] / 1e6:.1f}M active, B {MOE_BATCH} x T "
+          f"{MOE['seq_len']}, bf16; {card['name']}, {card['power_limit']}): bench-mfu "
+          f"{b['ms_per_step']} ms/step, MFU {b['value']} (--mu-bf16 "
+          f"{out['bench_mfu_mu_bf16']['ms_per_step']} ms/step, MFU "
+          f"{out['bench_mfu_mu_bf16']['value']}); floor {out['floor_ms']:.2f} ms at "
+          f"{BF16_OPS_PER_S / 1e12:.1f} TFLOP/s; peak memory {out['peak_memory_gb']:.2f} GB; "
+          f"device busy {out['profile']['busy_share'] * 100:.1f}%; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, dropped {out['dropped'][-1]:.4f}", flush=True)
+    out["launches"] = launches
+    return out
+
+
+def moe_int8_path(dev, card: dict, config5: dict) -> dict:
+    """Phase (m): (m1) :func:`int8_serving`; (m2) :func:`moe_training`; (m3)
+    ``train-moe`` at its defaults with a falling loss, ``elastic-demo
+    --family moe`` and config 5's MoE fields from phase (k)'s record.
+    Returns K4's launches by kernel name and the figures."""
+    import torch
+
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+
+    serving = int8_serving(dev, card)
+    training = moe_training(dev, card)
+    count = fa.LAUNCHES
+    zero(count)
+    rc, text = run_cli(["train-moe"])
+    torch.cuda.synchronize()
+    line = text.strip().splitlines()[-1]
+    first, last = (float(v) for v in line.split("loss ")[1].split(" (aux")[0].split(" -> "))
+    print(line, flush=True)
+    require(rc == 0 and last < first and line.startswith("moe: 30 steps on 1 devices"),
+            f"train-moe: rc {rc}\n{text}")
+    rc, text = run_cli(["elastic-demo", "--family", "moe"])
+    require(rc == 0 and "final generation 2" in text and "dp1 x ep1" in text,
+            f"elastic-demo --family moe: rc {rc}\n{text}")
+    require(all(n == 0 for n in count.values()), f"train-moe / elastic-demo: K4 {count}")
+    moe5 = {k: v for k, v in config5.items() if k.startswith("moe_")}
+    require(moe5.get("moe_remeshed") is True and len(moe5) == 5
+            and all(v is not None for v in moe5.values()), f"config 5's MoE fields {moe5}")
+    launches = dict(serving.pop("launches"))
+    for name, n in training.pop("launches").items():
+        launches[name] = launches.get(name, 0) + n
+    return {"launches": launches, "int8_serving": serving, "moe_training": training,
+            "train_moe": line, "elastic_demo": text.strip().splitlines()[-1],
+            "config5_moe": moe5}
 
 
 def live_state(trainer, clone: bool = False) -> dict:
@@ -3703,6 +4062,12 @@ def main() -> int:
           launches_by_part=ch["launches_by_part"],
           **{k: v for k, v in ch.items() if k not in ("card", "launches", "launches_by_part")})
 
+    # -- 4m. the int8 KV cache and MoE on one card ---------------------------------
+    t0 = time.perf_counter()
+    mi = moe_int8_path(dev, card, el["config5"])
+    phase("moe_int8_path", t0, card=card["smi"], launches=mi["launches"],
+          **{k: v for k, v in mi.items() if k != "launches"})
+
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
     k = K_WORKERS
@@ -3867,7 +4232,7 @@ def main() -> int:
 
     path_launches = {**launches, **ring_launches}
     path_launches["masked_average"] += dp_launches + el["launches"] + ch["launches"]
-    for part in (lm["launches"], train["launches"], ck["launches"]):
+    for part in (lm["launches"], train["launches"], ck["launches"], mi["launches"]):
         for name, n in part.items():
             path_launches[name] = path_launches.get(name, 0) + n
     kernels = []

@@ -507,8 +507,9 @@ def test_config5_record_on_the_cpu():
     assert rec["rejoin_remesh_and_first_step_s"] > 0
     assert rec["zero1_remeshed"] is True and rec["long_context_remeshed"] is True
     assert rec["zero_device_control_node"] is True and rec["compile_cache"] is None
-    assert rec["moe_remeshed"] is None and rec["pipeline_post_rejoin_loss"] is None
-    assert rec["families_not_ported"] == ["moe", "pipeline"]
+    assert rec["moe_remeshed"] is True and rec["pipeline_post_rejoin_loss"] is None
+    assert rec["moe_drop_remesh_and_first_step_s"] > 0 and rec["moe_post_rejoin_loss"] > 0
+    assert rec["families_not_ported"] == ["pipeline"]
     assert rec["device"] == "cpu" and rec["device_platform"] == "cpu"
     json.dumps(rec)
 
@@ -526,7 +527,17 @@ def test_elastic_demo_cli_on_the_cpu(capsys):
     assert "dp1 x sp1 (generation 1)" in out and "final generation 2" in out
 
 
-@pytest.mark.parametrize("family", ["moe", "pp"])
+def test_elastic_demo_moe_on_the_cpu(capsys):
+    assert cli_main(["elastic-demo", "--device", "cpu", "--family", "moe", "--steps", "10",
+                     "--drop-at", "3", "--rejoin-at", "7", "--batch-per-device", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "elastic-demo: moe, 4 nodes, 1 ranks on cpu" in out
+    assert "re-meshed to 3 nodes / dp1 x ep1 (generation 1)" in out
+    assert "re-meshed to 4 nodes / dp1 x ep1 (generation 2)" in out
+    assert "final generation 2" in out
+
+
+@pytest.mark.parametrize("family", ["pp"])
 def test_elastic_demo_refuses_unported_families(family, capsys):
     with pytest.raises(SystemExit) as exit_info:
         cli_main(["elastic-demo", "--device", "cpu", "--family", family])

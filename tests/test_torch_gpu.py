@@ -11,7 +11,10 @@ payloads on the card: each wire mode's frame equal to the CPU copy's bytes,
 a deferred frame reading the stream that wrote its sums, and a 3-node
 cluster equal to the numpy mean; and the elastic DP cycle (8 -> 6 -> 8
 ranks) with K1 once a step, bit-equal to its continuation oracle, with no
-memory left behind by five more re-mesh cycles.
+memory left behind by five more re-mesh cycles; and the int8 KV cache (K4
+once a layer at a gated prefill, none in decode, ``quantized_cache_attention``
+on the card against the CPU) and the MoE trainer (K4's forward and backward
+once a layer a step; a dense width's steps against the CPU's).
 
 Marked ``gpu``; without a card every test skips (decided in the ``card``
 fixture, never at import). Run on the card with
@@ -1140,3 +1143,82 @@ def test_elastic_remesh_cycles_leave_no_memory_behind(card):
     assert cyc["mem_after_first_cycle"] > 0
     assert cyc["mem_after_cycles"] - cyc["mem_after_first_cycle"] <= LEAK_BYTES
     assert cyc["k1_per_step"] == [1] * len(cyc["k1_per_step"])
+
+
+def test_int8_prefill_launches_k4_once_a_layer_and_decode_none(card):
+    """An int8-cache prefill at a gated length (T 1024, D 128, bf16) takes
+    the dequantize branch: K4 once a layer, its logits within 2e-2 of the
+    plain attention over the same dequantized cache; decode over the int8
+    slots launches no K4."""
+    import contextlib
+    from unittest import mock
+
+    model = TransformerLM(vocab=64, d_model=256, n_heads=2, n_layers=2,
+                          compute_dtype=torch.bfloat16, seed=0, device=card)
+    gen = LMGenerator(model, max_len=1024 + 4, cache_quant="int8")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 1024))).to(card)
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    cache = gen.init_cache(2)
+    with torch.no_grad():
+        got = model(tokens, cache)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_wgmma"] == fa.LAUNCHES["flash_attention"] == 2
+    with contextlib.ExitStack() as stack, torch.no_grad():
+        stack.enter_context(mock.patch.object(
+            la, "flash_attention", lambda q, k, v, causal, sm_scale:
+            fa.flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)))
+        want = model(tokens, gen.init_cache(2))
+        tok = torch.argmax(got[:, -1], dim=-1)[:, None]
+        for _ in range(3):
+            tok = torch.argmax(model(tok, cache)[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 2
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    assert err <= 2e-2, err
+
+
+def test_quantized_cache_attention_on_the_card_equals_the_cpu(card):
+    """One decode step over an int8 cache: the card's f32 result within
+    1e-5 of max|out| of the CPU's (summation order only)."""
+    from chip_smoke import QCA_TOL
+
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((4, 1, 8, 64)).astype(np.float32))
+    kq, vq = (torch.from_numpy(rng.integers(-127, 128, (4, 300, 2, 64)).astype(np.int8))
+              for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(1e-3, 5e-2, (4, 300, 2)).astype(np.float32))
+              for _ in range(2))
+    want = la.quantized_cache_attention(q, kq, ks, vq, vs, q_offset=299)
+    got = la.quantized_cache_attention(*(t.to(card) for t in (q, kq, ks, vq, vs)),
+                                       q_offset=299).cpu()
+    assert float((got - want).abs().max()) <= QCA_TOL * float(want.abs().max())
+
+
+def test_moe_step_launches_k4_once_a_layer_and_a_small_width_matches_the_cpu(card):
+    """A bf16 MoE step at a gated length runs K4's forward and backward once
+    a layer; at a dense width three f32 SGD steps on the card match the CPU's
+    within 1e-4 (losses, aux, dropped relative; parameters of max|param|)."""
+    from chip_smoke import MOE_SMALL, MOE_SMALL_TOL
+
+    from akka_allreduce_tpu_torch.models import lm_copy_task
+    from akka_allreduce_tpu_torch.train import MoETrainer
+
+    t = MoETrainer(vocab=64, d_model=256, n_heads=2, n_layers=2, n_experts=4, seq_len=1024,
+                   compute_dtype=torch.bfloat16, device=card)
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    m = t.train_step(*next(lm_copy_task(1024, vocab=64).batches(2, 1)))
+    torch.cuda.synchronize()
+    assert np.isfinite(m.loss)
+    assert fa.LAUNCHES["flash_attention_wgmma"] == fa.LAUNCHES["flash_attention_bwd_wgmma"] == 2
+    kw = dict(**MOE_SMALL, optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1))
+    cpu, on_card = MoETrainer(**kw, device="cpu"), MoETrainer(**kw, device=card)
+    on_card.set_flat_params(cpu.get_flat_params())
+    for x, y in lm_copy_task(MOE_SMALL["seq_len"], vocab=MOE_SMALL["vocab"]).batches(8, 3):
+        a, b = on_card.train_step(x, y), cpu.train_step(x, y)
+        for key in ("loss", "aux_loss", "dropped"):
+            assert abs(getattr(a, key) - getattr(b, key)) <= MOE_SMALL_TOL * max(
+                abs(getattr(b, key)), 1e-6), (key, a, b)
+    want = cpu.get_flat_params()
+    assert np.abs(on_card.get_flat_params() - want).max() <= MOE_SMALL_TOL * np.abs(want).max()

@@ -104,7 +104,7 @@ def test_source_names_no_jax_package():
                 "control.gossip", "control.remote", "control.bootstrap",
                 "native", "cluster_cli", "train.elastic", "train.cluster",
                 "control.chaos", "control.adapt", "control.simfabric", "train.zoo",
-                "chaos_cli"):
+                "chaos_cli", "ops.moe", "train.moe"):
         assert f"akka_allreduce_tpu_torch.{mod}" in names
 
 
@@ -392,10 +392,9 @@ def test_cluster_commands_are_listed(capsys):
     new = ("cluster-master", "cluster-node", "cluster-standby", "obs", "bench-wire",
            "elastic-demo", "train-cluster-master", "train-cluster-node", *DRILLS)
     assert set(new) <= set(COMMANDS) and set(new) <= set(JAX_COMMANDS)
-    # the four that wait for ROADMAP items 9 to 11
-    assert set(JAX_COMMANDS) - set(COMMANDS) == {"soak", "train-fsdp", "train-moe",
-                                                  "train-pp"}
-    assert len(COMMANDS) == 26 and set(COMMANDS) <= set(JAX_COMMANDS)
+    # the three that wait for ROADMAP item 11
+    assert set(JAX_COMMANDS) - set(COMMANDS) == {"soak", "train-fsdp", "train-pp"}
+    assert len(COMMANDS) == 27 and set(COMMANDS) <= set(JAX_COMMANDS)
     assert cli_main([]) == 2
     usage = capsys.readouterr().err
     assert all(name in usage for name in new)

@@ -294,10 +294,26 @@ def test_bench_mfu_cli_on_the_cpu(capsys, monkeypatch):
     assert rec["metric"].startswith("lm_mfu") and rec["value"] is None  # no peak
     assert rec["platform"] == "cpu" and rec["device"] == "cpu" and rec["power_limit"] is None
     assert rec["ms_per_step"] > 0 and rec["batch"] == 2 and rec["seq_len"] == 16
-    for flag in (["--workload", "moe"], ["--dp", "2"], ["--sp", "2"]):
+    for flag in (["--workload", "fsdp"], ["--dp", "2"], ["--sp", "2"]):
         with pytest.raises(SystemExit):
             cli_main(["bench-mfu", "--device", "cpu", *flag])
         assert "not ported yet" in capsys.readouterr().err
+
+
+def test_bench_mfu_moe_on_the_cpu(capsys, monkeypatch):
+    monkeypatch.setattr(bench_mfu, "SIGNAL_S", 0.05)  # 3 s of signal is for the card
+    assert cli_main(["bench-mfu", *TINY, "--workload", "moe", "--experts", "4",
+                     "--topk", "2", "--mu-bf16", "--capacity-factor", "1.0"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"].startswith("moe_mfu") and rec["value"] is None  # no peak
+    assert rec["device"] == "cpu" and rec["ms_per_step"] > 0 and rec["batch"] == 2
+    assert (rec["experts"], rec["topk"], rec["mu_bf16"], rec["capacity_factor"]) == (
+        4, 2, True, 1.0)
+    assert rec["active_params_m"] <= rec["params_m"] and 0 <= rec["dropped_frac"] < 1
+    for flag in (["--mu-bf16"], ["--capacity-factor", "2"]):
+        with pytest.raises(SystemExit):
+            cli_main(["bench-mfu", "--device", "cpu", *flag])
+        assert "moe workload only" in capsys.readouterr().err
 
 
 def test_lm_generate_trains_first_on_the_cpu(capsys):

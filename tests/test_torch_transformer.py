@@ -296,7 +296,24 @@ def test_lm_generate_cli_on_the_cpu(capsys):
     assert (rec["batch"], rec["prompt_len"], rec["gen"], rec["kv_heads"]) == (2, 5, 4, 2)
 
 
-@pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"], ["--cache-quant", "int8"]])
+def test_lm_generate_cli_with_the_int8_cache_on_the_cpu(capsys):
+    before = dict(fa.LAUNCHES)
+    rc = cli_main(["lm-generate", "--device", "cpu", "--vocab", "16", "--d-model", "32",
+                   "--heads", "4", "--kv-heads", "2", "--layers", "1", "--batch", "2",
+                   "--prompt-len", "5", "--gen", "4", "--cache-quant", "int8"])
+    assert rc == 0 and fa.LAUNCHES == before
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(json.loads(lines[1][9:])) == 4
+    assert lines[2].startswith("decode: ") and lines[2].endswith("int8-quantized)")
+    rec = json.loads(lines[-1])
+    assert rec["cache_quant"] == "int8" and rec["device"] == "cpu"
+    assert rec["prefill_ms"] > 0 and rec["ms_per_token"] > 0
+    with pytest.raises(SystemExit):
+        cli_main(["lm-generate", "--device", "cpu", "--cache-quant", "fp4"])
+    assert "invalid choice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"]])
 def test_lm_generate_refuses_what_is_not_ported(capsys, flag):
     with pytest.raises(SystemExit):
         cli_main(["lm-generate", "--device", "cpu", *flag])
