@@ -37,16 +37,17 @@ Module names mirror the JAX package so each counterpart is easy to find:
   backward behind one ``torch.autograd.Function`` (``flash_attention``),
   with the attention dispatch (``local_attention``: dense, flash or
   blockwise)
-- ``models``        — the Transformer LM on one device (``TransformerLM``,
-  ``rope``, ``remat``), its KV-cache decoder (``LMGenerator``), the MLP of
+- ``models``        — the Transformer LM (``TransformerLM``, ``rope``,
+  ``remat``; over virtual ranks with ``seq_axis``/``model_axis``,
+  ``tp_param_specs``), its KV-cache decoder (``LMGenerator``), the MLP of
   config 3 (``MLP``), ResNet-50 of config 4 (``ResNet50``), the copy task's
   and the classification streams' data (host batches and device samplers),
   ``.npz`` files (``FileDataset``) and the carrying-over of flax weights
 - ``train``         — ``DPTrainer``, the data-parallel trainer over virtual
   ranks (its f32 gradient average through K1 on the card, fused or one
   sync a parameter leaf inside the backward; gradient accumulation),
-  ``LongContextTrainer``, the LM's trainer on one card, and the shared
-  helpers
+  ``LongContextTrainer``, the LM's trainer over a (data, seq[, model])
+  mesh of virtual ranks, and the shared helpers
 - ``binder``        — parameters to and from one flat f32 vector in the JAX
   trainers' leaf order (``flatten_params``), the ``AllreduceBinder``
   protocol and the host engine's ``GradSyncBinder`` and

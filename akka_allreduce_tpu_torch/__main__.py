@@ -28,17 +28,20 @@ Commands:
   tokens, the ``decode: X ms/token`` line (slope between two generation
   lengths) and one JSON record with ``prefill_ms``, the prefill's model
   TFLOP/s and MFU, ``ms_per_token``, ``cache_quant``, ``device`` and
-  ``power_limit``. ``--sp`` and ``--tp`` are not ported yet and are
-  refused.
-- ``train-lm [--steps N] [--batch N] [--lr X] [--seq-len N] [--impl
-  ring|ulysses] [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
-  [--layers N] [--metrics-out FILE] [--device-data] [--bf16] [--remat]
-  [checkpoint flags] [--device cpu]`` — trains the LM on the copy task with
-  ``LongContextTrainer`` on one card: the host loop (one ``train_step``
-  event a step in the metrics JSONL) or, with ``--device-data``, chains with
-  batches drawn on the card. Prints the parameter count and mesh, then the
-  step time, TFLOP/s, MFU and the loss trend. ``--dp/--sp/--tp`` above 1,
-  ``--compress`` and ``--overlap`` are not ported yet and are refused.
+  ``power_limit``. ``--sp`` and ``--tp`` (sharded decode) are not ported
+  yet and are refused (ROADMAP item 10).
+- ``train-lm [--steps N] [--batch N] [--lr X] [--seq-len N] [--dp N] [--sp
+  N] [--tp N] [--impl ring|ulysses] [--vocab N] [--d-model N] [--heads N]
+  [--kv-heads N] [--layers N] [--compress bf16|int8] [--overlap]
+  [--metrics-out FILE] [--device-data] [--bf16] [--remat] [checkpoint flags]
+  [--device cpu]`` — trains the LM on the copy task with
+  ``LongContextTrainer`` over a (data, seq) mesh of ``--dp`` x ``--sp``
+  virtual ranks on one card (1 x 1 by default), or (data, seq, model) with
+  ``--tp`` (which needs ``--dp`` and ``--sp``): the host loop (one
+  ``train_step`` event a step in the metrics JSONL) or, with
+  ``--device-data``, chains with batches drawn on the card. Prints the
+  parameter count and mesh, then the step time, TFLOP/s, MFU on the one
+  card and the loss trend.
 - ``train-mlp [--steps N] [--batch N] [--lr X] [--hidden N ...] [--bucket N]
   [--compress bf16|int8] [--error-feedback] [--overlap] [--accum N] [--bf16]
   [--devices N] [--mesh line|grid] [--device-data] [--metrics-out FILE]
@@ -105,8 +108,9 @@ Commands:
 - ``elastic-demo [--family dp|lc|moe] [--nodes N] [--steps N] [--drop-at K]
   [--rejoin-at K] [--batch-per-device N] [--device cpu]`` — config 5's
   re-mesh cycle: the last node goes silent and its ranks leave the mesh
-  (dp: 8 virtual ranks split over the nodes, so 4 nodes drop 8 -> 6), then
-  rejoins; lc and moe run one node of one rank beside zero-rank nodes.
+  (dp and lc: 8 virtual ranks split over the nodes, so 4 nodes drop 8 -> 6
+  and lc's mesh goes from dp 2 x sp 4 to dp 3 x sp 2), then rejoins; moe
+  runs one node of one rank beside zero-rank nodes.
   ``--family pp`` is refused (not ported yet).
 - ``chaos``, ``chaos-recover``, ``chaos-gossip``, ``chaos-scale``,
   ``chaos-failover``, ``chaos-adapt``, ``chaos-train`` (and its node role
@@ -252,7 +256,7 @@ def _cmd_lm_generate(argv: list[str]) -> int:
         ("--tp", args.tp, "tensor-parallel decode"),
     ):
         if value != 1:
-            p.error(f"{flag} is not ported yet ({what})")
+            p.error(f"{flag} is not ported yet ({what}; ROADMAP item 10)")
     if args.gen < 2:
         p.error("--gen must be >= 2 (the slope timing needs two lengths)")
 
@@ -288,7 +292,14 @@ def _cmd_lm_generate(argv: list[str]) -> int:
         )
         print(f"trained {args.train_steps} steps: loss "
               f"{hist[0].loss:.3f} -> {hist[-1].loss:.3f}")
-        model = trainer.model
+        # decode runs on the unsharded model, with the trained weights
+        model = TransformerLM(
+            vocab=args.vocab, d_model=args.d_model, n_heads=args.heads,
+            n_kv_heads=args.kv_heads, n_layers=args.layers, compute_dtype=dtype,
+            seed=0, device=dev,
+        )
+        model.load_state_dict(trainer.model.state_dict())
+        del trainer
     else:
         model = TransformerLM(
             vocab=args.vocab, d_model=args.d_model, n_heads=args.heads,
@@ -413,20 +424,28 @@ def _mfu_note(fields: dict) -> str:
 def _cmd_train_lm(argv: list[str]) -> int:
     p = argparse.ArgumentParser(
         "train-lm",
-        description="long-context Transformer LM on the copy task, one card "
-        "(LongContextTrainer on a 1 x 1 data x seq mesh)",
+        description="long-context Transformer LM on the copy task: DP x SP (x TP) "
+        "over virtual ranks on one card, ring attention or Ulysses",
     )
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--batch", type=int, default=8, help="global batch size")
     p.add_argument("--lr", type=float, default=3e-3)
-    p.add_argument("--seq-len", type=int, default=256, help="sequence length")
+    p.add_argument("--seq-len", type=int, default=256, help="GLOBAL sequence length")
+    p.add_argument("--dp", type=int, default=None, help="data-parallel rows")
+    p.add_argument("--sp", type=int, default=None, help="sequence shards")
+    p.add_argument(
+        "--tp", type=int, default=1,
+        help="tensor-parallel shards (Megatron-style heads/hidden split over a "
+        "third mesh axis; needs --dp and --sp too)",
+    )
     p.add_argument("--impl", choices=("ring", "ulysses"), default="ring")
     p.add_argument("--vocab", type=int, default=64)
     p.add_argument("--d-model", type=int, default=128)
     p.add_argument("--heads", type=int, default=4)
     p.add_argument(
         "--kv-heads", type=int, default=None,
-        help="grouped-query attention: K/V heads (divides --heads; 1 = MQA)",
+        help="grouped-query attention: K/V heads (divides --heads; 1 = MQA); "
+        "the compact K/V form is what the ring rotates",
     )
     p.add_argument("--layers", type=int, default=2)
     p.add_argument("--metrics-out", default=None, help="JSONL metrics path")
@@ -444,43 +463,50 @@ def _cmd_train_lm(argv: list[str]) -> int:
         "one more forward)",
     )
     p.add_argument(
+        "--compress", choices=("bf16", "int8"), default=None,
+        help="gradient wire compression: bf16 sums each sharding class at half "
+        "width; int8 rides the ring (per-segment scales) over each class's "
+        "reduce axes in turn",
+    )
+    p.add_argument(
+        "--overlap", action="store_true",
+        help="one gradient sync a parameter leaf inside the backward, each over "
+        "the leaf's replication axes; composes with --compress bf16",
+    )
+    p.add_argument(
         "--device", default=None,
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
-    # the JAX command's options that need parts not ported yet
-    for flag in ("--dp", "--sp"):
-        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--tp", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--compress", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--overlap", action="store_true", help=argparse.SUPPRESS)
     _checkpoint_flags(p)
     args = p.parse_args(argv)
-    for flag, value, ok, what in (
-        ("--dp", args.dp, (None, 1), "data parallelism needs several ranks"),
-        ("--sp", args.sp, (None, 1), "sequence parallelism needs several ranks"),
-        ("--tp", args.tp, (1,), "tensor parallelism needs several ranks"),
-        ("--compress", args.compress, (None,), "gradient wire compression"),
-        ("--overlap", args.overlap, (False,), "per-leaf gradient collectives"),
-    ):
-        if value not in ok:
-            p.error(f"{flag} is not ported yet ({what})")
 
     import torch
 
     from akka_allreduce_tpu_torch._device import resolve_device
     from akka_allreduce_tpu_torch.models import lm_copy_task
-    from akka_allreduce_tpu_torch.parallel import data_seq_mesh
+    from akka_allreduce_tpu_torch.parallel import data_seq_mesh, data_seq_model_mesh
     from akka_allreduce_tpu_torch.train import LongContextTrainer
     from akka_allreduce_tpu_torch.utils.benchmarking import transformer_train_flops
 
     dev = resolve_device(args.device)
-    trainer = LongContextTrainer(
-        data_seq_mesh(1, 1, device=dev), vocab=args.vocab, d_model=args.d_model,
-        n_heads=args.heads, n_kv_heads=args.kv_heads, n_layers=args.layers,
-        seq_len=args.seq_len, seq_impl=args.impl, learning_rate=args.lr,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        remat=args.remat,
-    )
+    if args.tp > 1:
+        if not (args.dp and args.sp):
+            p.error("--tp requires explicit --dp and --sp")
+        mesh = data_seq_model_mesh(args.dp, args.sp, args.tp, device=dev)
+    else:
+        # one card: with neither side given the mesh is 1 x 1, with one the
+        # other is 1 (the JAX command factors its device count instead)
+        mesh = data_seq_mesh(args.dp or 1, args.sp or 1, device=dev)
+    try:
+        trainer = LongContextTrainer(
+            mesh, vocab=args.vocab, d_model=args.d_model,
+            n_heads=args.heads, n_kv_heads=args.kv_heads, n_layers=args.layers,
+            seq_len=args.seq_len, seq_impl=args.impl, learning_rate=args.lr,
+            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+            remat=args.remat, compress=args.compress, overlap=args.overlap,
+        )
+    except ValueError as e:
+        p.error(str(e))
     print(
         f"LM params: {trainer.param_count / 1e6:.2f}M, mesh "
         f"dp={trainer.dp} x sp={trainer.sp} x tp={trainer.tp}, "
@@ -492,7 +518,7 @@ def _cmd_train_lm(argv: list[str]) -> int:
     )
     return _run_training(p, trainer, lm_copy_task(args.seq_len, vocab=args.vocab), args,
                          label=f"lm_{args.impl}", flops=flops,
-                         where=f"on {trainer.n_devices} device", ms_digits=1)
+                         where=f"over {trainer.n_devices} virtual ranks", ms_digits=1)
 
 
 def _cmd_train_moe(argv: list[str]) -> int:
@@ -1274,21 +1300,21 @@ def _cmd_elastic_demo(argv: list[str]) -> int:
     )
 
     now = {"t": 0.0}
+    # the JAX CPU mesh's 8 devices as virtual ranks, split over the nodes
+    per = max(1, 8 // args.nodes)
+    assignment = {n: list(range(n * per, (n + 1) * per)) for n in range(args.nodes)}
     if args.family == "dp":
-        # the JAX CPU mesh's 8 devices as virtual ranks, split over the nodes
-        per = max(1, 8 // args.nodes)
-        assignment = {n: list(range(n * per, (n + 1) * per)) for n in range(args.nodes)}
         trainer = ElasticDPTrainer(MLP(hidden=(32,), classes=10, device=device), assignment,
                                    clock=lambda: now["t"], device=device)
         ds = mnist_like()
         batch_rows = lambda t: args.batch_per_device * t.n_devices  # noqa: E731
         shape_of = lambda t: f"{t.n_devices} ranks"  # noqa: E731
-    else:  # lc and moe: the port's LM trainers take one rank
-        assignment = {n: [0] if n == 0 else [] for n in range(args.nodes)}
+    else:
         fam_kw = dict(vocab=16, d_model=32, n_heads=2, learning_rate=1e-2, seed=0,
                       clock=lambda: now["t"], device=device)
         ds = lm_copy_task(32, vocab=16)
-        if args.family == "moe":
+        if args.family == "moe":  # the port's MoE trainer takes one rank (item 10)
+            assignment = {n: [0] if n == 0 else [] for n in range(args.nodes)}
             trainer = ElasticMoETrainer(assignment, n_experts=4, n_layers=1, seq_len=32,
                                         capacity_factor=4.0, **fam_kw)
             batch_rows = lambda t: t.dp * t.ep * args.batch_per_device  # noqa: E731

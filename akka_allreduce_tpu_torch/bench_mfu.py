@@ -6,7 +6,10 @@ defaults: vocab 256, d_model 2048, 16 heads of D 128, 8 layers, 404M
 parameters, seq 2048, batch 8, bf16 compute, f32 parameters and Adam
 moments, no remat) trained by
 ``LongContextTrainer.train_chain`` (batches drawn on the card, one host read
-a chain). A step's time is the difference between a short and a long chain
+a chain) over a ``data_seq_mesh(--dp, --sp)`` of virtual ranks (1 x 1 by
+default; ring attention, the JAX default ``seq_impl``); the record gains
+``dp``, ``sp``, ``seq_impl`` and ``virtual_ranks``, and its MFU is the one
+card's. A step's time is the difference between a short and a long chain
 (constant set-up and synchronisation cancel), with the JAX package's
 escalation rule: the long chain grows until the differential signal reaches
 about ``SIGNAL_S`` seconds. MFU is the model FLOPs (``transformer_train_flops``:
@@ -161,11 +164,11 @@ def run_lm(args) -> dict:
         d_model=args.d_model,
         n_layers=args.layers,
     )
+    # MFU of the one card: the virtual ranks share it
     return _chain_mfu_record(
         "lm",
         timed,
         flops,
-        n_devices=trainer.n_devices,
         device=trainer.device,
         extra={
             "params_m": round(trainer.param_count / 1e6, 1),
@@ -175,6 +178,10 @@ def run_lm(args) -> dict:
             "batch": batch,
             "remat": args.remat,
             "compute_dtype": "bf16",
+            "dp": trainer.dp,
+            "sp": trainer.sp,
+            "seq_impl": trainer.seq_impl,
+            "virtual_ranks": trainer.n_devices,
         },
     )
 
@@ -369,8 +376,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.workload == "fsdp":
         p.error("--workload fsdp is not ported yet (lm, mlp, resnet and moe only)")
     for flag, value in (("--dp", args.dp), ("--sp", args.sp)):
-        if value not in (None, 1):
-            p.error(f"{flag} > 1 is not ported yet (one card, a 1 x 1 mesh)")
+        if value not in (None, 1) and args.workload != "lm":
+            p.error(f"{flag} is the lm workload's mesh; the {args.workload} workload "
+                    "takes none (MoE over ranks is not ported yet, ROADMAP item 10)")
     if args.mu_bf16 and args.workload != "moe":
         p.error("--mu-bf16 is the MoE optimizer knob; moe workload only")
     if args.capacity_factor is not None and args.workload != "moe":

@@ -45,11 +45,25 @@ depends only on leaf k's part of the backward. Unlike the JAX functions,
 which return the masked SUM and leave the division to the trainer, these
 return the masked AVERAGE ``sum_r v_r g_r / max(count, 1)``: in f32 that
 is K1 (``ops.local_reduce.masked_average``, one launch a leaf on the card),
-which divides inside the kernel. The sharded-tree helpers of the JAX module
-(``localize_tree``, ``grouped_tree_psum``, ``backward_tree_sync``,
-``overlap_value_and_grad``, ``compressed_value_and_grad``,
-``validate_trainer_compress``) serve trainers with sharded parameters and
-arrive with them.
+which divides inside the kernel.
+
+The sharded-tree helpers serve trainers whose parameters shard over a mesh
+axis (``LongContextTrainer`` under TP): a tree is a ``{name: tensor}`` dict
+in leaf order with one spec a leaf (``parallel.mesh.PartitionSpec``, e.g.
+``models.transformer.tp_param_specs``), and a leaf is summed over the mesh
+axes its spec does NOT shard over (its "class"). :func:`localize_tree`
+hands every rank its own grid-form view of each full leaf as a new leaf,
+so that autograd yields one gradient a rank; :func:`grouped_tree_psum` sums
+those per class, leaves grouped by (reduce axes, dtype) into one buffer each
+in leaf order: an f32 class over every axis is K1 (``masked_average`` with
+every rank counted, times the count: the sum), bf16 ``_psum_grid``'s
+rounding, int8 the plain ring once per reduce axis in mesh order,
+re-quantizing between axes; :func:`backward_tree_sync` does the same per
+leaf inside the backward, the mask applied there (K1 once a leaf).
+:func:`compressed_value_and_grad` and :func:`overlap_value_and_grad` are
+the one-call forms. As in the JAX package they return SUMS (the loss
+carries the division); unlike it, the results come back as full-shape
+leaves, each shard put back in place.
 """
 
 from __future__ import annotations
@@ -71,7 +85,13 @@ from akka_allreduce_tpu_torch.ops.ring import (
     _quantize,
     ring_kernel_allreduce_sum,
 )
-from akka_allreduce_tpu_torch.parallel.mesh import RankMesh
+from akka_allreduce_tpu_torch.parallel.mesh import (
+    PartitionSpec,
+    RankMesh,
+    rank_unview,
+    rank_view,
+    spec_axes,
+)
 
 Axes = tuple[str, ...]
 SCHEDULES = ("psum", "butterfly", "ring", "pallas_ring")
@@ -584,6 +604,237 @@ def backward_ring_sync(
         return _LeafSync.apply(p, n, reduce)
 
     return sync_ef
+
+
+# -- the sharded-tree helpers ----------------------------------------------------
+
+
+def localize_tree(tree: dict[str, torch.Tensor], specs: dict[str, PartitionSpec],
+                  mesh: RankMesh) -> dict[str, torch.Tensor]:
+    """Every leaf as its grid-form rank view (``rank_view``: the whole leaf
+    on the axes its spec does not shard over, its shard on those it does),
+    each a new autograd leaf cut from the tensor's history: the gradient of
+    a loss with respect to it has one entry a rank, the per-rank gradients
+    that :func:`grouped_tree_psum` then sums (the JAX function's ``pcast``
+    to varying, which keeps them local)."""
+    return {name: rank_view(p.detach(), specs[name], mesh).requires_grad_(True)
+            for name, p in tree.items()}
+
+
+def _wire(wire_dtype):
+    """The trainers' ``compress`` vocabulary: "bf16" -> torch.bfloat16,
+    "int8" -> the ring; None or a dtype as it is."""
+    if wire_dtype == "bf16":
+        return torch.bfloat16
+    if isinstance(wire_dtype, str) and wire_dtype != "int8":
+        raise ValueError(f"unknown wire mode {wire_dtype!r}")
+    return wire_dtype
+
+
+def _ring_axis(g: torch.Tensor, mesh: RankMesh, axis: str, compress: str) -> torch.Tensor:
+    """The plain ring (``ring_allreduce_sum``) along one axis of the
+    grid-form ``g`` (*mesh.sizes, P), once for each group of ranks that
+    differ only along it."""
+    rows = g.movedim(mesh.dim(axis), 0)
+    shape = rows.shape
+    rows = rows.reshape(shape[0], -1, shape[-1])
+    out = torch.stack([ring_allreduce_sum(rows[:, j].contiguous(), compress=compress)
+                       for j in range(rows.shape[1])], dim=1)
+    return out.reshape(shape).movedim(0, mesh.dim(axis))
+
+
+def _class_sum(g: torch.Tensor, mesh: RankMesh, reduce_over: Axes, wire,
+               valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum the grid-form stack ``g`` (*mesh.sizes, P) over ``reduce_over``
+    (under the per-rank mask ``valid``, when given; not with int8): f32 over
+    every axis is K1 times the count; bf16 ``_psum_grid``'s rounding; int8
+    one ring per axis. The reduced dims come back as size 1 (int8: full,
+    every rank equal)."""
+    if wire == "int8":
+        total = g.float()
+        for ax in reduce_over:
+            total = _ring_axis(total, mesh, ax, "int8")
+        return total.to(g.dtype)
+    if (wire is None and g.dtype == torch.float32 and mesh.size > 1
+            and set(reduce_over) == set(mesh.axis_names)):
+        v = torch.ones(mesh.size, device=g.device) if valid is None else valid
+        avg, count = masked_average(g.reshape(mesh.size, -1).contiguous(), v)
+        return (avg * count).reshape(*([1] * len(mesh.sizes)), -1)
+    masked = g if valid is None else g * mesh.grid(valid).to(g.dtype)[..., None]
+    return _psum_grid(masked, mesh, reduce_over, wire)
+
+
+def grouped_tree_psum(
+    mesh: RankMesh,
+    grads: dict[str, torch.Tensor],
+    specs: dict[str, PartitionSpec],
+    axis_names: str | Axes | None = None,
+    wire_dtype=None,
+) -> dict[str, torch.Tensor]:
+    """Explicit allreduce of a tree of per-rank gradients with sharded
+    leaves: ``grads`` maps each leaf name, in leaf order, to its grid-form
+    ``(*mesh.sizes, *local)`` stack; the result maps it to the full-shape
+    sum.
+
+    Each leaf is summed over the axes of ``axis_names`` (default every
+    axis) its spec does not shard over. Leaves are grouped by (reduce axes,
+    dtype) and each group concatenated, rank by rank in leaf order, into one
+    ``(*mesh.sizes, P_class)`` buffer: one collective a class, never one a
+    leaf. ``wire_dtype``: None (f32; a class over every axis goes through
+    K1, one launch on the card), ``"bf16"``/``torch.bfloat16`` (each rank's
+    payload cast, summed, the sum rounded once, as XLA's bf16 all-reduce on
+    the CPU), or ``"int8"`` (the plain ring over each reduce axis in turn,
+    its segments cut from the class buffer, re-quantizing between axes). A
+    leaf sharded over every axis is already final; so is an f32 class over
+    axes of one rank (XLA drops such a psum; bf16 still rounds).
+    """
+    names = _normalize_axes(mesh, axis_names)
+    wire = _wire(wire_dtype)
+    groups: dict = {}
+    for name, g in grads.items():
+        reduce_over = tuple(a for a in names if a not in spec_axes(specs[name]))
+        groups.setdefault((reduce_over, g.dtype), []).append(name)
+    k = len(mesh.sizes)
+    out = {}
+    for (reduce_over, _), group in groups.items():
+        if not reduce_over or (wire is None
+                               and math.prod(mesh.shape[a] for a in reduce_over) == 1):
+            for name in group:
+                out[name] = rank_unview(grads[name], specs[name], mesh)
+            continue
+        flat = torch.cat([grads[n].reshape(*mesh.sizes, -1) for n in group], dim=k)
+        total = _class_sum(flat, mesh, reduce_over, wire)
+        start = 0
+        for name in group:
+            local = grads[name].shape[k:]
+            size = math.prod(local)
+            piece = total[..., start:start + size].reshape(*total.shape[:k], *local)
+            out[name] = rank_unview(piece, specs[name], mesh)
+            start += size
+    return {name: out[name] for name in grads}
+
+
+class _TreeLeafSync(torch.autograd.Function):
+    """Hands a full leaf to the ranks as its grid-form rank view; the
+    backward gives ``reduce`` the leaf's whole per-rank cotangent stack and
+    returns its result, a full-shape gradient, as the leaf's."""
+
+    @staticmethod
+    def forward(ctx, p, view, reduce):
+        ctx.reduce = reduce
+        return view(p)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.reduce(ct), None, None
+
+
+def backward_tree_sync(
+    specs: dict[str, PartitionSpec],
+    mesh: RankMesh,
+    axis_names: str | Axes | None = None,
+    wire_dtype=None,
+):
+    """Per-leaf in-backward sync of a sharded tree: returns ``apply(tree,
+    v)``, which hands each leaf to the ranks as its rank view through a sync
+    whose backward masks the leaf's per-rank cotangent by ``v`` (the
+    ``(mesh.size,)`` f32 contributor mask) and sums it over the axes its
+    spec does not shard over (K1 once a leaf for an f32 leaf over every
+    axis, times the count; bf16 as :func:`grouped_tree_psum`). Leaf k's
+    collective then depends only on leaf k's part of the backward.
+
+    The wrapped loss must NOT also multiply by ``v``: the mask would be
+    squared. A leaf sharded over every axis would skip the mask, so it is
+    refused."""
+    names = _normalize_axes(mesh, axis_names)
+    wire = _wire(wire_dtype)
+    if wire == "int8":
+        raise ValueError("backward_tree_sync sums on the wire: int8 needs the ring "
+                         "(validate_trainer_compress refuses overlap with int8)")
+
+    def reduce_over(spec) -> Axes:
+        axes = tuple(a for a in names if a not in spec_axes(spec))
+        if not axes:
+            raise ValueError(
+                f"leaf spec {spec} shards over every mesh axis: its grad has no "
+                "replication axes to sync over, and the in-backward mask would be "
+                "skipped — overlap does not support it")
+        return axes
+
+    def apply(tree: dict[str, torch.Tensor], v: torch.Tensor) -> dict[str, torch.Tensor]:
+        out = {}
+        for name, p in tree.items():
+            spec = specs[name]
+            axes = reduce_over(spec)
+
+            def reduce(ct, spec=spec, axes=axes):
+                g = ct.reshape(*mesh.sizes, -1)
+                total = _class_sum(g, mesh, axes, wire, valid=v)
+                return rank_unview(total.reshape(*total.shape[:len(mesh.sizes)],
+                                                 *ct.shape[len(mesh.sizes):]), spec, mesh)
+
+            out[name] = _TreeLeafSync.apply(
+                p, lambda t, spec=spec: rank_view(t, spec, mesh), reduce)
+        return out
+
+    return apply
+
+
+def overlap_value_and_grad(
+    loss_fn: Callable,
+    params: dict[str, torch.Tensor],
+    specs: dict[str, PartitionSpec],
+    mesh: RankMesh,
+    v: torch.Tensor,
+    *,
+    wire_dtype=None,
+):
+    """``(value, grads)`` with per-leaf in-backward masked syncs
+    (:func:`backward_tree_sync`): ``loss_fn`` takes the tree of rank views
+    and returns the per-rank ``(mesh.size,)`` losses, UNMASKED (each leaf's
+    sync masks its cotangent by ``v``; a ``v`` in the loss too would square
+    the mask); ``grads`` maps each leaf name to its full-shape synced sum.
+    The value comes back unmasked; callers fold ``v`` into their metric."""
+    sync = backward_tree_sync(specs, mesh, wire_dtype=wire_dtype)
+    value = loss_fn(sync(params, v))
+    grads = torch.autograd.grad(value.sum(), list(params.values()))
+    return value.detach(), dict(zip(params, grads))
+
+
+def compressed_value_and_grad(
+    loss_fn: Callable,
+    params: dict[str, torch.Tensor],
+    specs: dict[str, PartitionSpec],
+    mesh: RankMesh,
+    *,
+    wire_dtype="bf16",
+):
+    """``(value, grads)`` with an explicit grouped gradient sum: the one-call
+    form of :func:`localize_tree` + :func:`grouped_tree_psum`. ``loss_fn``
+    takes the tree of rank views and returns the per-rank ``(mesh.size,)``
+    losses; the gradient of their sum gives every rank its own gradient,
+    which one collective a class then sums (``wire_dtype`` None, "bf16" or
+    "int8"). The value comes back per rank."""
+    local = localize_tree(params, specs, mesh)
+    value = loss_fn(local)
+    per_rank = torch.autograd.grad(value.sum(), list(local.values()))
+    grads = grouped_tree_psum(mesh, dict(zip(params, per_rank)), specs, wire_dtype=wire_dtype)
+    return value.detach(), grads
+
+
+def validate_trainer_compress(compress: str | None, *, overlap: bool = False) -> str | None:
+    """Shared guard for the sharded-param trainers' ``compress`` knob."""
+    if compress not in (None, "bf16", "int8"):
+        raise ValueError(f"compress must be None, 'bf16' or 'int8', got {compress!r}")
+    if compress == "int8" and overlap:
+        raise ValueError(
+            "overlap excludes compress='int8' for SHARDED-param trainers: "
+            "their leaves reduce over per-sharding-class axis SETS, and "
+            "the int8 ring schedule reduces over one axis (DPTrainer's "
+            "1-axis mesh composes overlap with int8 via "
+            "backward_ring_sync)"
+        )
+    return compress
 
 
 def ring_reduce_scatter_sum(

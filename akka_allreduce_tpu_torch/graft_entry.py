@@ -9,7 +9,9 @@
   the compressed ones against the masked-mean oracle, and a 2-step
   ``train_chain``. The JAX function goes on to the ZeRO-1, FSDP, sequence-,
   tensor-, expert- and pipeline-parallel trainers, the elastic families and
-  the sharded decoder, none of which is ported yet.
+  the sharded decoder; this one stops there (the port's ZeRO-1 is
+  ``Zero1DPTrainer``, its sequence and tensor parallelism
+  ``LongContextTrainer``; the others are not ported yet).
 
 Both run on the card unless ``device="cpu"`` is given.
 """

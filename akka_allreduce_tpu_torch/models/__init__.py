@@ -27,6 +27,7 @@ from akka_allreduce_tpu_torch.models.transformer import (
     MoETransformerLM,
     TransformerLM,
     rope,
+    tp_param_specs,
 )
 
 __all__ = [
@@ -43,6 +44,7 @@ __all__ = [
     "SyntheticClassification",
     "SyntheticCopyLM",
     "TransformerLM",
+    "tp_param_specs",
     "imagenet_like",
     "lm_copy_task",
     "mlp_state_dict_from_flax",

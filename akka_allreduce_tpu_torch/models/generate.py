@@ -46,7 +46,7 @@ class LMGenerator:
                  mesh: object | None = None) -> None:
         if mesh is not None:
             raise NotImplementedError(
-                "sharded decode (mesh) is not ported yet; use mesh=None"
+                "sharded decode (mesh) is not ported yet (ROADMAP item 10); use mesh=None"
             )
         if max_len < 1:
             raise ValueError(f"max_len must be >= 1, got {max_len}")

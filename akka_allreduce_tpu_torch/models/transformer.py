@@ -52,8 +52,24 @@ mixture-of-experts LM on one device (``ops.moe``, ``ep_size`` 1): each
 returns its output with the load-balancing loss and the dropped fraction,
 the LM both averaged over its layers.
 
-Tensor and sequence parallelism and expert parallelism wait for later
-slices.
+Sequence and tensor parallelism over virtual ranks (``seq_axis``,
+``seq_impl``, ``model_axis``, ``tp_size``, as the JAX modules take them):
+:meth:`TransformerLM.forward` with ``mesh`` runs every rank of a
+``parallel.mesh.RankMesh`` on its own shard, the ranks folded into the
+batch of each call. The tokens are a rank stack ``(mesh.size, B_local,
+T_local)`` (the ``data`` axis splits the rows, ``seq_axis`` the columns,
+every rank of a ``model`` group holds the same); every parameter reaches a
+rank as its grid-form view (``parallel.mesh.rank_view`` under
+:func:`tp_param_specs`): the whole leaf if it is replicated, its shard of
+heads or hidden units under TP. Per rank, as the JAX code does it: rope's
+positions start at ``seq_rank * T_local``; q/k/v project ``H/tp`` and
+``H_kv/tp`` heads; attention is ``ring_attention`` or
+``ulysses_attention`` over ``seq_axis`` (``local_attention`` at one seq
+shard); the out-projection and ``mlp_down`` give partial sums that one psum
+over ``model_axis`` completes (``RankMesh.psum``: its backward broadcasts
+the cotangent summed over the group, the transpose of the sum), and
+``out_bias``/``mlp_bias`` are added after it. Decode with a mesh is not
+ported yet (ROADMAP item 10); expert parallelism neither.
 """
 
 from __future__ import annotations
@@ -67,27 +83,34 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from akka_allreduce_tpu_torch._device import resolve_device
-from akka_allreduce_tpu_torch.models.convert import moe_flax_path
+from akka_allreduce_tpu_torch.models.convert import flax_path, moe_flax_path
 from akka_allreduce_tpu_torch.ops import local_attention as attention_ops
 from akka_allreduce_tpu_torch.ops.moe import moe_dispatch_compute
+from akka_allreduce_tpu_torch.ops.ring_attention import ring_attention, ulysses_attention
+from akka_allreduce_tpu_torch.parallel.mesh import PartitionSpec, RankMesh, rank_view
+
+SEQ_IMPLS = ("ring", "ulysses")
 
 LN_EPS = 1e-6
 
 
-def rope(x: torch.Tensor, offset: int, *, base: float = 10000.0) -> torch.Tensor:
+def rope(x: torch.Tensor, offset: int | torch.Tensor, *,
+         base: float = 10000.0) -> torch.Tensor:
     """Rotary embedding over the last (even) dim; positions offset + arange(T).
 
-    ``x``: (B, T, H, D). Angles and tables in f32; the rotation runs in x's
-    dtype, by halves (not interleaved).
+    ``x``: (B, T, H, D); ``offset`` an int, or a (B,) tensor of one offset a
+    row (a sequence shard's global start). Angles and tables in f32; the
+    rotation runs in x's dtype, by halves (not interleaved).
     """
     d = x.shape[-1]
     if d % 2:
         raise ValueError(f"rope needs an even head dim, got {d}")
-    pos = offset + torch.arange(x.shape[1], device=x.device)
+    ar = torch.arange(x.shape[1], device=x.device)
+    pos = offset[:, None] + ar if isinstance(offset, torch.Tensor) else (offset + ar)[None]
     freqs = base ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
-    ang = pos[:, None].to(torch.float32) * freqs[None, :]  # (T, D/2)
-    cos = torch.cos(ang)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(ang)[None, :, None, :].to(x.dtype)
+    ang = pos[..., None].to(torch.float32) * freqs  # (1 or B, T, D/2)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat((x1 * cos - x2 * sin, x1 * sin + x2 * cos), dim=-1)
 
@@ -112,6 +135,40 @@ def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
     return y if bias is None else y + bias.to(dtype)
 
 
+def _rank_dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
+                dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_dense` of every rank at once: x (R, ..., in) @ its rank's
+    kernel (R, in, out) in one batched product, plus its rank's bias (R,
+    out). A replicated kernel is a stride-0 view; autograd gives each rank
+    its own kernel gradient."""
+    r, n_in = x.shape[0], x.shape[-1]
+    y = torch.bmm(x.reshape(r, -1, n_in).to(dtype), kernel.to(dtype))
+    if bias is not None:
+        y = y + bias.to(dtype)[:, None, :]
+    return y.reshape(*x.shape[:-1], kernel.shape[-1])
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+    y = xf - mean
+    mul = torch.rsqrt(var + LN_EPS) * scale
+    y = y * mul + bias
+    return y.to(dtype)
+
+
+def _rank_vector(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A rank's (R, n) vector shaped to broadcast over the rank stack ``x``
+    (R, ..., n)."""
+    return t.reshape(t.shape[0], *([1] * (x.ndim - 2)), t.shape[-1])
+
+
+def _sub(params: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: f32 statistics, eps 1e-6, result in ``dtype``."""
 
@@ -122,13 +179,12 @@ class LayerNorm(nn.Module):
         self.bias = _zeros(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
-        y = xf - mean
-        mul = torch.rsqrt(var + LN_EPS) * self.scale
-        y = y * mul + self.bias
-        return y.to(self.dtype)
+        return _layer_norm(x, self.scale, self.bias, self.dtype)
+
+    def forward_ranks(self, x: torch.Tensor, p: dict) -> torch.Tensor:
+        """Every rank's norm of its rows ``x`` (R, ..., d) with its own
+        ``scale``/``bias`` (R, d)."""
+        return _layer_norm(x, _rank_vector(p["scale"], x), _rank_vector(p["bias"], x), self.dtype)
 
 
 CACHE_QUANTS = (None, "int8")
@@ -176,16 +232,27 @@ class Attention(nn.Module):
     ``out_bias`` is added after it."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None,
-                 compute_dtype: torch.dtype, gen: torch.Generator | None) -> None:
+                 compute_dtype: torch.dtype, gen: torch.Generator | None, *,
+                 seq_axis: str | None = None, seq_impl: str = "ring",
+                 model_axis: str | None = None, tp_size: int = 1) -> None:
         super().__init__()
         kv_heads = n_heads if n_kv_heads is None else n_kv_heads
         if d_model % n_heads:
             raise ValueError(f"d_model={d_model} not divisible by n_heads={n_heads}")
+        if n_heads % tp_size:
+            raise ValueError(f"self.n_heads={n_heads} not divisible by self.tp_size={tp_size}")
         if kv_heads < 1:
             raise ValueError(f"n_kv_heads must be >= 1, got {kv_heads}")
         if n_heads % kv_heads:
             raise ValueError(f"n_heads={n_heads} not divisible by n_kv_heads={kv_heads}")
+        if kv_heads % tp_size:
+            raise ValueError(
+                f"n_kv_heads={kv_heads} not divisible by self.tp_size={tp_size}")
+        if seq_impl not in SEQ_IMPLS:
+            raise ValueError(f"unknown seq_impl {seq_impl!r}")
         head = d_model // n_heads
+        self.seq_axis, self.seq_impl = seq_axis, seq_impl
+        self.model_axis, self.tp_size = model_axis, tp_size
         self.dtype = compute_dtype
         self.q_kernel = _param(gen, d_model, n_heads, head, fan_in=d_model)
         self.q_bias = _zeros(n_heads, head)
@@ -229,6 +296,40 @@ class Attention(nn.Module):
                    self.out_kernel.reshape(h * hd, d), None, self.dtype)
         return y + self.out_bias.to(y.dtype)
 
+    def forward_ranks(self, x: torch.Tensor, p: dict, mesh: RankMesh) -> torch.Tensor:
+        """Every rank's attention over its rows ``x`` (R, B, T_local, d)
+        with its own parameters ``p`` (name -> (R, *local)): its H/tp query
+        and H_kv/tp K/V heads, rope from its sequence shard's start, the
+        sequence schedule over ``seq_axis``, the partial out-projection, one
+        psum over ``model_axis``, then ``out_bias``."""
+        r, b, t, _ = x.shape
+
+        def proj(name: str) -> torch.Tensor:
+            kernel = p[f"{name}_kernel"]
+            y = _rank_dense(x, kernel.reshape(r, kernel.shape[1], -1),
+                            p[f"{name}_bias"].reshape(r, -1), self.dtype)
+            return y.reshape(r, b, t, kernel.shape[2], kernel.shape[3])
+
+        q, k, v = proj("q"), proj("k"), proj("v")
+        offset = 0
+        if self.seq_axis is not None:
+            offset = (mesh.index(self.seq_axis) * t).repeat_interleave(b)
+        q = rope(q.reshape(r * b, *q.shape[2:]), offset).reshape(q.shape)
+        k = rope(k.reshape(r * b, *k.shape[2:]), offset).reshape(k.shape)
+        attend = ulysses_attention if self.seq_impl == "ulysses" else ring_attention
+        if self.seq_axis is None:
+            out = attention_ops.local_attention(
+                q.reshape(r * b, *q.shape[2:]), k.reshape(r * b, *k.shape[2:]),
+                v.reshape(r * b, *v.shape[2:]), causal=True).reshape(q.shape)
+        else:
+            out = attend(q, k, v, mesh, self.seq_axis, causal=True)
+        kernel = p["out_kernel"]
+        y = _rank_dense(out.reshape(r, b, t, -1), kernel.reshape(r, -1, kernel.shape[-1]),
+                        None, self.dtype)
+        if self.model_axis is not None:
+            y = mesh.psum(y, self.model_axis)
+        return y + _rank_vector(p["out_bias"], y).to(y.dtype)
+
     def _int8_cache_attention(self, q, k, v, cache: KVCache, layer: int,
                               offset: int) -> torch.Tensor:
         """Write the chunk's quantized K/V and scales at ``offset``, then
@@ -263,12 +364,19 @@ class Block(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None,
                  mlp_ratio: int, compute_dtype: torch.dtype,
-                 gen: torch.Generator | None) -> None:
+                 gen: torch.Generator | None, *, seq_axis: str | None = None,
+                 seq_impl: str = "ring", model_axis: str | None = None,
+                 tp_size: int = 1) -> None:
         super().__init__()
         hidden = mlp_ratio * d_model
+        if hidden % tp_size:
+            raise ValueError(f"mlp hidden {hidden} not divisible by self.tp_size={tp_size}")
         self.dtype = compute_dtype
+        self.model_axis = model_axis
         self.ln1 = LayerNorm(d_model, compute_dtype)
-        self.attn = Attention(d_model, n_heads, n_kv_heads, compute_dtype, gen)
+        self.attn = Attention(d_model, n_heads, n_kv_heads, compute_dtype, gen,
+                              seq_axis=seq_axis, seq_impl=seq_impl,
+                              model_axis=model_axis, tp_size=tp_size)
         self.ln2 = LayerNorm(d_model, compute_dtype)
         self.mlp_up_kernel = _param(gen, d_model, hidden, fan_in=d_model)
         self.mlp_up_bias = _zeros(hidden)
@@ -283,6 +391,21 @@ class Block(nn.Module):
         y = _dense(h, self.mlp_down_kernel, None, self.dtype)
         return x + y + self.mlp_bias.to(y.dtype)
 
+    def forward_ranks(self, x: torch.Tensor, p: dict, mesh: RankMesh) -> torch.Tensor:
+        """The block on every rank's rows ``x`` (R, B, T_local, d) with its
+        own parameters ``p`` (name -> (R, *local)): the MLP's hidden units
+        split over ``model_axis``, one psum completing ``mlp_down``, then
+        ``mlp_bias``."""
+        x = x + self.attn.forward_ranks(self.ln1.forward_ranks(x, _sub(p, "ln1.")),
+                                        _sub(p, "attn."), mesh)
+        h = _rank_dense(self.ln2.forward_ranks(x, _sub(p, "ln2.")), p["mlp_up_kernel"],
+                        p["mlp_up_bias"], self.dtype)
+        h = F.gelu(h, approximate="tanh")
+        y = _rank_dense(h, p["mlp_down_kernel"], None, self.dtype)
+        if self.model_axis is not None:
+            y = mesh.psum(y, self.model_axis)
+        return x + y + _rank_vector(p["mlp_bias"], y).to(y.dtype)
+
 
 class TransformerLM(nn.Module):
     """Tokens (B, T) -> logits (B, T, vocab) f32.
@@ -294,6 +417,11 @@ class TransformerLM(nn.Module):
     (no CUDA and no ``"cpu"`` raises). ``compute_dtype`` is
     ``torch.float32`` or ``torch.bfloat16``. ``remat`` recomputes each
     block in the backward (see the module docstring).
+
+    ``seq_axis``/``seq_impl``/``model_axis``/``tp_size``: with either axis
+    set the model runs over a mesh of virtual ranks (the module docstring);
+    its parameters keep their full shapes, ``tp_size`` fixes how the TP
+    leaves split (:meth:`param_specs`).
     """
 
     def __init__(
@@ -309,6 +437,10 @@ class TransformerLM(nn.Module):
         seed: int = 0,
         device: torch.device | str | None = None,
         remat: bool = False,
+        seq_axis: str | None = None,
+        seq_impl: str = "ring",
+        model_axis: str | None = None,
+        tp_size: int = 1,
     ) -> None:
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -318,10 +450,14 @@ class TransformerLM(nn.Module):
         self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
         self.compute_dtype = compute_dtype
         self.remat = remat
+        self.seq_axis, self.seq_impl = seq_axis, seq_impl
+        self.model_axis, self.tp_size = model_axis, tp_size
         gen = torch.Generator().manual_seed(seed)
         self.embedding = _param(gen, vocab, d_model, fan_in=d_model)
         self.blocks = nn.ModuleList(
-            Block(d_model, n_heads, n_kv_heads, mlp_ratio, compute_dtype, gen)
+            Block(d_model, n_heads, n_kv_heads, mlp_ratio, compute_dtype, gen,
+                  seq_axis=seq_axis, seq_impl=seq_impl, model_axis=model_axis,
+                  tp_size=tp_size)
             for _ in range(n_layers)
         )
         self.ln_f = LayerNorm(d_model, compute_dtype)
@@ -333,7 +469,35 @@ class TransformerLM(nn.Module):
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
-    def forward(self, tokens: torch.Tensor, cache: KVCache | None = None) -> torch.Tensor:
+    @property
+    def sharded(self) -> bool:
+        """Whether the model runs over a mesh (``seq_axis`` or ``model_axis``)."""
+        return self.seq_axis is not None or self.model_axis is not None
+
+    def param_specs(self) -> dict[str, PartitionSpec]:
+        """Each parameter's spec: :func:`tp_param_specs` over ``model_axis``
+        when ``tp_size`` > 1, else replicated."""
+        if self.model_axis is not None and self.tp_size > 1:
+            return tp_param_specs(self, self.model_axis)
+        return {name: () for name, _ in self.named_parameters()}
+
+    def rank_views(self, mesh: RankMesh) -> dict[str, torch.Tensor]:
+        """Every parameter as its grid-form rank view (``rank_view``)."""
+        specs = self.param_specs()
+        return {name: rank_view(p, specs[name], mesh) for name, p in self.named_parameters()}
+
+    def forward(self, tokens: torch.Tensor, cache: KVCache | None = None, *,
+                mesh: RankMesh | None = None,
+                params: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+        """Tokens (B, T) -> logits (B, T, vocab) f32; or, for a sharded
+        model, the rank stack of tokens (R, B_local, T_local) -> every rank's
+        logits (R, B_local, T_local, vocab) f32 over ``mesh``, from
+        ``params`` (name -> grid-form rank view, as :meth:`rank_views` makes
+        them from the model's own parameters by default)."""
+        if self.sharded:
+            return self._forward_ranks(tokens, cache, mesh, params)
+        if mesh is not None or params is not None:
+            raise ValueError("mesh and params are for a model with seq_axis or model_axis")
         if cache is not None and cache.index + tokens.shape[1] > cache.max_len:
             raise ValueError(
                 f"cache index {cache.index} + {tokens.shape[1]} tokens exceeds "
@@ -348,6 +512,38 @@ class TransformerLM(nn.Module):
         if cache is not None:
             cache.index += tokens.shape[1]
         return logits.float()
+
+    def _forward_ranks(self, tokens, cache, mesh, params) -> torch.Tensor:
+        if cache is not None:
+            raise NotImplementedError(
+                "decode over a mesh (a sequence-sharded or TP cache) is not ported yet "
+                "(ROADMAP item 10)")
+        if mesh is None:
+            raise ValueError("a model with seq_axis or model_axis runs over a mesh: pass mesh=")
+        for axis in (self.seq_axis, self.model_axis):
+            if axis is not None and axis not in mesh.axis_names:
+                raise ValueError(f"axis {axis!r} not in mesh axes {mesh.axis_names}")
+        if self.model_axis is not None and mesh.shape[self.model_axis] != self.tp_size:
+            raise ValueError(f"tp_size={self.tp_size} but the mesh's {self.model_axis!r} axis "
+                             f"has {mesh.shape[self.model_axis]} ranks")
+        r = mesh.size
+        if tokens.ndim != 3 or tokens.shape[0] != r:
+            raise ValueError(f"need a ({r}, B, T) rank stack of tokens, got {tuple(tokens.shape)}")
+        if params is None:
+            params = self.rank_views(mesh)
+        k = len(mesh.sizes)
+        p = {name: t.reshape(r, *t.shape[k:]) for name, t in params.items()}
+        ranks = torch.arange(r, device=tokens.device)[:, None, None]
+        x = p["embedding"].to(self.compute_dtype)[ranks, tokens.long()]
+        remat = self.remat and torch.is_grad_enabled()
+        for i, block in enumerate(self.blocks):
+            sub = _sub(p, f"blocks.{i}.")
+            if remat:
+                x = checkpoint(block.forward_ranks, x, sub, mesh, use_reentrant=False)
+            else:
+                x = block.forward_ranks(x, sub, mesh)
+        x = self.ln_f.forward_ranks(x, _sub(p, "ln_f."))
+        return _rank_dense(x, p["head_kernel"], p["head_bias"], self.compute_dtype).float()
 
 
 class MoEBlock(nn.Module):
@@ -459,3 +655,33 @@ class MoETransformerLM(nn.Module):
         x = self.ln_f(x)
         logits = _dense(x, self.head_kernel, self.head_bias, self.compute_dtype)
         return logits.float(), aux_total / self.n_layers, dropped_total / self.n_layers
+
+
+def tp_param_specs(model: nn.Module, model_axis: str) -> dict[str, PartitionSpec]:
+    """Each parameter's spec (``parallel.mesh.PartitionSpec``) for
+    Megatron-style TP over ``model_axis``, by the JAX function's path rules
+    on the leaf's flax path (``models.convert.flax_path``): q/k/v kernels and
+    biases shard on the HEAD dim, the out-projection kernel on its head
+    input dim, ``mlp_up`` on the hidden (output) dim, ``mlp_down`` on the
+    hidden (input) dim; everything else (embeddings, norms, the post-psum
+    biases, the LM head) replicates, ``()``. Optimizer moments are the same
+    elements, so the same specs hold for them."""
+    key = getattr(model, "flax_path", flax_path)
+
+    def spec(name: str) -> PartitionSpec:
+        joined = "/".join(("params", *key(name)))
+        if "/q/" in joined or "/k/" in joined or "/v/" in joined:
+            if joined.endswith("kernel"):
+                return (None, model_axis, None)
+            return (model_axis, None)  # bias (heads, head_dim)
+        if joined.endswith("out/kernel"):
+            return (model_axis, None, None)
+        if joined.endswith("mlp_up/kernel"):
+            return (None, model_axis)
+        if joined.endswith("mlp_up/bias"):
+            return (model_axis,)
+        if joined.endswith("mlp_down/kernel"):
+            return (model_axis, None)
+        return ()
+
+    return {name: spec(name) for name, _ in model.named_parameters()}

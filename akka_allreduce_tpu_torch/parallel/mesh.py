@@ -13,13 +13,23 @@ sits at ``(r // cols, r % cols)``.
   then ``cols``.
 - ``data_seq_mesh(dp, sp)`` — the (data, seq) mesh of long-context training:
   DP replicas along ``data``, each replica's sequence sharded along ``seq``
-  (``train.long_context.LongContextTrainer``, which takes 1 x 1 for now).
+  (``train.long_context.LongContextTrainer``).
+- ``data_seq_model_mesh(dp, sp, tp)`` — the same with a third, innermost
+  ``model`` axis of Megatron-style tensor parallelism.
+
+A tensor whose leading dim has one entry per rank, in rank order, is a
+**rank stack**; its **grid form** has the mesh's sizes in front instead
+(``RankMesh.grid``). A collective of ``shard_map`` is then a function of the
+stack: ``lax.axis_index`` is :meth:`RankMesh.index`, ``lax.ppermute`` a roll
+along one grid dim (:meth:`RankMesh.ppermute`), ``lax.psum`` a sum over grid
+dims, ranks added in rank order (:meth:`RankMesh.psum`, differentiable: the
+backward of the sum is the broadcast of the cotangent summed over the same
+ranks, the transpose JAX takes).
 
 Where the signatures differ from JAX's: the JAX helpers take a device list
 and default to every device; a virtual mesh has no device list, so the rank
 count is given (``n``) and ``device`` names the one device all ranks share
 (the card unless ``"cpu"`` is asked for, see ``_device.resolve_device``).
-``data_seq_model_mesh`` arrives with tensor parallelism.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from akka_allreduce_tpu_torch._device import resolve_device
 LINE_AXIS = "line"
 GRID_AXES = ("rows", "cols")
 DATA_SEQ_AXES = ("data", "seq")
+DATA_SEQ_MODEL_AXES = ("data", "seq", "model")
 
 
 @dataclass(frozen=True)
@@ -53,6 +64,45 @@ class RankMesh:
     def size(self) -> int:
         """Number of ranks."""
         return math.prod(self.sizes)
+
+    def dim(self, axis: str) -> int:
+        """The grid dim of ``axis``."""
+        if axis not in self.axis_names:
+            raise ValueError(f"axis {axis!r} not in mesh axes {self.axis_names}")
+        return self.axis_names.index(axis)
+
+    def index(self, axis: str) -> torch.Tensor:
+        """Each rank's position along ``axis`` (``lax.axis_index``): a
+        ``(size,)`` int64 tensor on the mesh's device, in rank order."""
+        d = self.dim(axis)
+        stride = math.prod(self.sizes[d + 1:])
+        ranks = torch.arange(self.size, device=self.device)
+        return ranks // stride % self.sizes[d]
+
+    def grid(self, x: torch.Tensor) -> torch.Tensor:
+        """A rank stack ``(size, ...)`` in grid form ``(*sizes, ...)``."""
+        return x.reshape(*self.sizes, *x.shape[1:])
+
+    def ppermute(self, x: torch.Tensor, axis: str, shift: int = 1) -> torch.Tensor:
+        """``lax.ppermute`` of a rank stack along ``axis``: the rank at
+        position ``i`` sends to ``(i + shift) mod n``."""
+        g = torch.roll(self.grid(x), shift, self.dim(axis))
+        return g.reshape(x.shape)
+
+    def psum(self, x: torch.Tensor, axes: str | tuple[str, ...]) -> torch.Tensor:
+        """``lax.psum`` of a rank stack over ``axes``: every rank gets the
+        sum over the ranks that differ from it only along ``axes``, added
+        one at a time in rank order, axis by axis. Differentiable."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        g = self.grid(x)
+        total = None
+        for d in sorted(self.dim(a) for a in axes):
+            parts = g.unbind(d)
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            g = total.unsqueeze(d)
+        return g.expand(*self.sizes, *x.shape[1:]).reshape(x.shape)
 
 
 def _check_count(n: int) -> int:
@@ -129,3 +179,102 @@ def data_seq_mesh(
     side (sequence parallelism is the scarcer resource). Same shape logic
     and errors as :func:`grid_mesh`, only the axis roles differ."""
     return grid_mesh(dp, sp, n=n, device=device, axes=axes)
+
+
+def data_seq_model_mesh(
+    dp: int,
+    sp: int,
+    tp: int,
+    *,
+    device: str | torch.device | None = None,
+    axes: tuple[str, str, str] = DATA_SEQ_MODEL_AXES,
+) -> RankMesh:
+    """A 3D (data, seq, model) mesh: DP replicas x sequence shards x
+    Megatron-style tensor-parallel groups, ``model`` the innermost axis (the
+    JAX mesh puts TP's per-layer psums on directly wired neighbours; here it
+    makes a TP group's ranks adjacent rows of the rank stack)."""
+    for n in (dp, sp, tp):
+        _check_count(n)
+    return RankMesh(tuple(axes), (dp, sp, tp), resolve_device(device))
+
+
+# A leaf's sharding, the port's ``PartitionSpec``: a tuple with one entry a
+# leading dim of the leaf, each an axis name, a tuple of axis names (sharded
+# over their product, the first major) or None; dims past the tuple's end
+# are not sharded, so ``()`` is a replicated leaf.
+PartitionSpec = tuple
+
+
+def spec_axes(spec: PartitionSpec) -> tuple[str, ...]:
+    """Mesh axis names a spec shards over (flattening tuples)."""
+    axes: list[str] = []
+    for entry in spec:
+        if entry is None:
+            continue
+        if isinstance(entry, (tuple, list)):
+            axes.extend(entry)
+        else:
+            axes.append(entry)
+    return tuple(axes)
+
+
+def _spec_entries(spec: PartitionSpec, ndim: int) -> list[tuple[str, ...]]:
+    spec = tuple(spec)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the leaf's {ndim} dims")
+    out = []
+    for entry in spec + (None,) * (ndim - len(spec)):
+        if entry is None:
+            out.append(())
+        elif isinstance(entry, (tuple, list)):
+            out.append(tuple(entry))
+        else:
+            out.append((entry,))
+    return out
+
+
+def rank_view(p: torch.Tensor, spec: PartitionSpec, mesh: RankMesh) -> torch.Tensor:
+    """What every rank sees of the full leaf ``p`` under ``spec``, in grid
+    form ``(*mesh.sizes, *local)``: a view (no copy), the whole leaf on the
+    axes the spec does not shard over (stride 0 there), its shard on the
+    axes it does, as ``shard_map``'s ``in_specs`` deliver it."""
+    entries = _spec_entries(spec, p.ndim)
+    split, lead, local = [], {}, []
+    for n, axes in zip(p.shape, entries):
+        k = math.prod(mesh.shape[a] for a in axes)
+        if n % k:
+            raise ValueError(f"dim of {n} does not evenly divide over {axes} ({k} shards)")
+        for a in axes:
+            lead[a] = len(split)
+            split.append(mesh.shape[a])
+        local.append(len(split))
+        split.append(n // k)
+    t = p.reshape(split)
+    perm = []
+    for a in mesh.axis_names:
+        if a not in lead:
+            lead[a] = t.ndim
+            t = t.unsqueeze(-1)
+        perm.append(lead[a])
+    t = t.permute(*perm, *local)
+    return t.expand(*mesh.sizes, *t.shape[len(mesh.sizes):])
+
+
+def rank_unview(g: torch.Tensor, spec: PartitionSpec, mesh: RankMesh) -> torch.Tensor:
+    """The full leaf from a grid-form ``(*mesh.sizes or 1, *local)`` stack
+    that agrees along every axis ``spec`` does not shard over (a psum's
+    result): the first rank's entry there, the shards put back in place."""
+    k = len(mesh.sizes)
+    local = g.shape[k:]
+    entries = _spec_entries(spec, len(local))
+    sharded = [a for a in mesh.axis_names if any(a in e for e in entries)]
+    t = g[tuple(slice(None) if a in sharded else 0 for a in mesh.axis_names)]
+    order, shape = [], []
+    for j, (n, axes) in enumerate(zip(local, entries)):
+        for a in axes:
+            order.append(sharded.index(a))
+            shape.append(mesh.shape[a])
+        order.append(len(sharded) + j)
+        shape.append(n)
+    full = [n * math.prod(mesh.shape[a] for a in axes) for n, axes in zip(local, entries)]
+    return t.permute(order).reshape(full)

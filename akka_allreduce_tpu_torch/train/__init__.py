@@ -1,6 +1,6 @@
 """Trainers of the port: the data-parallel trainer over virtual ranks
 (``DPTrainer``), its ZeRO-1 form (``Zero1DPTrainer``), the long-context LM
-trainer on one card (``LongContextTrainer``), the MoE LM trainer on one card
+trainer over (data, seq[, model]) virtual ranks (``LongContextTrainer``), the MoE LM trainer on one card
 (``MoETrainer``), the helpers the trainers share, checkpoints
 (``TrainerCheckpointer``, ``DeltaCheckpointer``, their async forms,
 ``Snapshot``), elastic re-meshing over the live nodes' ranks

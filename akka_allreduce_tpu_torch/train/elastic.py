@@ -367,14 +367,12 @@ def _capped_factor(n_devices: int, divides: int, cap: int | None) -> int:
 
 
 class ElasticLongContextTrainer(ElasticTrainer):
-    """Elastic long-context LM training over a (data, seq) mesh: on a
-    re-mesh the seq axis becomes the largest size dividing ``seq_len`` and
-    the live rank count, capped at ``max_sp``. The port's
-    ``LongContextTrainer`` takes only a 1 x 1 mesh, so this runs where the
-    live rank count is 1 (config 5 on one card: a one-rank node and
-    zero-rank control nodes); any other count raises the trainer's own
-    ``NotImplementedError``. Each build draws its own model from ``seed``
-    and the snapshot overwrites it."""
+    """Elastic long-context LM training over a (data, seq) mesh of the live
+    ranks: on a re-mesh the seq axis becomes the largest size dividing
+    ``seq_len`` and the live rank count, capped at ``max_sp``, and the rest
+    of the ranks form the data axis; the snapshot (full-shape parameters and
+    Adam moments) crosses any change of sp. Each build draws its own model
+    from ``seed`` and the snapshot overwrites it."""
 
     def __init__(
         self,

@@ -1,30 +1,42 @@
-"""Long-context trainer of the Transformer LM, on one card.
+"""Long-context trainer of the Transformer LM: DP x SP (x TP) over virtual ranks.
 
 Counterpart of ``akka_allreduce_tpu/train/long_context.py``
-(``LongContextTrainer``) on a ``data_seq_mesh(1, 1)``: one data-parallel
-replica row and one sequence shard, which is how the JAX package trains its
-flagship LM on one chip (``bench_mfu.py``'s ``run_lm``, ``train-lm``,
-``lm-generate --train-steps``).
+(``LongContextTrainer``) on a (data, seq) mesh (``data_seq_mesh``) or a
+(data, seq, model) mesh (``data_seq_model_mesh``) of virtual ranks on one
+device (``parallel.mesh``). Every rank computes on its own shard, the ranks
+folded into the batch of each call (``models.transformer``'s rank mode):
+its rows of the batch, its ``seq_len / sp`` columns, and under TP its
+``H / tp`` heads and ``hidden / tp`` MLP units. The trainer keeps one
+full-shape f32 copy of each parameter (the model's); a rank sees its view
+(``parallel.mesh.rank_view`` under ``models.transformer.tp_param_specs``).
 
-A step is the JAX step with every collective of size one:
+A step is the JAX step:
 
-- the loss is the masked per-token average cross-entropy
-  ``sum(ce) * v / max(v * B * T, 1)``, with ``v`` the replica row's
-  contributor bit (``valid``) and ``contributors = v``;
-- ``loss.backward()`` gives the gradient (through K4's forward and backward
-  on gated shapes, ``ops.flash_attention.FlashAttention``);
-- the optimizer steps: by default Adam with optax's defaults (b1 0.9,
-  b2 0.999, eps 1e-8, bias-corrected), which ``torch.optim.Adam`` computes.
+- the global (batch, seq_len) tokens split as ``P(data, seq)`` lays them
+  out: rank (d, s, m) takes rows ``[d·B_l, (d+1)·B_l)`` and columns
+  ``[s·T_l, (s+1)·T_l)``, every model rank of a group the same;
+- each rank's loss term is ``sum(ce) * v / denom``, ``v`` its replica
+  row's contributor bit and ``denom = max(sum over ranks of v·B_l·T_l,
+  1)`` (``psum(v * tokens_local)`` over every axis); under TP every model
+  rank computes the same term, so the tp-fold factor is in both the sums
+  and the denominator;
+- the gradient takes one of three paths: ``overlap`` syncs each leaf inside
+  the backward (``comm.allreduce.overlap_value_and_grad``, the loss
+  unmasked, ``v`` folded back into the metric); ``compress`` "bf16" or
+  "int8" one grouped collective a sharding class
+  (``compressed_value_and_grad``); otherwise the same grouped sum in f32,
+  in which the class over every axis is K1 (once a step on the card;
+  under ``overlap`` once a leaf);
+- ``loss`` is the sum of the ranks' terms, ``contributors`` the sum of
+  ``valid`` over the replica rows; then Adam with optax's defaults (b1
+  0.9, b2 0.999, eps 1e-8, bias-corrected), which ``torch.optim.Adam``
+  computes, steps the full-shape parameters.
 
-At sp = 1 both ``seq_impl`` values reduce to ``local_attention``, as the JAX
-model's ``ring_attention`` call does, so both are accepted. Data, sequence
-and tensor parallelism (dp, sp or tp above 1), gradient ``compress`` and
-``overlap`` need several ranks and are refused as not ported yet.
-
-``train_chain`` draws its batches on the card with a ``torch.Generator``
-(``SyntheticCopyLM.device_sampler``) and keeps the per-step losses there
-until the chain ends: one host read a chain, the JAX chain's "no host I/O
-inside the loop".
+At one seq shard both ``seq_impl`` values are ``local_attention``, as in
+the JAX model. ``train_chain`` draws each replica row's batches with its own
+``torch.Generator`` on the device (each seq rank of the row slices its
+columns from them) and keeps the per-step losses there until the chain
+ends: one host read a chain, the JAX chain's "no host I/O inside the loop".
 """
 
 from __future__ import annotations
@@ -37,12 +49,18 @@ import torch
 import torch.nn.functional as F
 
 from akka_allreduce_tpu_torch._device import resolve_device
-from akka_allreduce_tpu_torch.binder.api import flat_tensor, load_flat_tensor
-from akka_allreduce_tpu_torch.models.transformer import TransformerLM
+from akka_allreduce_tpu_torch.binder.api import flat_tensor, leaf_order, load_flat_tensor
+from akka_allreduce_tpu_torch.comm.allreduce import (
+    compressed_value_and_grad,
+    overlap_value_and_grad,
+    validate_trainer_compress,
+)
+from akka_allreduce_tpu_torch.models.transformer import SEQ_IMPLS, TransformerLM
 from akka_allreduce_tpu_torch.parallel.mesh import RankMesh, data_seq_mesh
 from akka_allreduce_tpu_torch.train.trainer import normalize_valid
 
-SEQ_IMPLS = ("ring", "ulysses")
+# a replica row's data stream: seeds of rows d and d + 1 this far apart
+_ROW_SEED_STRIDE = 0x9E3779B97F4A7C15
 
 
 @dataclasses.dataclass
@@ -53,19 +71,23 @@ class LongContextStepMetrics:
 
 
 class LongContextTrainer:
-    """The LM trainer on a (data, seq) mesh of one replica row and one
-    sequence shard.
+    """DP x SP (x TP) trainer of a :class:`~..models.TransformerLM` over a
+    mesh of virtual ranks.
 
     Args:
-      mesh: None (a 1 x 1 ``data_seq_mesh`` on ``device``) or a
-        ``RankMesh`` with axes (data, seq[, model]) of size 1 each.
-      seq_len: the sequence length every batch must have.
-      seq_impl: "ring" or "ulysses" (the same attention at sp = 1).
+      mesh: a (data, seq) ``RankMesh`` (``data_seq_mesh``) or a (data, seq,
+        model) one (``data_seq_model_mesh``): the third axis adds
+        Megatron-style tensor parallelism. None: a 1 x 1 ``data_seq_mesh``
+        on ``device``.
+      seq_len: the GLOBAL sequence length (divisible by the seq axis size).
+      seq_impl: "ring" or "ulysses".
       optimizer: a factory ``parameters -> torch.optim.Optimizer``; default
         ``torch.optim.Adam(parameters, lr=learning_rate)``.
       compute_dtype: ``torch.float32`` or ``torch.bfloat16`` (parameters and
         Adam moments stay f32).
       remat: recompute each block in the backward (``TransformerLM``).
+      compress: None, "bf16" or "int8": the gradient sums' wire.
+      overlap: one sync a leaf inside the backward (not with "int8").
       device: the card unless ``"cpu"``; taken from ``mesh`` when one is
         given.
     """
@@ -91,13 +113,8 @@ class LongContextTrainer:
         overlap: bool = False,
         device: str | torch.device | None = None,
     ) -> None:
-        if compress is not None:
-            raise NotImplementedError(
-                f"compress={compress!r} is not ported yet (gradient wire "
-                "compression needs several ranks)")
-        if overlap:
-            raise NotImplementedError(
-                "overlap is not ported yet (per-leaf collectives need several ranks)")
+        self.compress = validate_trainer_compress(compress, overlap=overlap)
+        self.overlap = overlap
         if seq_impl not in SEQ_IMPLS:
             raise ValueError(f"seq_impl must be one of {SEQ_IMPLS}, got {seq_impl!r}")
         if mesh is None:
@@ -109,14 +126,13 @@ class LongContextTrainer:
                 f"need a (data, seq[, model]) mesh, got axes {mesh.axis_names}")
         self.mesh = mesh
         self.data_axis, self.seq_axis = mesh.axis_names[:2]
+        self.model_axis = mesh.axis_names[2] if len(mesh.axis_names) == 3 else None
         self.dp, self.sp = mesh.sizes[:2]
-        self.tp = mesh.sizes[2] if len(mesh.sizes) == 3 else 1
-        if (self.dp, self.sp, self.tp) != (1, 1, 1):
-            raise NotImplementedError(
-                f"dp={self.dp}, sp={self.sp}, tp={self.tp}: data, sequence and "
-                "tensor parallelism are not ported yet (only a 1 x 1 mesh)")
-        self.n_devices = 1
+        self.tp = mesh.sizes[2] if self.model_axis else 1
+        self.n_devices = self.dp * self.sp * self.tp
         self.data_shards = self.dp  # train_chain streams: one per replica row
+        if seq_len % self.sp:
+            raise ValueError(f"seq_len={seq_len} not divisible by seq shards {self.sp}")
         self.seq_len = seq_len
         self.seq_impl = seq_impl
         self.vocab = vocab
@@ -124,9 +140,13 @@ class LongContextTrainer:
         self.model = TransformerLM(
             vocab=vocab, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
             n_layers=n_layers, compute_dtype=compute_dtype, seed=seed,
-            device=self.device, remat=remat,
+            device=self.device, remat=remat, seq_axis=self.seq_axis, seq_impl=seq_impl,
+            model_axis=self.model_axis if self.tp > 1 else None, tp_size=self.tp,
         )
         self.n_layers = n_layers
+        named = dict(self.model.named_parameters())
+        self._params = {name: named[name] for name in leaf_order(self.model)}
+        self._specs = self.model.param_specs()
         make = optimizer or (lambda ps: torch.optim.Adam(ps, lr=learning_rate))
         self.optimizer = make(self.model.parameters())
         self.param_count = sum(p.numel() for p in self.model.parameters())
@@ -134,18 +154,45 @@ class LongContextTrainer:
 
     # -- stepping ------------------------------------------------------------
 
+    def rank_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The global (batch, seq_len) tokens as the rank stack (n_devices,
+        B_l, T_l): rank (d, s, m) holds rows ``[d·B_l, (d+1)·B_l)`` and
+        columns ``[s·T_l, (s+1)·T_l)``."""
+        dp, sp, tp = self.dp, self.sp, self.tp
+        bl, tl = x.shape[0] // dp, self.seq_len // sp
+        g = x.reshape(dp, bl, sp, tl).permute(0, 2, 1, 3)[:, :, None]
+        return g.expand(dp, sp, tp, bl, tl).reshape(self.n_devices, bl, tl)
+
     def _step(self, x: torch.Tensor, y: torch.Tensor, v: torch.Tensor):
-        """One step on device tensors; returns the (loss, contributors)
-        device scalars (no host read)."""
+        """One step on the global device tensors ``x``/``y`` under the (dp,)
+        mask ``v``; returns the (loss, contributors) device scalars."""
         self.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(x)  # (B, T, vocab) f32
-        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                             y.reshape(-1).long(), reduction="none")
-        denom = torch.clamp_min(v * float(x.numel()), 1.0)
-        loss = ce.sum() * v / denom
-        loss.backward()
+        xs, ys = self.rank_tokens(x), self.rank_tokens(y)
+        v_rank = v.repeat_interleave(self.sp * self.tp)  # (n_devices,)
+        denom = torch.clamp_min((v_rank * float(xs[0].numel())).sum(), 1.0)
+        mesh, model = self.mesh, self.model
+
+        def loss_terms(views, masked: bool):
+            logits = model(xs, mesh=mesh, params=views)  # (R, B_l, T_l, vocab) f32
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 ys.reshape(-1).long(), reduction="none")
+            ce = ce.reshape(self.n_devices, -1).sum(1)
+            return (ce * v_rank if masked else ce) / denom
+
+        if self.overlap:
+            lval, grads = overlap_value_and_grad(
+                lambda views: loss_terms(views, False), self._params, self._specs, mesh,
+                v_rank, wire_dtype=self.compress)
+            lval = lval * v_rank
+        else:
+            lval, grads = compressed_value_and_grad(
+                lambda views: loss_terms(views, True), self._params, self._specs, mesh,
+                wire_dtype=self.compress)
+        for name, p in self._params.items():
+            p.grad = grads[name]
+        del grads
         self.optimizer.step()
-        return loss.detach(), v
+        return lval.sum(), v.sum()
 
     def _tokens(self, a, what: str) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
@@ -156,8 +203,7 @@ class LongContextTrainer:
         return t.to(self.device, torch.int64)
 
     def _valid(self, valid: Sequence[float] | None) -> torch.Tensor:
-        arr = normalize_valid(valid, self.dp)
-        return torch.from_numpy(arr).to(self.device)[0]
+        return torch.from_numpy(normalize_valid(valid, self.dp)).to(self.device)
 
     def train_step(
         self,
@@ -165,7 +211,8 @@ class LongContextTrainer:
         labels,
         valid: Sequence[float] | None = None,
     ) -> LongContextStepMetrics:
-        """One step on a (batch, seq_len) token array (numpy or tensor).
+        """One step on a GLOBAL (batch, seq_len) token array (numpy or
+        tensor).
 
         ``valid``: the per-replica-row contributor mask of shape (dp,);
         None = all rows contribute.
@@ -174,8 +221,8 @@ class LongContextTrainer:
         x, y = self._tokens(tokens, "tokens"), self._tokens(labels, "labels")
         loss, cnt = self._step(x, y, v)
         self.step_num += 1
-        return LongContextStepMetrics(
-            step=self.step_num, loss=float(loss), contributors=float(cnt))
+        loss, cnt = torch.stack([loss, cnt]).tolist()
+        return LongContextStepMetrics(step=self.step_num, loss=loss, contributors=cnt)
 
     def train(self, batches: Iterable) -> list[LongContextStepMetrics]:
         return [self.train_step(x, y) for x, y in batches]
@@ -191,21 +238,26 @@ class LongContextTrainer:
     ) -> list[LongContextStepMetrics]:
         """Run ``steps`` steps with batches drawn on the device.
 
-        ``sampler`` is ``(generator, rows) -> (tokens, labels)``
-        (``SyntheticCopyLM.device_sampler``). The generator lives on the
-        trainer's device, seeded from ``seed`` and ``step_num``, so
-        consecutive chains continue the data stream instead of replaying it.
-        Losses and contributor counts stay on the device until the chain
-        ends: one host read a chain.
+        ``sampler`` is ``(generator, rows) -> (tokens, labels)`` of GLOBAL
+        (rows, seq_len) sequences (``SyntheticCopyLM.device_sampler``). Each
+        replica row draws its own stream from a generator on the trainer's
+        device, seeded from ``seed``, ``step_num`` and the row, so that
+        consecutive chains continue the streams instead of replaying them;
+        the row's seq ranks slice their columns from it. Losses and
+        contributor counts stay on the device until the chain ends: one
+        host read a chain.
         """
         if steps < 1:
             raise ValueError(f"need steps >= 1, got {steps}")
         v = self._valid(valid)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed((seed * 2**32 + self.step_num) % 2**63)
+        base = seed * 2**32 + self.step_num
+        gens = [torch.Generator(device=self.device).manual_seed(
+            (base + d * _ROW_SEED_STRIDE) % 2**63) for d in range(self.dp)]
         losses, counts = [], []
         for _ in range(steps):
-            x, y = sampler(gen, rows_per_replica)
+            rows = [sampler(gen, rows_per_replica) for gen in gens]
+            x = torch.cat([r[0] for r in rows])
+            y = torch.cat([r[1] for r in rows])
             loss, cnt = self._step(x, y, v)
             losses.append(loss)
             counts.append(cnt)

@@ -149,24 +149,24 @@ Phases, each printed as it ends:
    of the four stores (``TrainerCheckpointer``, ``DeltaCheckpointer`` and
    their async forms) and each of ZeRO-1 (f32), ``DPTrainer`` on
    ``MLP(2048, 2048)`` with int8 + EF (the plain ring: no K1) and the
-   flagship LM in bf16 at B 2 (K4's forward and backward once a layer a
-   step): save, 2 more steps (for the async stores while the writer
+   LM at the flagship's width cut to 1 of its 8 layers, in bf16 at B 2
+   (K4's forward and backward once a layer a step): save, 2 more steps (for the async stores while the writer
    drains), restore into a second trainer whose state must be the one of
    the moment of the save, the same 2 steps, every tensor equal to the
    saver's bit for bit; the async stores' host buffers pinned; then
-   ``bench-checkpoint`` at the flagship in bf16 for the full and the delta
-   store (``--skip-sync``) and with ``--trainer zero1``, each record printed
+   ``bench-checkpoint`` at the flagship's width in bf16, 1 layer, for the
+   full and the delta store (``--skip-sync``) and with ``--trainer zero1``, each record printed
    on its own line
    (capture stall, save wall, step time during the save, sync stall, delta
    stats), its K1 or K4 launches equal to its steps; (j) the TCP control
    plane, the nodes' round buffers on the card: the wire codec's C++ built
    with g++; BASELINE config 1 over loopback TCP (``cluster-master --nodes 4
-   --size 1000000 --chunk 262144 --rounds 20 --th 1.0`` and four
+   --size 1000000 --chunk 262144 --rounds 8 --th 1.0`` and four
    ``cluster-node`` processes on the card, then the same with ``--device
    cpu``), each node's last flush against the numpy mean of the four seeded
    payloads (rtol 1e-5, atol 1e-6, counts 4), every node on ``wire=native``
    and the master with no CUDA context; ResNet-50's gradient (25,557,032
-   floats, ``--streams 3``, 3 rounds) in f32 and with ``--wire-dtype f16``
+   floats, ``--streams 3``, 1 round) in f32 and with ``--wire-dtype f16``
    (within 2e-3 of max|mean|); each run's node rounds, MB/s, stage times
    (``d2h`` and ``h2d``: the copies off and onto the card), wire path and
    device and the median round printed; in this process's event loop,
@@ -243,7 +243,28 @@ Phases, each printed as it ends:
    T 256) three SGD steps on the card within 1e-4 of the CPU's and the
    scatter dispatch within 1e-5 of the einsum; ``train-moe`` at its defaults
    with a falling loss, ``elastic-demo --family moe``, and config 5's MoE
-   fields from (k)'s record;
+   fields from (k)'s record; (n) sequence and tensor parallelism over
+   virtual ranks: ``LongContextTrainer`` on the flagship in bf16 over
+   ``data_seq_model_mesh(2, 2, 2)`` with Ulysses (8 ranks: 4 rows a
+   replica, 1,024 columns a seq rank, 8 heads a model rank, 4 a Ulysses
+   rank): K4's forward and backward once a layer a step (the 8 ranks in one
+   launch) and K1 once a step (the replicated gradient class), one step's
+   loss and full-shape gradients against the 1 x 1 trainer's from the same
+   weights and batch, a 16-step chain whose loss falls, ms a step (median of
+   3), peak memory and two steps under ``torch.profiler``; ``bench-mfu --dp
+   2 --sp 2`` (ring attention, its blocks plain einsums: no K4; K1 once a
+   step), its record with the peak memory printed, MFU on the one card;
+   ``train-lm``'s width (d 128, 4 heads, 2 layers, T 256) in f32 by SGD:
+   ring and Ulysses on ``data_seq_mesh(2, 2)``, ``data_seq_model_mesh(2, 2,
+   2)`` with an f32, a bf16 and an int8 wire and overlapped, each three
+   steps on the card against the CPU (replica row 1 masked at the second)
+   and, every row valid, against the 1 x 1 trainer on the card; then
+   ``train-lm --dp 2 --sp 2 --tp 2 --impl ulysses --compress bf16``,
+   ``train-lm --dp 2 --sp 4 --overlap`` (falling losses) and
+   ``elastic-demo --family lc`` (8 ranks, dp 2 x sp 4 -> dp 3 x sp 2 ->
+   dp 2 x sp 4); callable alone as ``chip_smoke.sharded_lm_path(dev,
+   card_info(dev))`` after ``_build.build("local_reduce",
+   "flash_attention_wgmma", "flash_attention_bwd_wgmma")``;
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -344,17 +365,20 @@ DROPOUT_FLOATS, DROPOUT_CHUNK, DROPOUT_ROUNDS = 200_000, 16_384, 10
 BUTTERFLY_ROUNDS, ELASTIC_ROUNDS, ELASTIC_ALPHA, ELASTIC_RTOL = 5, 5, 0.5, 1e-6
 # checkpoints (phase i): ZeRO-1 at the JAX bench-checkpoint --trainer zero1
 # width, MLP(hidden=(2048,) * 8) over 8 virtual ranks, Adam 1e-3; steps between
-# a save and the comparison of a resume; bench-checkpoint's batch at the
-# flagship and its baseline steps; the disk the flagship stores need (a sync
-# and an async store of 4.85 GB each at once, and room)
+# a save and the comparison of a resume; the LM's resumes and bench-checkpoint
+# at the flagship's width cut to 1 of its 8 layers (0.62 GB of state a store
+# instead of 4.85: the script's time limit), their batch and baseline steps;
+# the disk the LM stores need (a sync and an async store at once, and room)
 ZERO1_HIDDEN, ZERO1_PARAMS, ZERO1_ROWS, ZERO1_STEPS = (2048,) * 8, 31_002_634, 16, 3
-CKPT_STEPS_AFTER, CKPT_LM_BATCH, CKPT_BENCH_BASELINE, CKPT_FREE_BYTES = 2, 2, 5, 12e9
+CKPT_LM = dict(LM, n_layers=1)
+CKPT_STEPS_AFTER, CKPT_LM_BATCH, CKPT_BENCH_BASELINE, CKPT_FREE_BYTES = 2, 2, 5, 4e9
 MASK3 = [1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0]  # rank 3 masked
 # the TCP control plane (phase j): BASELINE config 1 between 4 node processes
-# (1M floats, chunk 262,144, thresholds 1.0, 20 rounds), ResNet-50's gradient
-# over three payload streams for 3 rounds, and the failover drill's budget
-CLUSTER_NODES, CLUSTER_FLOATS, CLUSTER_CHUNK, CLUSTER_ROUNDS = 4, 1_000_000, 262_144, 20
-CLUSTER_BIG_ROUNDS, FAILOVER_ROUNDS = 3, 30
+# (1M floats, chunk 262,144, thresholds 1.0, 8 rounds), ResNet-50's gradient
+# over three payload streams for 1 round, and the failover drill's budget
+# (the leader killed after 5): rounds cut from 20, 3 and 30 for the time limit
+CLUSTER_NODES, CLUSTER_FLOATS, CLUSTER_CHUNK, CLUSTER_ROUNDS = 4, 1_000_000, 262_144, 8
+CLUSTER_BIG_ROUNDS, FAILOVER_ROUNDS = 1, 10
 # elasticity (phase k): the DP cell's width over 4 nodes x 2 virtual ranks, the
 # node that drops, the re-mesh cycles of the leak check and the bytes they may
 # leave allocated, the training cluster's step budgets (long enough that both
@@ -385,6 +409,26 @@ MOE = dict(vocab=256, d_model=2048, n_heads=16, n_layers=8, n_experts=8, seq_len
 MOE_BATCH, MOE_CHAIN = 8, 20
 MOE_SMALL = dict(vocab=64, d_model=128, n_heads=4, n_layers=2, n_experts=4, seq_len=256)
 MOE_SMALL_BATCH, MOE_SMALL_STEPS, MOE_SMALL_TOL = 8, 3, 1e-4  # relative
+# sequence and tensor parallelism (phase n): (n1) the flagship over
+# data_seq_model_mesh(2, 2, 2) with Ulysses at bench-mfu's lr (8 virtual
+# ranks: 4 rows a replica, 1,024 columns a seq rank, 8 heads a model rank, 4 a
+# Ulysses rank), one step against the 1 x 1 trainer's from the same weights
+# and batch (bf16: the loss relative, each leaf's gradient of its max|grad|),
+# a chain whose loss falls; (n3) train-lm's defaults in f32 by SGD (the Adam
+# hazard), each mesh three steps (the second with replica row 1 masked) on the
+# card against the CPU and, all rows valid, against the 1 x 1 trainer on the
+# card; bf16 and int8 wires held to tests/test_compress_sharded.py's bands
+SHARDED_MESH, SHARDED_CHAIN = (2, 2, 2), 16
+# measured on an H100 (PERF.md, PR 18): loss 1.93e-5 relative, gradients
+# 2.28e-2 of max|grad| (bf16 partial sums rounded before the TP psum)
+SHARDED_LOSS_TOL, SHARDED_GRAD_TOL = 2e-4, 5e-2
+SMALL_LM = dict(vocab=64, d_model=128, n_heads=4, n_layers=2)
+SMALL_LM_SEQ, SMALL_LM_BATCH, SMALL_LM_STEPS, SMALL_LM_LR = 256, 8, 3, 0.1
+SMALL_LM_TOL = 1e-5  # card vs CPU and f32 meshes vs 1 x 1: losses relative, params of max
+# card vs CPU on a compressed wire: an element whose sum lands apart by float
+# dust may round to the next bf16 value or int8 quantum on one side only
+WIRE_CARD_TOL = 1e-3
+WIRE_BANDS = {"bf16": (5e-3, 1e-2), "int8": (5e-2, 0.1)}  # loss relative, drift of max
 # quantized_cache_attention on the card vs the CPU, of max|out|, with decode's
 # bf16 q: f32 scores and sums on both sides, the output rounded to bf16, so
 # an element may round one bf16 ulp apart (at most 2^-7 of its magnitude)
@@ -3123,6 +3167,242 @@ def moe_int8_path(dev, card: dict, config5: dict) -> dict:
             "config5_moe": moe5}
 
 
+# -- phase (n): sequence and tensor parallelism over virtual ranks ------------------
+
+
+def grad_err_of_max(a, b) -> float:
+    """The largest, over leaves, of max|a - b| / max|b| (full-shape grads)."""
+    return max(float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30)
+               for n in b)
+
+
+def sharded_lm_path(dev, card: dict) -> dict:
+    """Phase (n): ``LongContextTrainer`` over virtual ranks. (n1) The flagship
+    in bf16 over ``data_seq_model_mesh(2, 2, 2)`` with Ulysses: one step with
+    K4's forward and backward once a layer (the 8 ranks folded into one
+    launch) and K1 once (the replicated class), its loss and full-shape
+    gradients against the 1 x 1 trainer's from the same weights and batch; a
+    chain whose loss falls; ms a step, peak memory and two profiled steps.
+    (n2) ``bench-mfu --dp 2 --sp 2`` (ring: no K4, K1 once a step), MFU on
+    the one card. (n3) ``train-lm``'s defaults in f32: ring and Ulysses on
+    ``data_seq_mesh(2, 2)``, ``data_seq_model_mesh(2, 2, 2)`` in f32, bf16,
+    int8 and overlapped, each against the CPU (replica row 1 masked at the
+    second step) and against the 1 x 1 trainer on the card. (n4)
+    ``train-lm --dp 2 --sp 2 --tp 2 --impl ulysses --compress bf16``,
+    ``train-lm --dp 2 --sp 4 --overlap`` and ``elastic-demo --family lc``.
+    Returns the launches and the figures."""
+    import statistics
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.models import SyntheticCopyLM, lm_copy_task
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.parallel import data_seq_mesh, data_seq_model_mesh, spec_axes
+    from akka_allreduce_tpu_torch.train import LongContextTrainer
+
+    k1, k4 = lr.LAUNCHES, fa.LAUNCHES
+    n_layers = LM["n_layers"]
+    launches = {"masked_average": 0, "flash_attention_bf16": 0, "flash_attention_bwd_bf16": 0}
+    out: dict = {}
+
+    def take(what: str, steps: int, k1_per_step: int | None, k4_per_step: int) -> None:
+        """Hold the counts since the last ``take`` to ``steps`` steps' worth
+        (``k1_per_step`` None: any), add them to the phase's, set them to 0."""
+        torch.cuda.synchronize()
+        want4 = k4_per_step * n_layers * steps
+        require(k4["flash_attention"] == k4["flash_attention_wgmma"] == want4
+                and k4["flash_attention_bwd"] == k4["flash_attention_bwd_wgmma"] == want4
+                and k4["flash_attention_3xtf32"] == k4["flash_attention_bwd_3xtf32"] == 0
+                and (k1_per_step is None or k1["masked_average"] == k1_per_step * steps),
+                f"{what}: launches K1 {dict(k1)}, K4 {dict(k4)} for {steps} steps")
+        launches["masked_average"] += k1["masked_average"]
+        launches["flash_attention_bf16"] += k4["flash_attention_wgmma"]
+        launches["flash_attention_bwd_bf16"] += k4["flash_attention_bwd_wgmma"]
+        zero(k1)
+        zero(k4)
+
+    # (n1) the flagship over (data, seq, model) = (2, 2, 2), Ulysses
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(**LM, seq_len=LM_SEQ, compute_dtype=torch.bfloat16, learning_rate=1e-3,
+              seed=SEED, device=dev)
+    sharded = LongContextTrainer(data_seq_model_mesh(*SHARDED_MESH, device=dev),
+                                 seq_impl="ulysses", **kw)
+    single = LongContextTrainer(**kw)
+    require((sharded.dp, sharded.sp, sharded.tp, sharded.n_devices) == (2, 2, 2, 8)
+            and torch.equal(sharded.flat_params_tensor(), single.flat_params_tensor()),
+            "the sharded and the 1 x 1 trainer from the same weights")
+    batches = list(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED).batches(LM_BATCH, 6))
+    zero(k1)
+    zero(k4)
+    m = sharded.train_step(*batches[0])
+    take("the sharded flagship step", 1, 1, 1)
+    out["first_step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    got = {n: p.grad.clone() for n, p in sharded.model.named_parameters()}
+    m1 = single.train_step(*batches[0])
+    take("the 1 x 1 flagship step", 1, 0, 1)
+    want = {n: p.grad for n, p in single.model.named_parameters()}
+    loss_err = abs(m.loss - m1.loss) / abs(m1.loss)
+    grad_err = grad_err_of_max(got, want)
+    out["vs_1x1"] = {"loss": m.loss, "loss_1x1": m1.loss, "loss_rel_err": loss_err,
+                     "grad_err_of_max": grad_err, "loss_tol": SHARDED_LOSS_TOL,
+                     "grad_tol": SHARDED_GRAD_TOL}
+    print(json.dumps({"sharded_vs_1x1": out["vs_1x1"]}), flush=True)
+    require(m.contributors == 2.0 and m1.contributors == 1.0 and loss_err <= SHARDED_LOSS_TOL
+            and grad_err <= SHARDED_GRAD_TOL, f"the sharded step vs the 1 x 1: {out['vs_1x1']}")
+    del single, got, want
+    torch.cuda.empty_cache()
+    hist = sharded.train_chain(SyntheticCopyLM(LM_SEQ, vocab=LM["vocab"], seed=SEED)
+                               .device_sampler(), SHARDED_CHAIN, LM_BATCH // SHARDED_MESH[0])
+    take("the sharded chain", SHARDED_CHAIN, 1, 1)
+    losses = [m.loss] + [h.loss for h in hist]
+    out["losses"] = losses
+    require(all(math.isfinite(v) for v in losses) and sum(losses[-3:]) / 3 < losses[0],
+            f"the sharded flagship's loss does not fall: {losses}")
+    times = []
+    for x, y in batches[1:4]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sharded.train_step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+
+    def two_steps():
+        for x, y in batches[4:6]:
+            sharded.train_step(x, y)
+
+    prof = profile_window(two_steps, top=12)
+    take("the timed and profiled steps", 5, 1, 1)
+    out["step_ms"], out["step_ms_all"] = statistics.median(times), times
+    out["profile"] = {**prof, "steps": 2}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"sharded_train_profile": out["profile"]}), flush=True)
+    del sharded, hist
+    torch.cuda.empty_cache()
+
+    # (n2) bench-mfu --dp 2 --sp 2: the ring over 4 ranks, K1 once a step
+    ran = [0]
+    chain = LongContextTrainer.train_chain
+
+    def counted(self, sampler, steps, *a, **k):
+        ran[0] += steps
+        return chain(self, sampler, steps, *a, **k)
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(LongContextTrainer, "train_chain", counted):
+        rc, text = run_cli(["bench-mfu", "--dp", "2", "--sp", "2"])
+    torch.cuda.synchronize()
+    rec = json.loads(text.strip().splitlines()[-1])
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps(rec), flush=True)
+    require(rc == 0 and rec["value"] is not None and 0 < rec["value"] < 1
+            and rec["virtual_ranks"] == 4 and (rec["dp"], rec["sp"]) == (2, 2)
+            and rec["device"] == card["name"] and ran[0] > 0,
+            f"bench-mfu --dp 2 --sp 2: {rec}, {ran[0]} steps")
+    take("bench-mfu --dp 2 --sp 2", ran[0], 1, 0)
+    out["bench_mfu"] = {k: rec[k] for k in ("value", "ms_per_step", "spread_pct",
+                                            "tflops_per_s", "peak_memory_gb", "virtual_ranks")}
+    out["bench_mfu"]["steps"] = ran[0]
+    torch.cuda.empty_cache()
+
+    # (n3) a small width: every mesh on the card against the CPU and the 1 x 1
+    small = list(lm_copy_task(SMALL_LM_SEQ, vocab=SMALL_LM["vocab"], seed=SEED).batches(
+        SMALL_LM_BATCH, SMALL_LM_STEPS))
+    kw = dict(**SMALL_LM, seq_len=SMALL_LM_SEQ, seed=SEED,
+              optimizer=lambda ps: torch.optim.SGD(ps, lr=SMALL_LM_LR))
+    cases = {
+        "ring_dp2_sp2": ((2, 2), dict(seq_impl="ring")),
+        "ulysses_dp2_sp2": ((2, 2), dict(seq_impl="ulysses")),
+        "tp_2x2x2": ((2, 2, 2), dict(seq_impl="ring")),
+        "tp_2x2x2_bf16": ((2, 2, 2), dict(seq_impl="ring", compress="bf16")),
+        "tp_2x2x2_int8": ((2, 2, 2), dict(seq_impl="ring", compress="int8")),
+        "tp_2x2x2_overlap": ((2, 2, 2), dict(seq_impl="ring", overlap=True)),
+    }
+
+    def mesh_of(shape, device):
+        return (data_seq_mesh(*shape, device=device) if len(shape) == 2
+                else data_seq_model_mesh(*shape, device=device))
+
+    def run(trainer, masked: bool):
+        rows = [trainer.train_step(x, y, [1.0, 0.0] if masked and i == 1 else None)
+                for i, (x, y) in enumerate(small)]
+        return [(r.loss, r.contributors) for r in rows], trainer.get_flat_params()
+
+    one = LongContextTrainer(**kw, device=dev)
+    init = one.get_flat_params()
+    base, base_params = run(one, False)
+    del one
+    zero(k1)
+    zero(k4)
+    out["small"] = {}
+    for name, (shape, ckw) in cases.items():
+        cpu = LongContextTrainer(mesh_of(shape, "cpu"), **kw, **ckw)
+        card_t = LongContextTrainer(mesh_of(shape, dev), **kw, **ckw)
+        for t in (cpu, card_t):
+            t.set_flat_params(init)
+        leaves = sum(not spec_axes(s) for s in card_t._specs.values())
+        per_step = (leaves if ckw.get("overlap") else 1) if "compress" not in ckw else 0
+        a, pa = run(card_t, True)
+        b, pb = run(cpu, True)
+        take(f"{name} on the card", SMALL_LM_STEPS, per_step, 0)
+        loss_err = max(abs(x[0] - y[0]) / abs(y[0]) for x, y in zip(a, b))
+        perr = float(np.abs(pa - pb).max() / np.abs(pb).max())
+        wire = ckw.get("compress")
+        tol = SMALL_LM_TOL if wire is None else WIRE_CARD_TOL
+        require([c for _, c in a] == [c for _, c in b] == [2.0, 1.0, 2.0]
+                and loss_err <= tol and perr <= tol,
+                f"{name}: card vs CPU losses {a} / {b}, params {perr} of max (tol {tol})")
+        card_t.set_flat_params(init)
+        c, pc = run(card_t, False)
+        take(f"{name} against the 1 x 1", SMALL_LM_STEPS, per_step, 0)
+        l1 = max(abs(x[0] - y[0]) / abs(y[0]) for x, y in zip(c, base))
+        d1 = float(np.abs(pc - base_params).max() / np.abs(base_params).max())
+        ltol, dtol = WIRE_BANDS.get(wire, (SMALL_LM_TOL, SMALL_LM_TOL))
+        require(l1 <= ltol and d1 <= dtol,
+                f"{name} vs the 1 x 1 on the card: losses {c} / {base}, drift {d1} "
+                f"(bands {ltol}, {dtol})")
+        out["small"][name] = {"card_vs_cpu_loss": loss_err, "card_vs_cpu_params": perr,
+                              "card_vs_cpu_tol": tol, "vs_1x1_loss": l1, "vs_1x1_drift": d1,
+                              "vs_1x1_bands": [ltol, dtol], "k1_per_step": per_step}
+        del cpu, card_t
+    torch.cuda.empty_cache()
+    print(json.dumps({"sharded_small": out["small"]}), flush=True)
+
+    # (n4) the commands
+    for name, argv in (
+            ("train_lm_tp_ulysses_bf16", ["train-lm", "--dp", "2", "--sp", "2", "--tp", "2",
+                                          "--impl", "ulysses", "--compress", "bf16"]),
+            ("train_lm_sp4_overlap", ["train-lm", "--dp", "2", "--sp", "4", "--overlap"])):
+        rc, text = run_cli(argv)
+        print(text, flush=True)
+        trend = re.search(r"loss (\S+) -> (\S+)", text)
+        require(rc == 0 and trend and float(trend.group(2)) < float(trend.group(1)),
+                f"{' '.join(argv)}: rc {rc}\n{text}")
+        out[name] = [float(trend.group(1)), float(trend.group(2))]
+        take(" ".join(argv), 1, None, 0)
+    rc, text = run_cli(["elastic-demo", "--family", "lc"])
+    print(text, flush=True)
+    require(rc == 0 and "8 ranks on" in text and "dp3 x sp2 (generation 1)" in text
+            and "dp2 x sp4 (generation 2)" in text,
+            f"elastic-demo --family lc: rc {rc}\n{text}")
+    take("elastic-demo --family lc", 1, None, 0)
+    out["elastic_demo"] = [ln for ln in text.splitlines() if "re-meshed" in ln]
+    print(f"DP x SP x TP training (the flagship over data_seq_model_mesh(2, 2, 2), Ulysses, "
+          f"bf16; {card['name']}, {card['power_limit']}): {out['step_ms']:.1f} ms a step "
+          f"(median of {len(times)}, host clock), peak memory {out['peak_memory_gb']:.2f} GB, "
+          f"device busy {out['profile']['busy_share'] * 100:.1f}%; vs the 1 x 1 step: loss "
+          f"{out['vs_1x1']['loss_rel_err']:.2e} relative, gradients "
+          f"{out['vs_1x1']['grad_err_of_max']:.2e} of max; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; bench-mfu --dp 2 --sp 2 {out['bench_mfu']['ms_per_step']} "
+          f"ms/step, MFU {out['bench_mfu']['value']} (one card), peak "
+          f"{out['bench_mfu']['peak_memory_gb']:.2f} GB", flush=True)
+    out["launches"] = launches
+    return out
+
+
 def live_state(trainer, clone: bool = False) -> dict:
     """Every tensor of a trainer's checkpoint state by key path, where it
     lies (on the card; Adam's step counters on the host): the shard-local
@@ -3215,8 +3495,9 @@ def checkpoint_path(dev, card: dict) -> dict:
     to ``DPTrainer``'s; bf16 + EF: the residual formula; saved over 8 ranks,
     restored over 4); resume equality through each of the four stores for
     ZeRO-1 in f32, ``DPTrainer`` on ``MLP(2048, 2048)`` with int8 + EF (the
-    plain ring, no K1) and the flagship LM in bf16 (K4's forward and backward
-    in every step); ``bench-checkpoint`` at the flagship for both stores and
+    plain ring, no K1) and the LM at the flagship's width, 1 layer, in bf16
+    (K4's forward and backward in every step); ``bench-checkpoint`` at that
+    width for both stores and
     for ``--trainer zero1``. Returns the launches and figures."""
     import shutil
     import tempfile
@@ -3368,7 +3649,7 @@ def checkpoint_path(dev, card: dict) -> dict:
             CKPT_LM_BATCH, 1 + CKPT_STEPS_AFTER))
 
         def lm(seed: int):
-            return LongContextTrainer(**LM, seq_len=LM_SEQ, compute_dtype=torch.bfloat16,
+            return LongContextTrainer(**CKPT_LM, seq_len=LM_SEQ, compute_dtype=torch.bfloat16,
                                       learning_rate=1e-3, seed=seed, device=dev)
 
         mark("d_dp")
@@ -3376,7 +3657,7 @@ def checkpoint_path(dev, card: dict) -> dict:
         la.train_step(*lm_batches[0])
         lb.train_step(*lm_batches[0])
         out["resume_lm_bf16"] = resume_cycles("lm_bf16", la, lb, lm_batches[1:], root)
-        lm_steps = LM["n_layers"] * (2 + 8 * CKPT_STEPS_AFTER)
+        lm_steps = CKPT_LM["n_layers"] * (2 + 8 * CKPT_STEPS_AFTER)
         require(since("d_dp") == (0, launched(lm_steps), launched(lm_steps))
                 and k4["flash_attention_3xtf32"] == 0,
                 f"LM resumes: K4's forward and backward once a layer a step, {dict(k4)}")
@@ -3384,9 +3665,10 @@ def checkpoint_path(dev, card: dict) -> dict:
         torch.cuda.empty_cache()
         mark("d")
 
-        # (e) bench-checkpoint at the flagship (both stores) and --trainer zero1
-        lm_flags = ["--d-model", str(LM["d_model"]), "--layers", str(LM["n_layers"]),
-                    "--seq-len", str(LM_SEQ), "--vocab", str(LM["vocab"]), "--bf16"]
+        # (e) bench-checkpoint at the flagship's width, 1 layer (both stores),
+        # and --trainer zero1
+        lm_flags = ["--d-model", str(CKPT_LM["d_model"]), "--layers", str(CKPT_LM["n_layers"]),
+                    "--seq-len", str(LM_SEQ), "--vocab", str(CKPT_LM["vocab"]), "--bf16"]
         zero1_flags = ["--trainer", "zero1", "--d-model", str(ZERO1_HIDDEN[0]),
                        "--layers", str(len(ZERO1_HIDDEN))]
         records = {}
@@ -3403,7 +3685,8 @@ def checkpoint_path(dev, card: dict) -> dict:
             rec = json.loads(text.strip().splitlines()[-1])
             print(json.dumps(rec), flush=True)
             steps = 1 + CKPT_BENCH_BASELINE + rec["steps_during_async_save"]
-            want = ((0, launched(LM["n_layers"] * steps), launched(LM["n_layers"] * steps))
+            want = ((0, launched(CKPT_LM["n_layers"] * steps),
+                     launched(CKPT_LM["n_layers"] * steps))
                     if label.startswith("lm") else (launched(steps), 0, 0))
             require(rc == 0 and rec["metric"] == "checkpoint_stall"
                     and rec["platform"] == card["name"]
@@ -4068,6 +4351,12 @@ def main() -> int:
     phase("moe_int8_path", t0, card=card["smi"], launches=mi["launches"],
           **{k: v for k, v in mi.items() if k != "launches"})
 
+    # -- 4n. sequence and tensor parallelism over virtual ranks ---------------------
+    t0 = time.perf_counter()
+    sq = sharded_lm_path(dev, card)
+    phase("sharded_lm_path", t0, card=card["smi"], launches=sq["launches"],
+          **{k: v for k, v in sq.items() if k not in ("launches", "profile")})
+
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
     k = K_WORKERS
@@ -4232,7 +4521,8 @@ def main() -> int:
 
     path_launches = {**launches, **ring_launches}
     path_launches["masked_average"] += dp_launches + el["launches"] + ch["launches"]
-    for part in (lm["launches"], train["launches"], ck["launches"], mi["launches"]):
+    for part in (lm["launches"], train["launches"], ck["launches"], mi["launches"],
+                 sq["launches"]):
         for name, n in part.items():
             path_launches[name] = path_launches.get(name, 0) + n
     kernels = []

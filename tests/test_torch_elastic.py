@@ -27,7 +27,7 @@ bit for bit (and ZeRO-1 with Adam across 8 -> 6 -> 8); the pure functions
 against JAX's; the policy-wire ladder and ZeRO-1's clamp; ``min_nodes``;
 back-to-back views; the refusals; a rebuild that raises leaves the old
 trainer and members untouched, and every build owns its module; the
-long-context wrapper on ``{0: [0], 1: []}``; config 5's record and
+long-context wrapper on ``{0: [0], 1: []}`` and on two ranks; config 5's record and
 ``elastic-demo`` on the CPU.
 
 The JAX trainers are built once, in the two module fixtures.
@@ -474,9 +474,12 @@ def test_long_context_wrapper_on_one_rank_and_a_control_node():
     assert e.poll() and e.member_nodes == (0, 1)
     np.testing.assert_array_equal(e.get_flat_params(), ref)
     assert np.isfinite(e.train_step(*next(ds.batches(1, 1, seed_offset=1))).loss)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ElasticLongContextTrainer({0: [0], 1: [1]}, seq_len=32, vocab=16, d_model=32,
-                                  n_heads=2, n_layers=1, device="cpu")
+    # two ranks: the (data, seq) mesh of the live ranks, sp 2 (the numerics
+    # of a cycle against JAX's in tests/test_torch_seq_parallel.py)
+    two = ElasticLongContextTrainer({0: [0], 1: [1]}, seq_len=32, vocab=16, d_model=32,
+                                    n_heads=2, n_layers=1, device="cpu")
+    assert (two.trainer.dp, two.trainer.sp, two.n_devices) == (1, 2, 2)
+    assert np.isfinite(two.train_step(*next(ds.batches(1, 1, seed_offset=2))).loss)
 
 
 def test_remesh_observability():
@@ -524,7 +527,12 @@ def test_elastic_demo_cli_on_the_cpu(capsys):
     assert cli_main(["elastic-demo", "--device", "cpu", "--family", "lc", "--steps", "10",
                      "--drop-at", "3", "--rejoin-at", "7", "--batch-per-device", "2"]) == 0
     out = capsys.readouterr().out
-    assert "dp1 x sp1 (generation 1)" in out and "final generation 2" in out
+    # 8 virtual ranks over 4 nodes, as the JAX demo splits its 8 CPU devices:
+    # the drop changes sp as well as dp
+    assert "elastic-demo: lc, 4 nodes, 8 ranks on cpu" in out
+    assert "re-meshed to 3 nodes / dp3 x sp2 (generation 1)" in out
+    assert "re-meshed to 4 nodes / dp2 x sp4 (generation 2)" in out
+    assert "final generation 2" in out
 
 
 def test_elastic_demo_moe_on_the_cpu(capsys):

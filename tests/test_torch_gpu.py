@@ -14,7 +14,11 @@ ranks) with K1 once a step, bit-equal to its continuation oracle, with no
 memory left behind by five more re-mesh cycles; and the int8 KV cache (K4
 once a layer at a gated prefill, none in decode, ``quantized_cache_attention``
 on the card against the CPU) and the MoE trainer (K4's forward and backward
-once a layer a step; a dense width's steps against the CPU's).
+once a layer a step; a dense width's steps against the CPU's); and the
+LM's trainer over virtual ranks: Ulysses over (data, seq, model) at a gated
+length launching K4's forward and backward once a layer for all 8 ranks and
+K1 once a step, and ring, Ulysses and TP steps on the card against the
+same steps on the CPU.
 
 Marked ``gpu``; without a card every test skips (decided in the ``card``
 fixture, never at import). Run on the card with
@@ -61,7 +65,12 @@ from akka_allreduce_tpu_torch.ops import flash_attention as fa
 from akka_allreduce_tpu_torch.ops import local_attention as la
 from akka_allreduce_tpu_torch.ops import local_reduce as lr
 from akka_allreduce_tpu_torch.ops import ring as rk
-from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
+from akka_allreduce_tpu_torch.parallel import (
+    data_seq_mesh,
+    data_seq_model_mesh,
+    grid_mesh,
+    line_mesh,
+)
 from akka_allreduce_tpu_torch.train import (
     AsyncDeltaCheckpointer,
     DPTrainer,
@@ -1222,3 +1231,55 @@ def test_moe_step_launches_k4_once_a_layer_and_a_small_width_matches_the_cpu(car
                 abs(getattr(b, key)), 1e-6), (key, a, b)
     want = cpu.get_flat_params()
     assert np.abs(on_card.get_flat_params() - want).max() <= MOE_SMALL_TOL * np.abs(want).max()
+
+
+# -- the LM's trainer over virtual ranks -----------------------------------------
+
+
+def test_sharded_training_step_folds_the_ranks_into_one_launch(card):
+    """Ulysses over (data, seq, model) = (2, 2, 2) at T 2048: each seq rank
+    attends over the whole sequence on its heads, all 8 ranks in one K4
+    launch a layer, forward and backward; the replicated gradient class
+    through K1 once a step; a masked replica row counts no contributor."""
+    trainer = LongContextTrainer(data_seq_model_mesh(2, 2, 2, device=card), vocab=32,
+                                 d_model=256, n_heads=4, n_layers=2, seq_len=2048,
+                                 seq_impl="ulysses", compute_dtype=torch.bfloat16,
+                                 learning_rate=1e-3)
+    x, y = next(SyntheticCopyLM(2048, vocab=32).batches(4, 1))
+    before_fa, before_k1 = dict(fa.LAUNCHES), lr.LAUNCHES["masked_average"]
+    m = trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_wgmma"] == before_fa["flash_attention_wgmma"] + 2
+    assert (fa.LAUNCHES["flash_attention_bwd_wgmma"]
+            == before_fa["flash_attention_bwd_wgmma"] + 2)
+    assert lr.LAUNCHES["masked_average"] == before_k1 + 1
+    assert np.isfinite(m.loss) and m.contributors == 2.0
+    assert trainer.train_step(x, y, valid=[1.0, 0.0]).contributors == 1.0
+
+
+@pytest.mark.parametrize("shape,kw", [((2, 2), dict(seq_impl="ring")),
+                                      ((2, 2), dict(seq_impl="ulysses")),
+                                      ((2, 2, 2), dict(seq_impl="ring")),
+                                      ((2, 2, 2), dict(seq_impl="ring", overlap=True))])
+def test_sharded_steps_on_the_card_match_the_cpu(card, shape, kw):
+    """Two SGD steps at a small width (dense attention: no K4) on the card
+    against the CPU from the same weights: losses within 1e-5 relative, the
+    parameters within 1e-5 of max|param|."""
+    mesh = data_seq_mesh if len(shape) == 2 else data_seq_model_mesh
+    cfg = dict(vocab=32, d_model=64, n_heads=4, n_layers=2, seq_len=128,
+               optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1), **kw)
+    on_card = LongContextTrainer(mesh(*shape, device=card), **cfg)
+    cpu = LongContextTrainer(mesh(*shape, device="cpu"), **cfg)
+    cpu.set_flat_params(on_card.get_flat_params())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i, (x, y) in enumerate(SyntheticCopyLM(128, vocab=32).batches(4, 2)):
+            valid = [1.0, 0.0] if i else None
+            a, b = on_card.train_step(x, y, valid), cpu.train_step(x, y, valid)
+            assert a.contributors == b.contributors
+            assert abs(a.loss - b.loss) <= 1e-5 * abs(b.loss)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    got, want = on_card.get_flat_params(), cpu.get_flat_params()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

@@ -20,7 +20,9 @@ port's trainer carrying the JAX trainer's initial weights
 - ``normalize_valid``, ``data_seq_mesh`` and ``mfu`` against the JAX
   copies; the device sampler's determinism and copy structure;
 - ``train-lm``, ``bench-mfu`` and ``lm-generate --train-steps`` at a tiny
-  width with ``--device cpu``, and the refusal of every flag not ported.
+  width with ``--device cpu``, ``train-lm``'s mesh, ``--compress`` and
+  ``--overlap`` flags and ``bench-mfu --dp 2 --sp 2`` (the record's
+  ``virtual_ranks``), and the refusal of what stays refused.
 
 The Adam hazard: a first Adam step is nearly a sign step, so a gradient
 entry near 0 with opposite signs on the two sides would move a parameter
@@ -227,14 +229,28 @@ def test_device_sampler_is_deterministic_copy_data():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    for kw, what in ((dict(compress="bf16"), "compress"), (dict(overlap=True), "overlap")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            LongContextTrainer(device="cpu", **kw)
+    """Compression, overlap and meshes above 1 x 1 are ported now: each
+    builds and steps on the CPU (their numerics against JAX's are in
+    ``tests/test_torch_seq_parallel.py`` and
+    ``tests/test_torch_tensor_parallel.py``); what stays refused is what the
+    JAX trainer refuses too."""
+    x = np.zeros((2, 16), np.int32)
+    for kw in (dict(compress="bf16"), dict(overlap=True), dict(compress="int8")):
+        trainer = LongContextTrainer(device="cpu", **SMALL, **kw)
+        assert np.isfinite(trainer.train_step(x, x).loss)
     cpu = torch.device("cpu")
     for mesh in (data_seq_mesh(2, 1, device="cpu"), data_seq_mesh(1, 2, device="cpu"),
                  RankMesh(("data", "seq", "model"), (1, 1, 2), cpu)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            LongContextTrainer(mesh, **SMALL)
+        trainer = LongContextTrainer(mesh, **SMALL)
+        assert trainer.n_devices == mesh.size and trainer.data_shards == mesh.sizes[0]
+        m = trainer.train_step(x, x)
+        assert np.isfinite(m.loss) and m.contributors == mesh.sizes[0]
+    with pytest.raises(ValueError, match="overlap excludes compress='int8'"):
+        LongContextTrainer(device="cpu", compress="int8", overlap=True)
+    with pytest.raises(ValueError, match="compress must be"):
+        LongContextTrainer(device="cpu", compress="f16")
+    with pytest.raises(ValueError, match="not divisible by seq shards"):
+        LongContextTrainer(data_seq_mesh(1, 3, device="cpu"), **SMALL)
     with pytest.raises(ValueError, match="seq_impl"):
         LongContextTrainer(device="cpu", seq_impl="flash")
     with pytest.raises(ValueError, match=r"\(data, seq"):
@@ -282,9 +298,18 @@ def test_train_lm_cli_on_the_cpu(capsys, tmp_path):
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
                                   ["--compress", "bf16"], ["--overlap"]])
 def test_train_lm_refuses_what_is_not_ported(capsys, flag):
-    with pytest.raises(SystemExit):
-        cli_main(["train-lm", "--device", "cpu", *flag])
-    assert "not ported yet" in capsys.readouterr().err
+    """Each flag the port refused before runs on the CPU now; ``--tp`` needs
+    ``--dp`` and ``--sp``, with the JAX command's error."""
+    if flag[0] == "--tp":
+        with pytest.raises(SystemExit):
+            cli_main(["train-lm", "--device", "cpu", *flag])
+        assert "--tp requires explicit --dp and --sp" in capsys.readouterr().err
+        flag = [*flag, "--dp", "1", "--sp", "2"]
+    assert cli_main(["train-lm", *TINY, "--steps", "2", *flag]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    dp, sp, tp = (int(dict(zip(flag[::2], flag[1::2])).get(f, 1)) for f in ("--dp", "--sp", "--tp"))
+    assert f"dp={dp} x sp={sp} x tp={tp}" in lines[0]
+    assert lines[1].startswith(f"lm_ring: 2 steps over {dp * sp * tp} virtual ranks")
 
 
 def test_bench_mfu_cli_on_the_cpu(capsys, monkeypatch):
@@ -294,7 +319,12 @@ def test_bench_mfu_cli_on_the_cpu(capsys, monkeypatch):
     assert rec["metric"].startswith("lm_mfu") and rec["value"] is None  # no peak
     assert rec["platform"] == "cpu" and rec["device"] == "cpu" and rec["power_limit"] is None
     assert rec["ms_per_step"] > 0 and rec["batch"] == 2 and rec["seq_len"] == 16
-    for flag in (["--workload", "fsdp"], ["--dp", "2"], ["--sp", "2"]):
+    assert (rec["dp"], rec["sp"], rec["virtual_ranks"]) == (1, 1, 1)
+    assert cli_main(["bench-mfu", *TINY, "--dp", "2", "--sp", "2"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["dp"], rec["sp"], rec["virtual_ranks"], rec["seq_impl"]) == (2, 2, 4, "ring")
+    assert rec["ms_per_step"] > 0 and rec["batch"] == 2 and rec["value"] is None
+    for flag in (["--workload", "fsdp"], ["--workload", "mlp", "--dp", "2"]):
         with pytest.raises(SystemExit):
             cli_main(["bench-mfu", "--device", "cpu", *flag])
         assert "not ported yet" in capsys.readouterr().err
