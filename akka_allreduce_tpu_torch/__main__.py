@@ -19,17 +19,19 @@ Commands:
   ``path``).
 - ``lm-generate [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
   [--layers N] [--batch N] [--prompt-len N] [--gen N] [--temperature X]
-  [--train-steps N] [--seq-len N] [--bf16] [--cache-quant int8] [--device
-  cpu]`` — KV-cache decoding of a Transformer LM with seeded random weights
-  (``--cache-quant int8``: the int8 cache with per-row scales), or, with
+  [--train-steps N] [--seq-len N] [--bf16] [--cache-quant int8] [--sp N]
+  [--tp N] [--device cpu]`` — KV-cache decoding of a Transformer LM with
+  seeded random weights (``--cache-quant int8``: the int8 cache with
+  per-row scales), or, with
   ``--train-steps``, after that many copy-task training steps on the card
   (``LongContextTrainer.train_chain`` at ``--seq-len``; the copy accuracy is
   printed when ``--prompt-len`` is ``seq_len / 2 + 1``): prints the generated
   tokens, the ``decode: X ms/token`` line (slope between two generation
   lengths) and one JSON record with ``prefill_ms``, the prefill's model
-  TFLOP/s and MFU, ``ms_per_token``, ``cache_quant``, ``device`` and
-  ``power_limit``. ``--sp`` and ``--tp`` (sharded decode) are not ported
-  yet and are refused (ROADMAP item 10).
+  TFLOP/s and MFU, ``ms_per_token``, ``cache_quant``, ``sp``, ``tp``,
+  ``device`` and ``power_limit``. ``--sp``/``--tp`` decode over a (seq,
+  model) mesh of virtual ranks on the one card (``LMGenerator(mesh=...)``),
+  ``max_len`` rounded up to whole slots a seq rank.
 - ``train-lm [--steps N] [--batch N] [--lr X] [--seq-len N] [--dp N] [--sp
   N] [--tp N] [--impl ring|ulysses] [--vocab N] [--d-model N] [--heads N]
   [--kv-heads N] [--layers N] [--compress bf16|int8] [--overlap]
@@ -78,12 +80,13 @@ Commands:
 - ``train-moe [--steps N] [--batch N] [--lr X] [--seq-len N] [--experts N]
   [--capacity-factor X] [--topk 1|2] [--mu-bf16] [--dispatch
   auto|einsum|scatter] [--vocab N] [--d-model N] [--heads N] [--kv-heads N]
-  [--layers N] [--impl ring|ulysses] [--device-data] [--device cpu]`` — the
-  Switch/GShard MoE LM (f32) on the copy task with ``MoETrainer`` on one
+  [--layers N] [--dp N] [--ep N] [--sp N] [--impl ring|ulysses] [--compress
+  bf16|int8] [--overlap] [--device-data] [--device cpu]`` — the
+  Switch/GShard MoE LM (f32) on the copy task with ``MoETrainer`` over a
+  ``(data,)`` mesh of ``--dp`` virtual ranks (1 by default), ``(data,
+  expert)`` with ``--ep`` or ``(data, seq, expert)`` with ``--sp``, on one
   card; prints the parameter count and mesh, then the step time, MFU (on
-  the active parameters) and the loss, aux and dropped trend. ``--dp``,
-  ``--ep`` or ``--sp`` above 1, ``--compress`` and ``--overlap`` are not
-  ported yet and are refused.
+  the active parameters) and the loss, aux and dropped trend.
 - ``bench-mfu [--workload lm|mlp|resnet|moe] ...`` — the slope-timed MFU
   record of ``bench_mfu.py`` (the flagship LM by default).
 - ``cluster-master``, ``cluster-node``, ``cluster-standby``, ``bench-wire``
@@ -108,9 +111,9 @@ Commands:
 - ``elastic-demo [--family dp|lc|moe] [--nodes N] [--steps N] [--drop-at K]
   [--rejoin-at K] [--batch-per-device N] [--device cpu]`` — config 5's
   re-mesh cycle: the last node goes silent and its ranks leave the mesh
-  (dp and lc: 8 virtual ranks split over the nodes, so 4 nodes drop 8 -> 6
-  and lc's mesh goes from dp 2 x sp 4 to dp 3 x sp 2), then rejoins; moe
-  runs one node of one rank beside zero-rank nodes.
+  (8 virtual ranks split over the nodes, so 4 nodes drop 8 -> 6: lc's mesh
+  goes from dp 2 x sp 4 to dp 3 x sp 2, moe's from dp 2 x ep 4 to dp 3 x ep
+  2), then rejoins.
   ``--family pp`` is refused (not ported yet).
 - ``chaos``, ``chaos-recover``, ``chaos-gossip``, ``chaos-scale``,
   ``chaos-failover``, ``chaos-adapt``, ``chaos-train`` (and its node role
@@ -209,6 +212,21 @@ def _cmd_bench(argv: list[str]) -> int:
     return 0
 
 
+def _add_sharded_compress_flag(p: argparse.ArgumentParser) -> None:
+    """--compress/--overlap for the sharded-parameter trainers (train-lm, train-moe)."""
+    p.add_argument(
+        "--compress", choices=("bf16", "int8"), default=None,
+        help="gradient wire compression: bf16 sums each sharding class at half "
+        "width; int8 rides the ring (per-segment scales) over each class's "
+        "reduce axes in turn",
+    )
+    p.add_argument(
+        "--overlap", action="store_true",
+        help="one gradient sync a parameter leaf inside the backward, each over "
+        "the leaf's replication axes; composes with --compress bf16",
+    )
+
+
 def _cmd_lm_generate(argv: list[str]) -> int:
     p = argparse.ArgumentParser(
         "lm-generate",
@@ -247,18 +265,21 @@ def _cmd_lm_generate(argv: list[str]) -> int:
         help="quantize the KV cache to int8 + per-row scales (4x fewer "
         "cache bytes than f32; ~0.4%% per-element error)",
     )
-    # the JAX command's options that need parts not ported yet
-    p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--tp", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument(
+        "--sp", type=int, default=1,
+        help="sequence-sharded decode: shard the KV cache's SLOT dim over "
+        "an sp-rank 'seq' mesh axis of virtual ranks (split-K partial-softmax merge)",
+    )
+    p.add_argument(
+        "--tp", type=int, default=1,
+        help="tensor-parallel decode over a 'model' mesh axis of virtual ranks "
+        "(composes with --sp)",
+    )
     args = p.parse_args(argv)
-    for flag, value, what in (
-        ("--sp", args.sp, "sequence-sharded decode"),
-        ("--tp", args.tp, "tensor-parallel decode"),
-    ):
-        if value != 1:
-            p.error(f"{flag} is not ported yet ({what}; ROADMAP item 10)")
     if args.gen < 2:
         p.error("--gen must be >= 2 (the slope timing needs two lengths)")
+    if args.sp < 1 or args.tp < 1:
+        p.error("--sp and --tp must be >= 1")
 
     import json
     import statistics
@@ -312,7 +333,15 @@ def _cmd_lm_generate(argv: list[str]) -> int:
     x, _ = next(SyntheticCopyLM(seq_len, vocab=args.vocab).batches(
         args.batch, 1, seed_offset=123))
     prompt = torch.from_numpy(x[:, : args.prompt_len]).to(dev)
-    gen = LMGenerator(model, max_len=args.prompt_len + args.gen, cache_quant=args.cache_quant)
+    mesh = None
+    if args.sp > 1 or args.tp > 1:
+        from akka_allreduce_tpu_torch.parallel import RankMesh
+
+        axes = [(n, k) for n, k in (("seq", args.sp), ("model", args.tp)) if k > 1]
+        mesh = RankMesh(tuple(n for n, _ in axes), tuple(k for _, k in axes), dev)
+    max_len = args.prompt_len + args.gen
+    max_len = -(-max_len // args.sp) * args.sp  # whole slots per seq shard
+    gen = LMGenerator(model, max_len=max_len, cache_quant=args.cache_quant, mesh=mesh)
 
     def sync() -> None:
         if dev.type == "cuda":
@@ -334,14 +363,13 @@ def _cmd_lm_generate(argv: list[str]) -> int:
     slopes = [(timed(args.gen) - timed(lo)) / (args.gen - lo) for _ in range(5)]
     ms_per_tok = statistics.median(slopes) * 1e3
     prefill = []
-    with torch.no_grad():
-        for _ in range(3):
-            cache = gen.init_cache(args.batch)
-            sync()
-            t0 = time.perf_counter()
-            model(prompt, cache)
-            sync()
-            prefill.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(3):
+        cache = gen.init_cache(args.batch)
+        sync()
+        t0 = time.perf_counter()
+        gen.step(cache, prompt)
+        sync()
+        prefill.append((time.perf_counter() - t0) * 1e3)
     prefill_ms = statistics.median(prefill)
     prefill_flops = transformer_forward_flops(
         n_params=sum(p.numel() for p in model.parameters()), batch=args.batch,
@@ -392,6 +420,8 @@ def _cmd_lm_generate(argv: list[str]) -> int:
         "layers": args.layers,
         "compute_dtype": "bfloat16" if args.bf16 else "float32",
         "cache_quant": args.cache_quant,
+        "sp": args.sp,
+        "tp": args.tp,
         "temperature": args.temperature,
         **device_fields(dev),
     }
@@ -462,17 +492,7 @@ def _cmd_train_lm(argv: list[str]) -> int:
         help="recompute each block in the backward (activation memory for "
         "one more forward)",
     )
-    p.add_argument(
-        "--compress", choices=("bf16", "int8"), default=None,
-        help="gradient wire compression: bf16 sums each sharding class at half "
-        "width; int8 rides the ring (per-segment scales) over each class's "
-        "reduce axes in turn",
-    )
-    p.add_argument(
-        "--overlap", action="store_true",
-        help="one gradient sync a parameter leaf inside the backward, each over "
-        "the leaf's replication axes; composes with --compress bf16",
-    )
+    _add_sharded_compress_flag(p)
     p.add_argument(
         "--device", default=None,
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
@@ -524,13 +544,23 @@ def _cmd_train_lm(argv: list[str]) -> int:
 def _cmd_train_moe(argv: list[str]) -> int:
     p = argparse.ArgumentParser(
         "train-moe",
-        description="Switch/GShard MoE LM on the copy task, one card (MoETrainer "
-        "on a one-rank mesh)",
+        description="MoE LM with expert parallelism over virtual ranks on one card: DP x "
+        "EP over a (data, expert) mesh, or DP x SP x EP with --sp",
     )
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--batch", type=int, default=8, help="global batch size")
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--seq-len", type=int, default=64)
+    p.add_argument("--dp", type=int, default=None, help="data-parallel rows (default 1)")
+    p.add_argument("--ep", type=int, default=1, help="expert-parallel shards")
+    p.add_argument(
+        "--sp", type=int, default=1,
+        help="sequence-parallel shards (3-axis data x seq x expert mesh)",
+    )
+    p.add_argument(
+        "--impl", choices=("ring", "ulysses"), default="ring",
+        help="attention schedule over the seq axis (with --sp > 1)",
+    )
     p.add_argument("--experts", type=int, default=4)
     p.add_argument("--capacity-factor", type=float, default=1.25)
     p.add_argument(
@@ -559,28 +589,12 @@ def _cmd_train_moe(argv: list[str]) -> int:
         "--device-data", action="store_true",
         help="sample batches on the device inside one chain",
     )
-    p.add_argument("--impl", choices=("ring", "ulysses"), default="ring",
-                   help="attention schedule over the seq axis (the same at sp 1)")
+    _add_sharded_compress_flag(p)
     p.add_argument(
         "--device", default=None,
         help="'cpu' runs the plain PyTorch path; default: the CUDA card",
     )
-    # the JAX command's options that need parts not ported yet
-    p.add_argument("--dp", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--ep", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--compress", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--overlap", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    for flag, value, ok, what in (
-        ("--dp", args.dp, (None, 1), "data parallelism needs several ranks"),
-        ("--ep", args.ep, (1,), "expert parallelism needs several ranks"),
-        ("--sp", args.sp, (1,), "sequence parallelism needs several ranks"),
-        ("--compress", args.compress, (None,), "gradient wire compression"),
-        ("--overlap", args.overlap, (False,), "per-leaf gradient collectives"),
-    ):
-        if value not in ok:
-            p.error(f"{flag} is not ported yet ({what}; ROADMAP item 10)")
 
     import time
 
@@ -588,6 +602,7 @@ def _cmd_train_moe(argv: list[str]) -> int:
 
     from akka_allreduce_tpu_torch._device import resolve_device
     from akka_allreduce_tpu_torch.models import lm_copy_task
+    from akka_allreduce_tpu_torch.parallel import data_seq_model_mesh, grid_mesh, line_mesh
     from akka_allreduce_tpu_torch.train import MoETrainer
     from akka_allreduce_tpu_torch.utils.benchmarking import (
         moe_active_params,
@@ -595,12 +610,22 @@ def _cmd_train_moe(argv: list[str]) -> int:
     )
 
     dev = resolve_device(args.device)
+    dp = args.dp or 1  # the JAX default, every device over ep x sp, on one card
+    if args.sp > 1:
+        mesh = data_seq_model_mesh(dp, args.sp, args.ep, axes=("data", "seq", "expert"),
+                                   device=dev)
+    elif args.ep > 1:
+        mesh = grid_mesh(dp, args.ep, axes=("data", "expert"), device=dev)
+    else:
+        mesh = line_mesh(dp, axis="data", device=dev)
     trainer = MoETrainer(
+        mesh,
         vocab=args.vocab, d_model=args.d_model, n_heads=args.heads,
         n_kv_heads=args.kv_heads, n_layers=args.layers, n_experts=args.experts,
         seq_len=args.seq_len, capacity_factor=args.capacity_factor, router_topk=args.topk,
-        seq_impl=args.impl, learning_rate=args.lr, dispatch_impl=args.dispatch,
-        mu_dtype=torch.bfloat16 if args.mu_bf16 else None, device=dev,
+        seq_impl=args.impl, learning_rate=args.lr, compress=args.compress,
+        overlap=args.overlap, dispatch_impl=args.dispatch,
+        mu_dtype=torch.bfloat16 if args.mu_bf16 else None,
     )
     print(f"MoE params: {trainer.param_count / 1e6:.2f}M ({args.experts} experts), mesh "
           f"dp={trainer.dp} x sp={trainer.sp} x ep={trainer.ep}", flush=True)
@@ -1272,9 +1297,9 @@ def _cmd_elastic_demo(argv: list[str]) -> int:
     p.add_argument("--rejoin-at", type=int, default=20, help="step it comes back")
     p.add_argument(
         "--family", choices=("dp", "moe", "pp", "lc"), default="dp",
-        help="which elastic trainer rides the cycle: dp = the MLP's DPTrainer over "
-        "8 virtual ranks split across the nodes; lc and moe = the long-context or "
-        "the MoE LM on one node of one rank beside zero-rank nodes; pp is not "
+        help="which elastic trainer rides the cycle over 8 virtual ranks split "
+        "across the nodes: dp = the MLP's DPTrainer, lc = the long-context LM "
+        "(its mesh dp x sp), moe = the MoE LM (its mesh dp x ep); pp is not "
         "ported yet",
     )
     p.add_argument(
@@ -1313,8 +1338,7 @@ def _cmd_elastic_demo(argv: list[str]) -> int:
         fam_kw = dict(vocab=16, d_model=32, n_heads=2, learning_rate=1e-2, seed=0,
                       clock=lambda: now["t"], device=device)
         ds = lm_copy_task(32, vocab=16)
-        if args.family == "moe":  # the port's MoE trainer takes one rank (item 10)
-            assignment = {n: [0] if n == 0 else [] for n in range(args.nodes)}
+        if args.family == "moe":
             trainer = ElasticMoETrainer(assignment, n_experts=4, n_layers=1, seq_len=32,
                                         capacity_factor=4.0, **fam_kw)
             batch_rows = lambda t: t.dp * t.ep * args.batch_per_device  # noqa: E731

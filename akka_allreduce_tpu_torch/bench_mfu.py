@@ -378,7 +378,8 @@ def main(argv: list[str] | None = None) -> int:
     for flag, value in (("--dp", args.dp), ("--sp", args.sp)):
         if value not in (None, 1) and args.workload != "lm":
             p.error(f"{flag} is the lm workload's mesh; the {args.workload} workload "
-                    "takes none (MoE over ranks is not ported yet, ROADMAP item 10)")
+                    "takes none (as in the JAX bench, the MoE mesh is every device on "
+                    "one data axis: one card)")
     if args.mu_bf16 and args.workload != "moe":
         p.error("--mu-bf16 is the MoE optimizer knob; moe workload only")
     if args.capacity_factor is not None and args.workload != "moe":

@@ -358,7 +358,10 @@ def config5_dropout_recovery(
     ``ElasticMoETrainer`` (4 experts, capacity factor 4.0) and
     ``ElasticLongContextTrainer`` (both vocab 16, d_model 32, 2 heads,
     seq_len 32, 1 layer), over ``{0: [rank], 1: []}``: one rank on the
-    device and a zero-rank control node that drops and rejoins."""
+    device and a zero-rank control node that drops and rejoins; the MoE
+    tier over 4 nodes of 2 ranks, the last of which drops and rejoins (the
+    JAX suite's assignment on several devices: its (data, expert) mesh goes
+    2 x 4 -> 3 x 2 -> 2 x 4)."""
     dev = resolve_device(device)
     n, rounds = 4, 10
     run = local_engine(size, nodes=n, chunk=16_384, rounds=rounds, th=0.75,
@@ -390,10 +393,12 @@ def config5_dropout_recovery(
     lm_ds = lm_copy_task(32, vocab=16)
     fam_kw = dict(vocab=16, d_model=32, n_heads=2, learning_rate=1e-2, seed=0, clock=now,
                   device=dev)
+    # the MoE tier over the JAX suite's multi-device assignment: 4 nodes of 2
+    # ranks, the last one lost, so the mesh goes (data, expert) 2 x 4 -> 3 x 2
     moe = remesh_cycle(
-        ElasticMoETrainer(assignment, n_experts=4, n_layers=1, seq_len=32,
-                          capacity_factor=4.0, **fam_kw),
-        clock, lost, lambda t, s: next(lm_ds.batches(t.dp * t.ep, 1, seed_offset=s)))
+        ElasticMoETrainer({k: [2 * k, 2 * k + 1] for k in range(4)}, n_experts=4,
+                          n_layers=1, seq_len=32, capacity_factor=4.0, **fam_kw),
+        clock, 3, lambda t, s: next(lm_ds.batches(t.dp * t.ep, 1, seed_offset=s)))
     lc = remesh_cycle(
         ElasticLongContextTrainer(assignment, seq_len=32, max_sp=4, n_layers=1, **fam_kw),
         clock, lost, lambda t, s: next(lm_ds.batches(t.dp, 1, seed_offset=s)))

@@ -643,6 +643,13 @@ def _ring_axis(g: torch.Tensor, mesh: RankMesh, axis: str, compress: str) -> tor
     return out.reshape(shape).movedim(0, mesh.dim(axis))
 
 
+def _k1_class(mesh: RankMesh, reduce_over: Axes, wire, dtype: torch.dtype) -> bool:
+    """Whether a class's sum is K1's: f32 on the wire, over every axis of a
+    mesh of several ranks."""
+    return (wire is None and dtype == torch.float32 and mesh.size > 1
+            and set(reduce_over) == set(mesh.axis_names))
+
+
 def _class_sum(g: torch.Tensor, mesh: RankMesh, reduce_over: Axes, wire,
                valid: torch.Tensor | None = None) -> torch.Tensor:
     """Sum the grid-form stack ``g`` (*mesh.sizes, P) over ``reduce_over``
@@ -655,8 +662,7 @@ def _class_sum(g: torch.Tensor, mesh: RankMesh, reduce_over: Axes, wire,
         for ax in reduce_over:
             total = _ring_axis(total, mesh, ax, "int8")
         return total.to(g.dtype)
-    if (wire is None and g.dtype == torch.float32 and mesh.size > 1
-            and set(reduce_over) == set(mesh.axis_names)):
+    if _k1_class(mesh, reduce_over, wire, g.dtype):
         v = torch.ones(mesh.size, device=g.device) if valid is None else valid
         avg, count = masked_average(g.reshape(mesh.size, -1).contiguous(), v)
         return (avg * count).reshape(*([1] * len(mesh.sizes)), -1)
@@ -678,9 +684,12 @@ def grouped_tree_psum(
 
     Each leaf is summed over the axes of ``axis_names`` (default every
     axis) its spec does not shard over. Leaves are grouped by (reduce axes,
-    dtype) and each group concatenated, rank by rank in leaf order, into one
+    dtype); a class whose collective sees the whole class, K1's and the int8
+    ring's, is concatenated, rank by rank in leaf order, into one
     ``(*mesh.sizes, P_class)`` buffer: one collective a class, never one a
-    leaf. ``wire_dtype``: None (f32; a class over every axis goes through
+    leaf. Any other class is an elementwise sum, taken leaf by leaf (the
+    same values as over one buffer, without copying the class's per-rank
+    gradients). ``wire_dtype``: None (f32; a class over every axis goes through
     K1, one launch on the card), ``"bf16"``/``torch.bfloat16`` (each rank's
     payload cast, summed, the sum rounded once, as XLA's bf16 all-reduce on
     the CPU), or ``"int8"`` (the plain ring over each reduce axis in turn,
@@ -696,11 +705,20 @@ def grouped_tree_psum(
         groups.setdefault((reduce_over, g.dtype), []).append(name)
     k = len(mesh.sizes)
     out = {}
-    for (reduce_over, _), group in groups.items():
+    for (reduce_over, dtype), group in groups.items():
         if not reduce_over or (wire is None
                                and math.prod(mesh.shape[a] for a in reduce_over) == 1):
             for name in group:
                 out[name] = rank_unview(grads[name], specs[name], mesh)
+            continue
+        if wire != "int8" and not _k1_class(mesh, reduce_over, wire, dtype):
+            # an elementwise sum: leaf by leaf it is the class buffer's, bit
+            # for bit, without a copy of the class's per-rank gradients
+            for name in group:
+                g = grads[name]
+                total = _class_sum(g.reshape(*mesh.sizes, -1), mesh, reduce_over, wire)
+                out[name] = rank_unview(total.reshape(*total.shape[:k], *g.shape[k:]),
+                                        specs[name], mesh)
             continue
         flat = torch.cat([grads[n].reshape(*mesh.sizes, -1) for n in group], dim=k)
         total = _class_sum(flat, mesh, reduce_over, wire)

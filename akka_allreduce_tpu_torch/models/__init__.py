@@ -25,7 +25,9 @@ from akka_allreduce_tpu_torch.models.transformer import (
     KVCache,
     MoEBlock,
     MoETransformerLM,
+    RankKVCache,
     TransformerLM,
+    ep_param_specs,
     rope,
     tp_param_specs,
 )
@@ -39,11 +41,13 @@ __all__ = [
     "MLP",
     "MoEBlock",
     "MoETransformerLM",
+    "RankKVCache",
     "ResNet",
     "ResNet50",
     "SyntheticClassification",
     "SyntheticCopyLM",
     "TransformerLM",
+    "ep_param_specs",
     "tp_param_specs",
     "imagenet_like",
     "lm_copy_task",

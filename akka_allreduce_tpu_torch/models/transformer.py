@@ -48,9 +48,9 @@ gated length runs K4. The gate takes the cache's full length, as the JAX
 gate does.
 
 :class:`MoEBlock` and :class:`MoETransformerLM` are the Switch/GShard
-mixture-of-experts LM on one device (``ops.moe``, ``ep_size`` 1): each
-returns its output with the load-balancing loss and the dropped fraction,
-the LM both averaged over its layers.
+mixture-of-experts LM (``ops.moe``): each returns its output with the
+load-balancing loss and the dropped fraction, the LM both averaged over its
+layers.
 
 Sequence and tensor parallelism over virtual ranks (``seq_axis``,
 ``seq_impl``, ``model_axis``, ``tp_size``, as the JAX modules take them):
@@ -68,8 +68,12 @@ positions start at ``seq_rank * T_local``; q/k/v project ``H/tp`` and
 shard); the out-projection and ``mlp_down`` give partial sums that one psum
 over ``model_axis`` completes (``RankMesh.psum``: its backward broadcasts
 the cotangent summed over the group, the transpose of the sum), and
-``out_bias``/``mlp_bias`` are added after it. Decode with a mesh is not
-ported yet (ROADMAP item 10); expert parallelism neither.
+``out_bias``/``mlp_bias`` are added after it. Decode over a mesh
+(:meth:`TransformerLM.decode_ranks`, ``models.generate.LMGenerator`` with
+a mesh) takes each rank's cache of a :class:`RankKVCache`: its ``H_kv/tp``
+heads and, over ``seq``, its ``max_len/sp`` slots. The MoE LM's rank mode
+adds ``expert_axis`` (:func:`ep_param_specs`, the ``all_to_all`` pair of
+``ops.moe``).
 """
 
 from __future__ import annotations
@@ -213,6 +217,70 @@ class KVCache:
         return self.k_scale is not None
 
 
+@dataclass
+class RankKVCache(KVCache):
+    """The caches of every virtual rank of a decode mesh: per layer, rank
+    stacks (R, B, max_len / sp, H_kv / tp, D) (the scales (R, B, max_len /
+    sp, H_kv / tp)), rank r holding the slots of its ``seq`` shard and the
+    K/V heads of its ``model`` shard; ``seq_shards`` is sp, so ``max_len``
+    is the global slot count."""
+
+    seq_shards: int = 1
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[2] * self.seq_shards
+
+
+def _write_slots(cache: torch.Tensor, chunk: torch.Tensor, mesh: RankMesh,
+                 seq_axis: str | None, offset: int) -> None:
+    """Write a rank stack ``chunk`` (R, B, t, ...) at global slots
+    ``[offset, offset + t)`` of a rank cache (R, B, L_local, ...). With
+    ``seq_axis`` each token lands only in the rank whose slots hold its
+    position, taken from that rank's own row (the JAX scatter drops the
+    others), also where the chunk spans ranks."""
+    t = chunk.shape[2]
+    if seq_axis is None:
+        cache[:, :, offset:offset + t] = chunk
+        return
+    l_local, dim, k = cache.shape[2], mesh.dim(seq_axis), len(mesh.sizes)
+    dst, src = mesh.grid(cache), mesh.grid(chunk)
+    for s in range(mesh.shape[seq_axis]):
+        lo, hi = max(offset, s * l_local), min(offset + t, (s + 1) * l_local)
+        if lo < hi:  # after select, B is dim k - 1 and the slots dim k
+            dst.select(dim, s).narrow(k, lo - s * l_local, hi - lo).copy_(
+                src.select(dim, s).narrow(k, lo - offset, hi - lo))
+
+
+def _int8_attend(q, ck, cks, cv, cvs, offset: int, max_len: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Attend a chunk ``q`` (B, t, H, D) at ``offset`` over the live slots of
+    an int8 cache whose chunk is written: fused over the int8 payloads
+    (``quantized_cache_attention``), or through ``local_attention`` over one
+    dequantized copy in ``dtype``, by the JAX gate on the cache's full
+    length ``max_len``."""
+    t = q.shape[1]
+    live = slice(0, offset + t)
+    heads, kv_heads, head = q.shape[2], ck.shape[2], ck.shape[3]
+    score_b = 4 * heads * t
+    dequant_b = 2 * kv_heads * head * (torch.finfo(dtype).bits // 8)
+    dense_max = attention_ops._DENSE_MAX_T
+    if t == 1 or score_b <= dequant_b or t * max_len <= dense_max * dense_max:
+        return attention_ops.quantized_cache_attention(
+            q, ck[:, live], cks[:, live], cv[:, live], cvs[:, live], q_offset=offset)
+
+    def dequant(c, s):
+        return c[:, live].to(dtype) * s[:, live, :, None].to(dtype)
+
+    return attention_ops.local_attention(
+        q, dequant(ck, cks), dequant(cv, cvs), causal=True, q_offset=offset)
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """A rank stack (R, B, ...) as one batch (R·B, ...)."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
 def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per (token, head) row int8 quantization of ``x`` (..., D): the
     payload ``clip(round(x / s), -127, 127)`` and the f32 scale ``s =
@@ -279,7 +347,13 @@ class Attention(nn.Module):
         if cache is None:
             out = attention_ops.local_attention(q, k, v, causal=True)
         elif cache.quantized:
-            out = self._int8_cache_attention(q, k, v, cache, layer, offset)
+            t = x.shape[1]
+            ck, cv = cache.k[layer], cache.v[layer]
+            cks, cvs = cache.k_scale[layer], cache.v_scale[layer]
+            (kq, ks), (vq, vs) = quantize(k), quantize(v)
+            ck[:, offset:offset + t], cks[:, offset:offset + t] = kq, ks
+            cv[:, offset:offset + t], cvs[:, offset:offset + t] = vq, vs
+            out = _int8_attend(q, ck, cks, cv, cvs, offset, cache.max_len, k.dtype)
         else:
             t = x.shape[1]
             ck, cv = cache.k[layer], cache.v[layer]
@@ -330,32 +404,56 @@ class Attention(nn.Module):
             y = mesh.psum(y, self.model_axis)
         return y + _rank_vector(p["out_bias"], y).to(y.dtype)
 
-    def _int8_cache_attention(self, q, k, v, cache: KVCache, layer: int,
-                              offset: int) -> torch.Tensor:
-        """Write the chunk's quantized K/V and scales at ``offset``, then
-        attend over the live slots: fused over the int8 payloads, or through
-        ``local_attention`` over one dequantized copy (the JAX gate, on the
-        cache's full length)."""
-        t = q.shape[1]
-        live = slice(0, offset + t)
+    def decode_ranks(self, x: torch.Tensor, p: dict, mesh: RankMesh, cache: RankKVCache,
+                     layer: int, *, seq_axis: str | None,
+                     model_axis: str | None) -> torch.Tensor:
+        """The decode branch of every rank: the chunk ``x`` (R, B, t, d),
+        the same tokens on every rank, at the cache's index. Each rank
+        projects its query and K/V heads, rope from the index, writes its
+        K/V (int8 payloads and scales when quantized) into its cache slots
+        (:func:`_write_slots`), then attends: with ``seq_axis`` over every
+        rank's slots through ``seq_decode_attention`` (int8 or not, as the
+        JAX branch), else over its live slots as on one device (the ranks
+        folded into the batch: one K4 launch for all at a gated prefill).
+        The out-projection's partial sums are psummed over ``model_axis``
+        before ``out_bias``."""
+        r, b, t, _ = x.shape
+        offset = cache.index
+
+        def proj(name: str) -> torch.Tensor:
+            kernel = p[f"{name}_kernel"]
+            y = _rank_dense(x, kernel.reshape(r, kernel.shape[1], -1),
+                            p[f"{name}_bias"].reshape(r, -1), self.dtype)
+            y = y.reshape(r * b, t, kernel.shape[2], kernel.shape[3])
+            return rope(y, offset) if name != "v" else y
+
+        q, k, v = proj("q"), proj("k"), proj("v")
         ck, cv = cache.k[layer], cache.v[layer]
-        cks, cvs = cache.k_scale[layer], cache.v_scale[layer]
-        (kq, ks), (vq, vs) = quantize(k), quantize(v)
-        ck[:, offset:offset + t], cks[:, offset:offset + t] = kq, ks
-        cv[:, offset:offset + t], cvs[:, offset:offset + t] = vq, vs
-        heads, kv_heads, head = q.shape[2], k.shape[2], k.shape[3]
-        score_b = 4 * heads * t
-        dequant_b = 2 * kv_heads * head * k.element_size()
-        dense_max = attention_ops._DENSE_MAX_T
-        if t == 1 or score_b <= dequant_b or t * cache.max_len <= dense_max * dense_max:
-            return attention_ops.quantized_cache_attention(
-                q, ck[:, live], cks[:, live], cv[:, live], cvs[:, live], q_offset=offset)
-
-        def dequant(c, s):
-            return c[:, live].to(k.dtype) * s[:, live, :, None].to(k.dtype)
-
-        return attention_ops.local_attention(
-            q, dequant(ck, cks), dequant(cv, cvs), causal=True, q_offset=offset)
+        scales = (None, None)
+        if cache.quantized:
+            (k, ks), (v, vs) = quantize(k), quantize(v)
+            scales = (cache.k_scale[layer], cache.v_scale[layer])
+            for c, chunk in zip(scales, (ks, vs)):
+                _write_slots(c, chunk.reshape(r, b, *chunk.shape[1:]), mesh, seq_axis, offset)
+        for c, chunk in ((ck, k), (cv, v)):
+            _write_slots(c, chunk.reshape(r, b, *chunk.shape[1:]), mesh, seq_axis, offset)
+        if seq_axis is not None:
+            out = attention_ops.seq_decode_attention(
+                q.reshape(r, b, *q.shape[1:]), ck, cv, mesh, seq_axis, q_offset=offset,
+                k_scale=scales[0], v_scale=scales[1]).reshape(q.shape)
+        elif cache.quantized:
+            out = _int8_attend(q, _fold(ck), _fold(scales[0]), _fold(cv), _fold(scales[1]),
+                               offset, cache.max_len, self.dtype)
+        else:
+            live = offset + t
+            out = attention_ops.local_attention(
+                q, _fold(ck)[:, :live], _fold(cv)[:, :live], causal=True, q_offset=offset)
+        kernel = p["out_kernel"]
+        y = _rank_dense(out.reshape(r, b, t, -1), kernel.reshape(r, -1, kernel.shape[-1]),
+                        None, self.dtype)
+        if model_axis is not None:
+            y = mesh.psum(y, model_axis)
+        return y + _rank_vector(p["out_bias"], y).to(y.dtype)
 
 
 class Block(nn.Module):
@@ -398,16 +496,54 @@ class Block(nn.Module):
         ``mlp_bias``."""
         x = x + self.attn.forward_ranks(self.ln1.forward_ranks(x, _sub(p, "ln1.")),
                                         _sub(p, "attn."), mesh)
+        return self._mlp_ranks(x, p, mesh, self.model_axis)
+
+    def decode_ranks(self, x: torch.Tensor, p: dict, mesh: RankMesh, cache: RankKVCache,
+                     layer: int, *, seq_axis: str | None,
+                     model_axis: str | None) -> torch.Tensor:
+        """The block's decode step on every rank (``Attention.decode_ranks``),
+        the MLP's psum over ``model_axis``."""
+        x = x + self.attn.decode_ranks(self.ln1.forward_ranks(x, _sub(p, "ln1.")),
+                                       _sub(p, "attn."), mesh, cache, layer,
+                                       seq_axis=seq_axis, model_axis=model_axis)
+        return self._mlp_ranks(x, p, mesh, model_axis)
+
+    def _mlp_ranks(self, x: torch.Tensor, p: dict, mesh: RankMesh,
+                   model_axis: str | None) -> torch.Tensor:
         h = _rank_dense(self.ln2.forward_ranks(x, _sub(p, "ln2.")), p["mlp_up_kernel"],
                         p["mlp_up_bias"], self.dtype)
         h = F.gelu(h, approximate="tanh")
         y = _rank_dense(h, p["mlp_down_kernel"], None, self.dtype)
-        if self.model_axis is not None:
-            y = mesh.psum(y, self.model_axis)
+        if model_axis is not None:
+            y = mesh.psum(y, model_axis)
         return x + y + _rank_vector(p["mlp_bias"], y).to(y.dtype)
 
 
-class TransformerLM(nn.Module):
+class _RankMode:
+    """What both LMs' rank modes share: the parameters as rank views under
+    the model's ``param_specs()``, and the embedding of a rank stack of
+    tokens."""
+
+    def rank_views(self, mesh: RankMesh) -> dict[str, torch.Tensor]:
+        """Every parameter as its grid-form rank view (``rank_view``)."""
+        specs = self.param_specs()
+        return {name: rank_view(p, specs[name], mesh) for name, p in self.named_parameters()}
+
+    def _embed_ranks(self, tokens, mesh, params):
+        """Each rank's parameters, (R, *local) (its rank views by default),
+        and its embedded tokens from the rank stack (R, B, T)."""
+        r = mesh.size
+        if tokens.ndim != 3 or tokens.shape[0] != r:
+            raise ValueError(f"need a ({r}, B, T) rank stack of tokens, got {tuple(tokens.shape)}")
+        if params is None:
+            params = self.rank_views(mesh)
+        k = len(mesh.sizes)
+        p = {name: t.reshape(r, *t.shape[k:]) for name, t in params.items()}
+        ranks = torch.arange(r, device=tokens.device)[:, None, None]
+        return p, p["embedding"].to(self.compute_dtype)[ranks, tokens.long()]
+
+
+class TransformerLM(_RankMode, nn.Module):
     """Tokens (B, T) -> logits (B, T, vocab) f32.
 
     Parameters are f32, drawn from ``seed`` with a ``torch.Generator`` on the
@@ -481,11 +617,6 @@ class TransformerLM(nn.Module):
             return tp_param_specs(self, self.model_axis)
         return {name: () for name, _ in self.named_parameters()}
 
-    def rank_views(self, mesh: RankMesh) -> dict[str, torch.Tensor]:
-        """Every parameter as its grid-form rank view (``rank_view``)."""
-        specs = self.param_specs()
-        return {name: rank_view(p, specs[name], mesh) for name, p in self.named_parameters()}
-
     def forward(self, tokens: torch.Tensor, cache: KVCache | None = None, *,
                 mesh: RankMesh | None = None,
                 params: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
@@ -498,6 +629,11 @@ class TransformerLM(nn.Module):
             return self._forward_ranks(tokens, cache, mesh, params)
         if mesh is not None or params is not None:
             raise ValueError("mesh and params are for a model with seq_axis or model_axis")
+        return self.forward_one(tokens, cache)
+
+    def forward_one(self, tokens: torch.Tensor, cache: KVCache | None = None) -> torch.Tensor:
+        """The model on one device, whatever its axes (its parameters have
+        their full shapes): tokens (B, T) -> logits (B, T, vocab) f32."""
         if cache is not None and cache.index + tokens.shape[1] > cache.max_len:
             raise ValueError(
                 f"cache index {cache.index} + {tokens.shape[1]} tokens exceeds "
@@ -514,10 +650,6 @@ class TransformerLM(nn.Module):
         return logits.float()
 
     def _forward_ranks(self, tokens, cache, mesh, params) -> torch.Tensor:
-        if cache is not None:
-            raise NotImplementedError(
-                "decode over a mesh (a sequence-sharded or TP cache) is not ported yet "
-                "(ROADMAP item 10)")
         if mesh is None:
             raise ValueError("a model with seq_axis or model_axis runs over a mesh: pass mesh=")
         for axis in (self.seq_axis, self.model_axis):
@@ -526,15 +658,10 @@ class TransformerLM(nn.Module):
         if self.model_axis is not None and mesh.shape[self.model_axis] != self.tp_size:
             raise ValueError(f"tp_size={self.tp_size} but the mesh's {self.model_axis!r} axis "
                              f"has {mesh.shape[self.model_axis]} ranks")
-        r = mesh.size
-        if tokens.ndim != 3 or tokens.shape[0] != r:
-            raise ValueError(f"need a ({r}, B, T) rank stack of tokens, got {tuple(tokens.shape)}")
-        if params is None:
-            params = self.rank_views(mesh)
-        k = len(mesh.sizes)
-        p = {name: t.reshape(r, *t.shape[k:]) for name, t in params.items()}
-        ranks = torch.arange(r, device=tokens.device)[:, None, None]
-        x = p["embedding"].to(self.compute_dtype)[ranks, tokens.long()]
+        if cache is not None:
+            return self.decode_ranks(tokens, cache, mesh, params, seq_axis=self.seq_axis,
+                                     model_axis=self.model_axis)
+        p, x = self._embed_ranks(tokens, mesh, params)
         remat = self.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             sub = _sub(p, f"blocks.{i}.")
@@ -545,6 +672,37 @@ class TransformerLM(nn.Module):
         x = self.ln_f.forward_ranks(x, _sub(p, "ln_f."))
         return _rank_dense(x, p["head_kernel"], p["head_bias"], self.compute_dtype).float()
 
+    def decode_ranks(self, tokens: torch.Tensor, cache: RankKVCache, mesh: RankMesh,
+                     params: dict[str, torch.Tensor] | None = None, *,
+                     seq_axis: str | None = None,
+                     model_axis: str | None = None) -> torch.Tensor:
+        """Decode over a mesh of virtual ranks: the chunk ``tokens`` (R, B,
+        t), the same on every rank, at the cache's index -> every rank's
+        logits (R, B, t, vocab) f32, equal across ranks; the index then
+        moves by t. ``seq_axis`` shards the cache's slots (``cache`` has
+        ``seq_shards`` equal to its size), ``model_axis`` the heads, whose
+        parameters then reach each rank as their TP shards (``params``:
+        name -> grid-form view, e.g. ``rank_view`` under
+        :func:`tp_param_specs`)."""
+        sp = mesh.shape[seq_axis] if seq_axis is not None else 1
+        if not isinstance(cache, RankKVCache):
+            raise TypeError("decode over a mesh takes a RankKVCache (LMGenerator.init_cache "
+                            "with a mesh)")
+        if cache.seq_shards != sp:
+            raise ValueError(f"the cache is in {cache.seq_shards} slot shards, the mesh's "
+                             f"seq axis has {sp}")
+        t = tokens.shape[-1]
+        if cache.index + t > cache.max_len:
+            raise ValueError(f"cache index {cache.index} + {t} tokens exceeds "
+                             f"max_len {cache.max_len}")
+        p, x = self._embed_ranks(tokens, mesh, params)
+        for i, block in enumerate(self.blocks):
+            x = block.decode_ranks(x, _sub(p, f"blocks.{i}."), mesh, cache, i,
+                                   seq_axis=seq_axis, model_axis=model_axis)
+        x = self.ln_f.forward_ranks(x, _sub(p, "ln_f."))
+        cache.index += t
+        return _rank_dense(x, p["head_kernel"], p["head_bias"], self.compute_dtype).float()
+
 
 class MoEBlock(nn.Module):
     """Pre-norm block whose MLP is a Switch/GShard mixture of experts:
@@ -553,17 +711,26 @@ class MoEBlock(nn.Module):
     ``moe_b1`` (E, hidden), ``moe_w2`` (E, hidden, d) are f32 parameters
     (lecun-normal scales over flax's fans, which count the expert dim),
     cast to the compute dtype inside :func:`..ops.moe.moe_dispatch_compute`;
-    the router's logits are f32."""
+    the router's logits are f32. ``expert_axis``/``ep_size``, ``seq_axis``
+    and ``seq_impl`` are the JAX block's, for :meth:`forward_ranks`."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None, n_experts: int,
                  mlp_ratio: int, capacity_factor: float, compute_dtype: torch.dtype,
-                 router_topk: int, dispatch_impl: str, gen: torch.Generator | None) -> None:
+                 router_topk: int, dispatch_impl: str, gen: torch.Generator | None, *,
+                 expert_axis: str | None = None, ep_size: int = 1,
+                 seq_axis: str | None = None, seq_impl: str = "ring") -> None:
         super().__init__()
+        if n_experts % ep_size:
+            raise ValueError(f"self.n_experts={n_experts} not divisible by "
+                             f"self.ep_size={ep_size}")
         hidden = mlp_ratio * d_model
         self.n_experts, self.capacity_factor = n_experts, capacity_factor
         self.router_topk, self.dispatch_impl = router_topk, dispatch_impl
+        self.expert_axis = expert_axis if ep_size > 1 else None
+        self.seq_axis = seq_axis
         self.ln1 = LayerNorm(d_model, compute_dtype)
-        self.attn = Attention(d_model, n_heads, n_kv_heads, compute_dtype, gen)
+        self.attn = Attention(d_model, n_heads, n_kv_heads, compute_dtype, gen,
+                              seq_axis=seq_axis, seq_impl=seq_impl)
         self.ln2 = LayerNorm(d_model, compute_dtype)
         self.router = _param(gen, d_model, n_experts, fan_in=d_model)
         self.moe_w1 = _param(gen, n_experts, d_model, hidden, fan_in=n_experts * d_model)
@@ -580,22 +747,45 @@ class MoEBlock(nn.Module):
         )
         return x + y.reshape(x.shape), aux, dropped
 
+    def forward_ranks(self, x: torch.Tensor, p: dict, mesh: RankMesh):
+        """The block on every rank's rows ``x`` (R, B, T_local, d) with its
+        own parameters ``p`` (name -> (R, *local): its shard of the experts
+        under ``expert_axis``): attention over ``seq_axis``, then each rank
+        routes its own tokens; returns ``(x, aux (R,), dropped (R,))``."""
+        r, d = x.shape[0], x.shape[-1]
+        x = x + self.attn.forward_ranks(self.ln1.forward_ranks(x, _sub(p, "ln1.")),
+                                        _sub(p, "attn."), mesh)
+        h = self.ln2.forward_ranks(x, _sub(p, "ln2."))
+        y, aux, dropped = moe_dispatch_compute(
+            h.reshape(r, -1, d), p["router"], p["moe_w1"], p["moe_b1"], p["moe_w2"],
+            n_experts=self.n_experts, capacity_factor=self.capacity_factor,
+            expert_axis=self.expert_axis, router_topk=self.router_topk,
+            seq_axis=self.seq_axis, dispatch_impl=self.dispatch_impl, mesh=mesh,
+        )
+        return x + y.reshape(x.shape), aux, dropped
 
-class MoETransformerLM(nn.Module):
+
+class MoETransformerLM(_RankMode, nn.Module):
     """Decoder-only LM with Switch/GShard MoE MLPs: tokens (B, T) ->
     ``(logits f32, aux / n_layers, dropped / n_layers)``.
 
-    The JAX ``MoETransformerLM`` at ``ep_size`` 1 on one device: ``n_experts``
-    experts all local, ``router_topk`` 1 (Switch) or 2 (GShard),
-    ``dispatch_impl`` "einsum", "scatter" or "auto" (``ops.moe``). Parameters
-    are drawn from ``seed`` by a generator on ``device`` (the card unless
-    ``"cpu"``), at :class:`TransformerLM`'s scales: at the bench width the
-    2.28B weights would take tens of seconds to draw on the host. So one seed
-    gives other weights on the card than on the CPU; carry them across
-    (``set_flat_params``) to compare the two. ``expert_axis``,
-    ``ep_size`` above 1 and ``seq_axis`` need several ranks and raise
-    ``NotImplementedError``. Its parameter names map onto the flax tree's
-    ``MoEBlock_i`` (:func:`..models.convert.moe_flax_path`)."""
+    The JAX ``MoETransformerLM``: ``n_experts`` experts, ``router_topk`` 1
+    (Switch) or 2 (GShard), ``dispatch_impl`` "einsum", "scatter" or "auto"
+    (``ops.moe``). Parameters are drawn from ``seed`` by a generator on
+    ``device`` (the card unless ``"cpu"``), at :class:`TransformerLM`'s
+    scales: at the bench width the 2.28B weights would take tens of seconds
+    to draw on the host. So one seed gives other weights on the card than on
+    the CPU; carry them across (``set_flat_params``) to compare the two. Its
+    parameter names map onto the flax tree's ``MoEBlock_i``
+    (:func:`..models.convert.moe_flax_path`).
+
+    Over virtual ranks (``forward(..., mesh=...)``), as ``TransformerLM``'s
+    rank mode: every rank on its rows and ``seq_axis`` columns, its view of
+    each parameter (:meth:`param_specs`: :func:`ep_param_specs` over
+    ``expert_axis`` when ``ep_size`` > 1, its ``n_experts / ep_size``
+    experts), attention over ``seq_axis`` by ``seq_impl``, the experts
+    reached through the all_to_all pair; the parameters keep their full
+    shapes."""
 
     flax_path = staticmethod(moe_flax_path)
 
@@ -616,27 +806,30 @@ class MoETransformerLM(nn.Module):
         expert_axis: str | None = None,
         ep_size: int = 1,
         seq_axis: str | None = None,
+        seq_impl: str = "ring",
         seed: int = 0,
         device: torch.device | str | None = None,
     ) -> None:
         super().__init__()
-        if expert_axis is not None or ep_size != 1 or seq_axis is not None:
-            raise NotImplementedError(
-                f"expert_axis={expert_axis!r}, ep_size={ep_size}, seq_axis={seq_axis!r}: "
-                "expert and sequence parallelism are not ported yet (ROADMAP item 10)")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+        if seq_impl not in SEQ_IMPLS:
+            raise ValueError(f"unknown seq_impl {seq_impl!r}")
         self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
         self.n_heads = n_heads
         self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
         self.n_experts, self.router_topk = n_experts, router_topk
         self.compute_dtype = compute_dtype
+        self.expert_axis, self.ep_size = expert_axis, ep_size
+        self.seq_axis = seq_axis
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.embedding = _param(gen, vocab, d_model, fan_in=d_model)
         self.blocks = nn.ModuleList(
             MoEBlock(d_model, n_heads, n_kv_heads, n_experts, mlp_ratio, capacity_factor,
-                     compute_dtype, router_topk, dispatch_impl, gen)
+                     compute_dtype, router_topk, dispatch_impl, gen,
+                     expert_axis=expert_axis, ep_size=ep_size, seq_axis=seq_axis,
+                     seq_impl=seq_impl)
             for _ in range(n_layers)
         )
         self.ln_f = LayerNorm(d_model, compute_dtype)
@@ -644,7 +837,24 @@ class MoETransformerLM(nn.Module):
         self.head_bias = _zeros(vocab)
         self.to(dev)
 
-    def forward(self, tokens: torch.Tensor):
+    def param_specs(self) -> dict[str, PartitionSpec]:
+        """Each parameter's spec: :func:`ep_param_specs` over
+        ``expert_axis`` when ``ep_size`` > 1, else replicated."""
+        if self.expert_axis is not None and self.ep_size > 1:
+            return ep_param_specs(self, self.expert_axis)
+        return {name: () for name, _ in self.named_parameters()}
+
+    def forward(self, tokens: torch.Tensor, *, mesh: RankMesh | None = None,
+                params: dict[str, torch.Tensor] | None = None):
+        """Tokens (B, T) -> ``(logits (B, T, vocab) f32, aux, dropped)``; or,
+        over ``mesh``, the rank stack (R, B_local, T_local) -> every rank's
+        ``(logits (R, B_local, T_local, vocab), aux (R,), dropped (R,))``
+        from ``params`` (name -> grid-form rank view; :meth:`rank_views`
+        by default)."""
+        if mesh is not None:
+            return self._forward_ranks(tokens, mesh, params)
+        if self.expert_axis is not None and self.ep_size > 1 or self.seq_axis is not None:
+            raise ValueError("a model with expert_axis or seq_axis runs over a mesh: pass mesh=")
         x = self.embedding.to(self.compute_dtype)[tokens.long()]
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         dropped_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -654,6 +864,25 @@ class MoETransformerLM(nn.Module):
             dropped_total = dropped_total + dropped
         x = self.ln_f(x)
         logits = _dense(x, self.head_kernel, self.head_bias, self.compute_dtype)
+        return logits.float(), aux_total / self.n_layers, dropped_total / self.n_layers
+
+    def _forward_ranks(self, tokens, mesh, params):
+        for axis in (self.expert_axis, self.seq_axis):
+            if axis is not None and axis not in mesh.axis_names:
+                raise ValueError(f"axis {axis!r} not in mesh axes {mesh.axis_names}")
+        if self.expert_axis is not None and mesh.shape[self.expert_axis] != self.ep_size:
+            raise ValueError(f"ep_size={self.ep_size} but the mesh's {self.expert_axis!r} "
+                             f"axis has {mesh.shape[self.expert_axis]} ranks")
+        r = mesh.size
+        p, x = self._embed_ranks(tokens, mesh, params)
+        aux_total = torch.zeros(r, dtype=torch.float32, device=x.device)
+        dropped_total = torch.zeros(r, dtype=torch.float32, device=x.device)
+        for i, block in enumerate(self.blocks):
+            x, aux, dropped = block.forward_ranks(x, _sub(p, f"blocks.{i}."), mesh)
+            aux_total = aux_total + aux
+            dropped_total = dropped_total + dropped
+        x = self.ln_f.forward_ranks(x, _sub(p, "ln_f."))
+        logits = _rank_dense(x, p["head_kernel"], p["head_bias"], self.compute_dtype)
         return logits.float(), aux_total / self.n_layers, dropped_total / self.n_layers
 
 
@@ -682,6 +911,25 @@ def tp_param_specs(model: nn.Module, model_axis: str) -> dict[str, PartitionSpec
             return (model_axis,)
         if joined.endswith("mlp_down/kernel"):
             return (model_axis, None)
+        return ()
+
+    return {name: spec(name) for name, _ in model.named_parameters()}
+
+
+def ep_param_specs(model: nn.Module, expert_axis: str) -> dict[str, PartitionSpec]:
+    """Each parameter's spec for expert parallelism over ``expert_axis``, by
+    the JAX function's path rules: ``moe_w1``/``moe_w2`` shard their leading
+    (expert) dim, ``(expert_axis, None, None)``, ``moe_b1`` as
+    ``(expert_axis, None)``; the router and everything else replicate. The
+    same specs hold for the optimizer's moments."""
+    key = getattr(model, "flax_path", flax_path)
+
+    def spec(name: str) -> PartitionSpec:
+        joined = "/".join(("params", *key(name)))
+        if joined.endswith("moe_w1") or joined.endswith("moe_w2"):
+            return (expert_axis, None, None)
+        if joined.endswith("moe_b1"):
+            return (expert_axis, None)
         return ()
 
     return {name: spec(name) for name, _ in model.named_parameters()}

@@ -25,8 +25,12 @@ Convention for a query row with no visible keys: the output row is zero.
 per-row scales folded into the scores and the weights
 (:func:`_scaled_masked_scores`, :func:`_weighted_v`), so no dequantized
 copy of the cache is made. As in the JAX package these are plain einsums
-outside any kernel. ``seq_decode_attention`` waits for the
-sequence-sharded decode.
+outside any kernel.
+
+:func:`seq_decode_attention` attends over a cache whose slots are sharded
+over a mesh axis of virtual ranks (``parallel.mesh.RankMesh``): each rank
+computes its partial softmax over its own slots and the partials merge
+split-K style, one ``pmax`` and two ``psum`` s of the rank stack, in f32.
 """
 
 from __future__ import annotations
@@ -58,18 +62,29 @@ def _blockwise_olm(
     causal: bool,
     scale: float,
     q_offset: int,
-    k_offset: int,
+    k_offset: int | torch.Tensor,
     block_k: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ):
     """Blockwise online-softmax partials ``(o, l, m)`` over a local K/V
     slice: ``o`` (B, H, Tq, D), ``l`` and ``m`` (B, H, Tq), all f32. The
-    un-normalized core of :func:`blockwise_attention`; a Python loop over
-    the K/V blocks takes the place of the JAX ``lax.scan``, and each fold is
-    checkpointed when a gradient will be taken, as JAX's ``jax.checkpoint``
-    step is."""
+    un-normalized core of :func:`blockwise_attention` and the local stage of
+    :func:`seq_decode_attention`; a Python loop over the K/V blocks takes
+    the place of the JAX ``lax.scan``, and each fold is checkpointed when a
+    gradient will be taken, as JAX's ``jax.checkpoint`` step is.
+
+    ``k_offset``: an int, or a (B,) tensor of one offset a batch row (each
+    virtual rank's first slot, its rows folded into the batch). With
+    ``k_scale``/``v_scale`` (B, Tk, H_kv) f32, ``k``/``v`` are int8 payloads
+    dequantized to f32 one block at a time."""
     h = q.shape[2]
     if k.shape[2] != h:  # grouped-query K/V expand at compute
+        group = h // k.shape[2]
         k, v = repeat_kv(k, h), repeat_kv(v, h)
+        if k_scale is not None:
+            k_scale = torch.repeat_interleave(k_scale, group, dim=2)
+            v_scale = torch.repeat_interleave(v_scale, group, dim=2)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     qf = q.float()
@@ -80,13 +95,21 @@ def _blockwise_olm(
     fold = online_softmax_update
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         fold = functools.partial(checkpoint, online_softmax_update, use_reentrant=False)
+    per_row = isinstance(k_offset, torch.Tensor)
     for start in range(0, tk, block_k):
         # the last block is short where JAX zero-pads it and masks the tail:
         # the padded keys contribute exactly zero either way
         kk = k[:, start:start + block_k]
         vv = v[:, start:start + block_k]
-        k_pos = k_offset + start + torch.arange(kk.shape[1], device=q.device)
-        mask = q_pos[:, None] >= k_pos[None, :] if causal else None
+        if k_scale is not None:
+            kk = kk.float() * k_scale[:, start:start + block_k, :, None]
+            vv = vv.float() * v_scale[:, start:start + block_k, :, None]
+        ar = start + torch.arange(kk.shape[1], device=q.device)
+        mask = None
+        if causal and per_row:  # (B, 1, Tq, block): each row its own offset
+            mask = (q_pos[:, None] >= k_offset[:, None, None] + ar)[:, None]
+        elif causal:
+            mask = q_pos[:, None] >= (k_offset + ar)[None, :]
         o, l, m = fold((o, l, m), qf, kk, vv, scale, mask)
     return o, l, m
 
@@ -167,11 +190,13 @@ def local_attention(
     )
 
 
-def _scaled_masked_scores(q, k, k_scale, scale: float, q_offset: int, k_offset: int):
+def _scaled_masked_scores(q, k, k_scale, scale: float, q_offset: int,
+                          k_offset: int | torch.Tensor):
     """f32 (B, H, Tq, L) causally masked scores of ``q`` against a K slice:
     grouped-query heads repeat at the compute site, and an int8 slice's
     per-row scales fold into the scores (q·(k·s) = (q·k)·s), the product
-    ``k_scale * scale`` taken first as the JAX function takes it."""
+    ``k_scale * scale`` taken first as the JAX function takes it.
+    ``k_offset``: an int, or a (B,) tensor of one offset a batch row."""
     h = q.shape[2]
     kc = repeat_kv(k.to(q.dtype), h)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc.float())
@@ -180,8 +205,13 @@ def _scaled_masked_scores(q, k, k_scale, scale: float, q_offset: int, k_offset: 
         scores = scores * (ks.transpose(1, 2)[:, :, None, :] * scale)
     else:
         scores = scores * scale
-    mask = causal_mask(q.shape[1], k.shape[1], q_offset, k_offset, q.device)
-    return torch.where(mask[None, None], scores, _MASK_VALUE)
+    if isinstance(k_offset, torch.Tensor):
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = k_offset[:, None] + torch.arange(k.shape[1], device=q.device)  # (B, L)
+        mask = (q_pos[None, :, None] >= k_pos[:, None, :])[:, None]  # (B, 1, Tq, L)
+    else:
+        mask = causal_mask(q.shape[1], k.shape[1], q_offset, k_offset, q.device)[None, None]
+    return torch.where(mask, scores, _MASK_VALUE)
 
 
 def _weighted_v(p, v, v_scale):
@@ -218,3 +248,67 @@ def quantized_cache_attention(
     probs = torch.softmax(scores, dim=-1)
     out = _weighted_v(probs, v_q, v_scale)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def seq_decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mesh,
+    axis_name: str,
+    *,
+    q_offset: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Decode attention over a sequence-sharded KV cache.
+
+    Rank stacks over ``mesh``: ``q`` (R, B, Tq, H, D), the same on every
+    rank of ``axis_name``; ``k``/``v`` (R, B, L_local, H_kv, D), each rank's
+    slice of the cache, whose first slot is global position ``seq_rank *
+    L_local`` (the JAX function's ``k_offset``). Each rank scores ``q``
+    against its slots (causal against global positions) and the partials
+    merge over ``axis_name``:
+
+    - dense, when ``Tq * L_local <= 512²``: the masked scores, one global
+      max (``RankMesh.pmax``) taken before the exponent, so every rank's
+      ``p`` has the same reference as a one-device softmax; then the psums
+      of ``sum(p)`` and of ``p @ v``;
+    - otherwise each rank's blockwise ``(o, l, m)`` (:func:`_blockwise_olm`)
+      rescaled to the global max, then psummed.
+
+    With ``k_scale``/``v_scale`` (R, B, L_local, H_kv) f32, ``k``/``v`` are
+    int8 payloads whose scales fold into the scores and weights, as in
+    :func:`quantized_cache_attention`. Accumulation is f32 throughout; the
+    ranks fold into the batch of every product. Returns (R, B, Tq, H, D) in
+    q's dtype, equal on every rank of the axis.
+    """
+    r, b, tq, h, d = q.shape
+    l_local = k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+
+    def fold(x):
+        return None if x is None else x.reshape(r * b, *x.shape[2:])
+
+    qf, kf, vf, ksf, vsf = map(fold, (q, k, v, k_scale, v_scale))
+    k_offset = (mesh.index(axis_name) * l_local).repeat_interleave(b)  # (R·B,)
+
+    def merge(x):  # a psum over the axis of an (R·B, ...) partial
+        return mesh.psum(x.reshape(r, -1), axis_name).reshape(x.shape)
+
+    if tq * l_local <= _DENSE_MAX_T * _DENSE_MAX_T:
+        scores = _scaled_masked_scores(qf, kf, ksf, scale, q_offset, k_offset)
+        m_g = mesh.pmax(scores.amax(dim=-1).reshape(r, -1), axis_name)
+        p = torch.exp(scores - m_g.reshape(r * b, h, tq, 1))  # masked slots: exp(-huge) = 0
+        l_g = merge(p.sum(dim=-1))
+        o_g = merge(_weighted_v(p, vf, vsf))
+    else:
+        o, l, m = _blockwise_olm(qf, kf, vf, causal=True, scale=scale, q_offset=q_offset,
+                                 k_offset=k_offset, block_k=512, k_scale=ksf, v_scale=vsf)
+        m_g = mesh.pmax(m.reshape(r, -1), axis_name).reshape(m.shape)
+        corr = torch.exp(m - m_g)
+        l_g = merge(l * corr)
+        o_g = merge(o * corr[..., None])
+    out = o_g / torch.clamp_min(l_g, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype).reshape(r, b, tq, h, d)

@@ -19,8 +19,9 @@ ranks are virtual (``parallel.mesh.RankMesh``): ``q``/``k``/``v`` are rank
 stacks ``(mesh.size, B, T_local, H, D)``, one row per rank in rank order,
 and ``axis_name`` names the mesh axis the sequence is sharded over (the
 other axes batch). ``ppermute`` is a roll of the stack along that axis, the
-all-to-all a permutation of it, and every rank's causal mask and positions
-come from its own position on the axis (``RankMesh.index``). The ranks fold
+all-to-all a permutation of it (``RankMesh.all_to_all``), and every rank's
+causal mask and positions come from its own position on the axis
+(``RankMesh.index``). The ranks fold
 into the batch of one call: one K4 launch covers every rank.
 
 Layout of the helpers, as in the JAX package: ``q`` is (B, Tq, H, D),
@@ -192,35 +193,6 @@ def ring_attention(
     return out.transpose(1, 2).to(q.dtype).reshape(q.shape)
 
 
-def _seq_to_heads(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
-    """``all_to_all(x, split_axis=2, concat_axis=1, tiled=True)`` of a rank
-    stack (R, B, T_l, H, D): the rank at position j gets head chunk j of
-    every rank of its group, their T_l chunks concatenated in axis order ->
-    (R, B, n·T_l, H/n, D)."""
-    n, a = mesh.shape[axis_name], mesh.dim(axis_name)
-    r, b, t, h, d = x.shape
-    g = x.reshape(*mesh.sizes, b, t, n, h // n, d)
-    k = len(mesh.sizes)
-    lead = list(range(k))
-    lead[a] = k + 2  # the head chunk's index becomes the rank's position
-    g = g.permute(*lead, k, a, k + 1, k + 3, k + 4)
-    return g.reshape(r, b, n * t, h // n, d)
-
-
-def _heads_to_seq(y: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
-    """The inverse all-to-all (``split_axis=1, concat_axis=2``): (R, B,
-    n·T_l, H/n, D) -> (R, B, T_l, H, D), the rank at position i taking
-    token chunk i of every rank's head chunk, heads in axis order."""
-    n, a = mesh.shape[axis_name], mesh.dim(axis_name)
-    r, b, tt, hh, d = y.shape
-    g = y.reshape(*mesh.sizes, b, n, tt // n, hh, d)
-    k = len(mesh.sizes)
-    lead = list(range(k))
-    lead[a] = k + 1  # the token chunk's index becomes the rank's position
-    g = g.permute(*lead, k, k + 2, a, k + 3, k + 4)
-    return g.reshape(r, b, tt // n, n * hh, d)
-
-
 def ulysses_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -249,6 +221,8 @@ def ulysses_attention(
     if k.shape[3] % n:
         k = repeat_kv(_fold_ranks(k), h).reshape(*q.shape[:3], h, k.shape[4])
         v = repeat_kv(_fold_ranks(v), h).reshape(*q.shape[:3], h, v.shape[4])
-    qg, kg, vg = (_seq_to_heads(x, mesh, axis_name) for x in (q, k, v))
+    # all_to_all(split_axis=2, concat_axis=1): the rank at position j gets
+    # head chunk j of every rank of its group, their T_l chunks in axis order
+    qg, kg, vg = (mesh.all_to_all(x, axis_name, 2, 1) for x in (q, k, v))
     out = _local_core(qg, kg, vg, causal, sm_scale)
-    return _heads_to_seq(out, mesh, axis_name)
+    return mesh.all_to_all(out, axis_name, 1, 2)  # the inverse

@@ -19,6 +19,7 @@ from akka_allreduce_tpu_torch.parallel.mesh import (  # noqa: F401
     grid_factors,
     grid_mesh,
     line_mesh,
+    local_shape,
     rank_unview,
     rank_view,
     spec_axes,

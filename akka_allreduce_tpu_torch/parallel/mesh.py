@@ -24,7 +24,9 @@ stack: ``lax.axis_index`` is :meth:`RankMesh.index`, ``lax.ppermute`` a roll
 along one grid dim (:meth:`RankMesh.ppermute`), ``lax.psum`` a sum over grid
 dims, ranks added in rank order (:meth:`RankMesh.psum`, differentiable: the
 backward of the sum is the broadcast of the cotangent summed over the same
-ranks, the transpose JAX takes).
+ranks, the transpose JAX takes), ``lax.pmax`` a max over them
+(:meth:`RankMesh.pmax`), and the tiled ``lax.all_to_all`` a swap of two dims
+(:meth:`RankMesh.all_to_all`).
 
 Where the signatures differ from JAX's: the JAX helpers take a device list
 and default to every device; a virtual mesh has no device list, so the rank
@@ -103,6 +105,41 @@ class RankMesh:
                 total = total + part
             g = total.unsqueeze(d)
         return g.expand(*self.sizes, *x.shape[1:]).reshape(x.shape)
+
+    def pmax(self, x: torch.Tensor, axes: str | tuple[str, ...]) -> torch.Tensor:
+        """``lax.pmax`` of a rank stack over ``axes``: every rank gets the
+        elementwise max over the ranks that differ from it only along
+        ``axes``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        g = self.grid(x)
+        for d in sorted(self.dim(a) for a in axes):
+            g = g.amax(dim=d, keepdim=True)
+        return g.expand(*self.sizes, *x.shape[1:]).reshape(x.shape)
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)`` of
+        a rank stack (``split_dim``/``concat_dim`` count a rank's own dims,
+        ``x.shape[1:]``): each rank cuts its ``split_dim`` into n blocks and
+        sends block q to the rank at position q along ``axis``, which
+        concatenates what it receives along ``concat_dim`` in sender order.
+        In grid form that is one swap of two dims, the axis's and the block
+        index's; autograd takes it back with the inverse swap."""
+        n, a, k = self.shape[axis], self.dim(axis), len(self.sizes)
+        local = list(x.shape[1:])
+        if local[split_dim] % n:
+            raise ValueError(f"dim {split_dim} of {local[split_dim]} does not split "
+                             f"into {n} blocks")
+        s = k + split_dim
+        g = self.grid(x)
+        g = g.reshape(*g.shape[:s], n, local[split_dim] // n, *g.shape[s + 1:])
+        g = g.transpose(a, s)  # [.., a=q, .., s=p, ..]: block q of sender p
+        if concat_dim != split_dim:
+            g = g.movedim(s, k + concat_dim)  # the sender index before concat_dim
+        out = list(local)
+        out[split_dim] //= n
+        out[concat_dim] *= n
+        return g.reshape(self.size, *out)
 
 
 def _check_count(n: int) -> int:
@@ -231,6 +268,17 @@ def _spec_entries(spec: PartitionSpec, ndim: int) -> list[tuple[str, ...]]:
         else:
             out.append((entry,))
     return out
+
+
+def local_shape(shape: tuple[int, ...], spec: PartitionSpec, mesh: RankMesh) -> tuple[int, ...]:
+    """A rank's shape of a leaf of ``shape`` under ``spec``."""
+    out = []
+    for n, axes in zip(shape, _spec_entries(spec, len(shape))):
+        k = math.prod(mesh.shape[a] for a in axes)
+        if n % k:
+            raise ValueError(f"dim of {n} does not evenly divide over {axes} ({k} shards)")
+        out.append(n // k)
+    return tuple(out)
 
 
 def rank_view(p: torch.Tensor, spec: PartitionSpec, mesh: RankMesh) -> torch.Tensor:

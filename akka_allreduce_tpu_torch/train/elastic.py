@@ -52,7 +52,7 @@ from akka_allreduce_tpu_torch.control.failure import (
 )
 from akka_allreduce_tpu_torch.obs import flight as _flight
 from akka_allreduce_tpu_torch.obs import metrics as _metrics
-from akka_allreduce_tpu_torch.parallel.mesh import RankMesh, data_seq_mesh, line_mesh
+from akka_allreduce_tpu_torch.parallel.mesh import RankMesh, data_seq_mesh, grid_mesh, line_mesh
 from akka_allreduce_tpu_torch.train.checkpoint import Snapshot
 from akka_allreduce_tpu_torch.train.trainer import DPTrainer, TrainStepMetrics
 
@@ -404,13 +404,14 @@ class ElasticLongContextTrainer(ElasticTrainer):
 
 
 class ElasticMoETrainer(ElasticTrainer):
-    """Elastic MoE training over a ``(data,)`` line of the live ranks (the
-    JAX trainer's expert axis comes with ROADMAP item 10). The port's
-    ``MoETrainer`` takes one rank, so this runs where the live
-    rank count is 1 (config 5 on one card: a one-rank node and zero-rank
-    control nodes); any other count raises the trainer's own
-    ``NotImplementedError``. Each build draws its own model from ``seed``
-    and the snapshot overwrites it."""
+    """Elastic expert-parallel training: the (data, expert) mesh re-shapes
+    with membership. On every re-mesh the expert axis becomes the largest
+    size dividing both ``n_experts`` and the live rank count
+    (:func:`adaptive_parallel_factor`), so the same experts redistribute
+    over fewer or more ranks: the trainer keeps full-shape parameters, the
+    snapshot carries them, and the rebuilt trainer's ranks see their new
+    shards of them. Each build draws its own model from ``seed`` and the
+    snapshot overwrites it."""
 
     def __init__(
         self,
@@ -426,7 +427,8 @@ class ElasticMoETrainer(ElasticTrainer):
         from akka_allreduce_tpu_torch.train.moe import MoETrainer
 
         def mesh_factory(n: int, *, device=None) -> RankMesh:
-            return line_mesh(n, device=device, axis="data")
+            ep = adaptive_parallel_factor(n, n_experts)
+            return grid_mesh(n // ep, ep, axes=("data", "expert"), device=device)
 
         def factory(mesh, compress=_INHERIT):
             kw = dict(trainer_kwargs)

@@ -1,21 +1,31 @@
-"""The mixture-of-experts LM trainer, on one card.
+"""The mixture-of-experts LM trainer: DP (x EP) (x SP) over virtual ranks.
 
 Counterpart of ``akka_allreduce_tpu/train/moe.py`` (``MoEStepMetrics``,
-``MoETrainer``) on a mesh of one rank: ``None`` or a one-rank ``(data,)``
-mesh, which is how the JAX package trains its MoE LM on one
-chip (``bench_mfu.py``'s ``run_moe``, ``train-moe``). Data, expert and
-sequence parallelism (dp, ep or sp above 1), gradient ``compress`` and
-``overlap`` need several ranks and raise ``NotImplementedError`` (ROADMAP
-item 10).
+``MoETrainer``) on a ``(data,)``, ``(data, expert)`` or ``(data, seq,
+expert)`` mesh of virtual ranks on one device (``parallel.mesh``). Every
+rank computes on its own shard, the ranks folded into the batch of each
+call (``MoETransformerLM``'s rank mode): the global batch's rows split over
+data x expert jointly (data major), its columns over ``seq``, and each MoE
+layer's all_to_all pair rides ``expert``, whose leaves each rank sees as
+its ``n_experts / ep`` shard (``ep_param_specs``). Routing is per rank, so
+the expert capacity counts a rank's own tokens; the aux statistics are
+summed over ``seq``. With an ample capacity factor nothing drops and a step
+is partition-independent (the JAX tests' oracle).
 
-A step is the JAX step with every collective of size one: with ``v`` the
-replica row's contributor bit and ``n`` the batch's tokens,
+A step is the JAX step: with ``v`` a rank's replica-row contributor bit,
+``n`` its tokens and ``denom = max(sum over ranks of v·n, 1)``,
 
-- the loss is ``(sum(ce) + aux_coef · aux · n) · v / max(v · n, 1)``,
-  ``backward()`` gives the gradient (K4's forward and backward on gated
-  attention shapes), and the optimizer steps;
-- the metrics are ``loss = sum(ce) · v / max(v · n, 1)``, ``aux_loss`` and
-  ``dropped`` weighted the same way, ``contributors = v``.
+- each rank's loss term is ``(sum(ce) + aux_coef · aux · n) · v / denom``;
+  the gradient takes one of three paths: ``overlap`` syncs each leaf inside
+  the backward (``comm.allreduce.overlap_value_and_grad``, the loss
+  unmasked), ``compress`` "bf16" or "int8" one grouped collective a
+  sharding class (``compressed_value_and_grad``), otherwise the same sum in
+  f32, in which the replicated class (over every axis) is K1, once a step
+  on the card; expert leaves reduce over data and seq only;
+- the metrics are the sums over ranks of ``sum(ce) · v / denom``, ``aux ·
+  n · v / denom`` and ``dropped · n · v / denom``, ``contributors`` the sum
+  of ``valid`` over the replica rows; then the optimizer steps the
+  full-shape parameters.
 
 The default optimizer is :class:`Adam`, ``optax.adam``'s arithmetic with
 its ``mu_dtype``: the first moment is updated in f32 from the stored one,
@@ -23,13 +33,15 @@ used in f32, and only then stored in ``mu_dtype`` (bf16 halves its bytes,
 the largest stream of the all-expert update). ``torch.optim.Adam`` keeps
 its moments in the parameters' dtype and cannot do this.
 
-``train_chain`` draws its batches on the card with a ``torch.Generator``
-(``SyntheticCopyLM.device_sampler``) and reads the metrics back once a
-chain. Checkpoints take the trainer-defined protocol in the pytree form
-``{"params": {name}, "opt_state": {index: {"step", "exp_avg",
-"exp_avg_sq"}}}`` (the form ``train.checkpoint`` captures from
-``LongContextTrainer``), with a bf16 first moment widened to f32, which is
-exact, so ``Snapshot`` and the elastic trainer work unchanged.
+``train_chain`` draws its batches on the card, one ``torch.Generator``
+stream a (data, expert) coordinate (``SyntheticCopyLM.device_sampler``),
+each seq rank slicing its columns of the coordinate's rows, and reads the
+metrics back once a chain. Checkpoints take the trainer-defined protocol in
+the pytree form ``{"params": {name}, "opt_state": {index: {"step",
+"exp_avg", "exp_avg_sq"}}}`` (the form ``train.checkpoint`` captures from
+``LongContextTrainer``) of the full-shape state, with a bf16 first moment
+widened to f32, which is exact, so ``Snapshot`` and the elastic trainer
+work unchanged at any mesh.
 """
 
 from __future__ import annotations
@@ -42,11 +54,16 @@ import torch
 import torch.nn.functional as F
 
 from akka_allreduce_tpu_torch._device import resolve_device
-from akka_allreduce_tpu_torch.binder.api import flat_tensor, load_flat_tensor
-from akka_allreduce_tpu_torch.models.transformer import MoETransformerLM
+from akka_allreduce_tpu_torch.binder.api import flat_tensor, leaf_order, load_flat_tensor
+from akka_allreduce_tpu_torch.comm.allreduce import (
+    compressed_value_and_grad,
+    overlap_value_and_grad,
+    validate_trainer_compress,
+)
+from akka_allreduce_tpu_torch.models.transformer import SEQ_IMPLS, MoETransformerLM
 from akka_allreduce_tpu_torch.parallel.mesh import RankMesh, line_mesh
 from akka_allreduce_tpu_torch.train.checkpoint import ShapeDtype, host_tree
-from akka_allreduce_tpu_torch.train.long_context import SEQ_IMPLS
+from akka_allreduce_tpu_torch.train.long_context import _ROW_SEED_STRIDE
 from akka_allreduce_tpu_torch.train.trainer import normalize_valid
 
 # parameters an Adam step updates with one set of foreach calls (bounds the
@@ -131,22 +148,24 @@ class MoEStepMetrics:
     contributors: float  # contributing DP replica rows
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item 10)")
-
-
 class MoETrainer:
-    """The MoE LM trainer on one rank.
+    """DP (x EP) (x SP) trainer of a :class:`~..models.MoETransformerLM`
+    over a mesh of virtual ranks.
 
     Args:
-      mesh: None or a one-rank ``(data,)`` ``RankMesh`` (None: one on
-        ``device``). Any other mesh raises ``NotImplementedError``.
-      seq_len: the sequence length every batch must have.
+      mesh: a ``(data,)`` ``RankMesh`` (the dense MoE), ``(data, expert)``
+        (expert parallelism) or ``(data, seq, expert)`` (sequence
+        parallelism composed with it: ring or Ulysses attention over
+        ``seq``); the axes are taken by position, as the JAX trainer takes
+        them. None: a one-rank ``(data,)`` mesh on ``device``.
+      seq_len: the GLOBAL sequence length (divisible by the seq axis size).
       optimizer: a factory ``parameters -> torch.optim.Optimizer``; default
         ``Adam(parameters, lr=learning_rate, mu_dtype=mu_dtype)``.
       mu_dtype: Adam's first-moment dtype (None: f32; ``torch.bfloat16``).
       compute_dtype: ``torch.float32`` or ``torch.bfloat16`` (parameters and
         the second moment stay f32).
+      compress: None, "bf16" or "int8": the gradient sums' wire.
+      overlap: one sync a leaf inside the backward (not with "int8").
       dispatch_impl: "auto", "einsum" or "scatter" (``ops.moe``).
       device: the card unless ``"cpu"``; taken from ``mesh`` when one is
         given.
@@ -178,25 +197,31 @@ class MoETrainer:
         dispatch_impl: str = "auto",
         device: str | torch.device | None = None,
     ) -> None:
-        if compress is not None:
-            raise _not_ported(f"compress={compress!r} (gradient wire compression)")
-        if overlap:
-            raise _not_ported("overlap (per-leaf gradient collectives)")
+        self.compress = validate_trainer_compress(compress, overlap=overlap)
+        self.overlap = overlap
         if seq_impl not in SEQ_IMPLS:
             raise ValueError(f"seq_impl must be one of {SEQ_IMPLS}, got {seq_impl!r}")
         if mesh is None:
             mesh = line_mesh(1, device=device, axis="data")
         elif device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
-        if len(mesh.axis_names) != 1 or mesh.sizes != (1,):
-            raise _not_ported(
-                f"a mesh with axes {mesh.axis_names} of sizes {mesh.sizes}: data, "
-                "expert and sequence parallelism")
+        names = mesh.axis_names
+        if len(names) not in (1, 2, 3):
+            raise ValueError(
+                f"need a (data[, expert] | data, seq, expert) mesh, got axes {names}")
         self.mesh = mesh
-        self.data_axis = mesh.axis_names[0]
-        self.dp = self.ep = self.sp = 1  # the JAX trainer's mesh sizes
-        self.n_devices = 1
-        self.data_shards = 1  # train_chain streams: one per replica row
+        self.data_axis = names[0]
+        self.seq_axis = names[1] if len(names) == 3 else None
+        self.expert_axis = names[-1] if len(names) > 1 else None
+        self.dp = mesh.shape[self.data_axis]
+        self.sp = mesh.shape[self.seq_axis] if self.seq_axis else 1
+        self.ep = mesh.shape[self.expert_axis] if self.expert_axis else 1
+        if n_experts % self.ep:
+            raise ValueError(f"n_experts={n_experts} not divisible by ep={self.ep}")
+        if seq_len % self.sp:
+            raise ValueError(f"seq_len={seq_len} not divisible by seq shards {self.sp}")
+        self.n_devices = self.dp * self.sp * self.ep
+        self.data_shards = self.dp  # replica rows, as the JAX trainer counts them
         self.seq_len = seq_len
         self.seq_impl = seq_impl
         self.vocab = vocab
@@ -207,8 +232,14 @@ class MoETrainer:
             vocab=vocab, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
             n_layers=n_layers, n_experts=n_experts, capacity_factor=capacity_factor,
             compute_dtype=compute_dtype, router_topk=router_topk,
-            dispatch_impl=dispatch_impl, seed=seed, device=self.device,
+            dispatch_impl=dispatch_impl,
+            expert_axis=self.expert_axis if self.ep > 1 else None, ep_size=self.ep,
+            seq_axis=self.seq_axis if self.sp > 1 else None, seq_impl=seq_impl,
+            seed=seed, device=self.device,
         )
+        named = dict(self.model.named_parameters())
+        self._params = {name: named[name] for name in leaf_order(self.model)}
+        self._specs = self.model.param_specs()
         make = optimizer or (lambda ps: Adam(ps, lr=learning_rate, mu_dtype=mu_dtype))
         self.optimizer = make(self.model.parameters())
         self.param_count = sum(p.numel() for p in self.model.parameters())
@@ -216,31 +247,62 @@ class MoETrainer:
 
     # -- stepping ------------------------------------------------------------
 
+    def rank_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The global (batch, seq_len) tokens as the rank stack (n_devices,
+        B_l, T_l): rank (d, s, e) holds rows ``[(d·ep + e)·B_l, ...)`` (data x
+        expert, data major) and columns ``[s·T_l, (s+1)·T_l)``."""
+        dp, sp, ep = self.dp, self.sp, self.ep
+        bl, tl = x.shape[0] // (dp * ep), self.seq_len // sp
+        g = x.reshape(dp, ep, bl, sp, tl).permute(0, 3, 1, 2, 4)
+        return g.reshape(self.n_devices, bl, tl)
+
     def _step(self, x: torch.Tensor, y: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """One step on device tensors; returns the (loss, aux, dropped,
-        contributors) device vector (no host read)."""
+        """One step on the global device tensors ``x``/``y`` under the (dp,)
+        mask ``v``; returns the (loss, aux, dropped, contributors) device
+        vector (no host read)."""
         self.optimizer.zero_grad(set_to_none=True)
-        logits, aux, dropped = self.model(x)
-        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long(),
-                             reduction="sum")
-        tokens_local = float(x.numel())
-        denom = torch.clamp_min(v * tokens_local, 1.0)
-        total = (ce + self.aux_coef * aux * tokens_local) * v / denom
-        total.backward()
+        xs, ys = self.rank_tokens(x), self.rank_tokens(y)
+        v_rank = v[self.mesh.index(self.data_axis)]  # (n_devices,)
+        tokens_local = float(xs[0].numel())
+        denom = torch.clamp_min((v_rank * tokens_local).sum(), 1.0)
+        mesh, model, stats = self.mesh, self.model, {}
+
+        def loss_terms(views, masked: bool):
+            logits, aux, dropped = model(xs, mesh=mesh, params=views)
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 ys.reshape(-1).long(), reduction="none")
+            ce = ce.reshape(self.n_devices, -1).sum(1)
+            stats.update(ce=ce.detach(), aux=aux.detach(), dropped=dropped.detach())
+            total = ce + self.aux_coef * aux * tokens_local
+            return (total * v_rank if masked else total) / denom
+
+        if self.overlap:
+            _, grads = overlap_value_and_grad(
+                lambda views: loss_terms(views, False), self._params, self._specs, mesh,
+                v_rank, wire_dtype=self.compress)
+        else:
+            _, grads = compressed_value_and_grad(
+                lambda views: loss_terms(views, True), self._params, self._specs, mesh,
+                wire_dtype=self.compress)
+        for name, p in self._params.items():
+            p.grad = grads[name]
+        del grads
         self.optimizer.step()
-        w = tokens_local * v / denom
-        return torch.stack([ce.detach() * v / denom, aux.detach() * w,
-                            dropped.detach() * w, v])
+        w = v_rank / denom
+        return torch.stack([(stats["ce"] * w).sum(), (stats["aux"] * tokens_local * w).sum(),
+                            (stats["dropped"] * tokens_local * w).sum(), v.sum()])
 
     def _tokens(self, a, what: str) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
-        if t.ndim != 2 or t.shape[1] != self.seq_len:
-            raise ValueError(f"{what} must be (batch, {self.seq_len}), got {tuple(t.shape)}")
+        rows = self.dp * self.ep
+        if t.ndim != 2 or t.shape[1] != self.seq_len or t.shape[0] % rows:
+            raise ValueError(
+                f"{what} must be (batch, {self.seq_len}) with the global batch divisible by "
+                f"{rows} row shards (data x expert), got {tuple(t.shape)}")
         return t.to(self.device, torch.int64)
 
     def _valid(self, valid: Sequence[float] | None) -> torch.Tensor:
-        arr = normalize_valid(valid, self.dp)
-        return torch.from_numpy(arr).to(self.device)[0]
+        return torch.from_numpy(normalize_valid(valid, self.dp)).to(self.device)
 
     def _metrics(self, row: list[float]) -> MoEStepMetrics:
         self.step_num += 1
@@ -250,8 +312,9 @@ class MoETrainer:
 
     def train_step(self, tokens, labels, valid: Sequence[float] | None = None
                    ) -> MoEStepMetrics:
-        """One step on a (batch, seq_len) token array (numpy or tensor);
-        ``valid``: the per-replica-row mask of shape (dp,), None = all."""
+        """One step on a GLOBAL (batch, seq_len) token array (numpy or
+        tensor), batch divisible by dp x ep; ``valid``: the per-replica-row
+        mask of shape (dp,), None = all."""
         v = self._valid(valid)
         x, y = self._tokens(tokens, "tokens"), self._tokens(labels, "labels")
         return self._metrics(self._step(x, y, v).tolist())
@@ -269,17 +332,23 @@ class MoETrainer:
         seed: int = 0,
     ) -> list[MoEStepMetrics]:
         """Run ``steps`` steps with batches drawn on the device by ``sampler``
-        ``(generator, rows) -> (tokens, labels)``; the generator is seeded
-        from ``seed`` and ``step_num`` (consecutive chains continue the
-        stream), and the metrics are read back once, at the end."""
+        ``(generator, rows) -> (tokens, labels)`` of GLOBAL (rows, seq_len)
+        sequences: one stream a (data, expert) coordinate, its generator
+        seeded from ``seed``, ``step_num`` and the coordinate (consecutive
+        chains continue the streams), the coordinate's seq ranks slicing
+        their columns from it; the metrics are read back once, at the
+        end."""
         if steps < 1:
             raise ValueError(f"need steps >= 1, got {steps}")
         v = self._valid(valid)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed((seed * 2**32 + self.step_num) % 2**63)
+        base = seed * 2**32 + self.step_num
+        gens = [torch.Generator(device=self.device).manual_seed(
+            (base + c * _ROW_SEED_STRIDE) % 2**63) for c in range(self.dp * self.ep)]
         rows = []
         for _ in range(steps):
-            x, y = sampler(gen, rows_per_device)
+            drawn = [sampler(gen, rows_per_device) for gen in gens]
+            x = torch.cat([d[0] for d in drawn])
+            y = torch.cat([d[1] for d in drawn])
             rows.append(self._step(x, y, v))
         return [self._metrics(row) for row in torch.stack(rows).cpu().tolist()]
 

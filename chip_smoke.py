@@ -162,27 +162,27 @@ Phases, each printed as it ends:
    plane, the nodes' round buffers on the card: the wire codec's C++ built
    with g++; BASELINE config 1 over loopback TCP (``cluster-master --nodes 4
    --size 1000000 --chunk 262144 --rounds 8 --th 1.0`` and four
-   ``cluster-node`` processes on the card, then the same with ``--device
+   ``cluster-node`` processes on the card, and the same with ``--device
    cpu``), each node's last flush against the numpy mean of the four seeded
    payloads (rtol 1e-5, atol 1e-6, counts 4), every node on ``wire=native``
    and the master with no CUDA context; ResNet-50's gradient (25,557,032
    floats, ``--streams 3``, 1 round) in f32 and with ``--wire-dtype f16``
-   (within 2e-3 of max|mean|); each run's node rounds, MB/s, stage times
-   (``d2h`` and ``h2d``: the copies off and onto the card), wire path and
-   device and the median round printed; in this process's event loop,
+   (within 2e-3 of max|mean|); the four clusters at once, each on its own
+   ports; each run's node rounds, MB/s, stage times (``d2h`` and ``h2d``:
+   the copies off and onto the card), wire path and device, the median
+   round and the runs beside it printed; in this process's event loop,
    ``MasterProcess`` with ``NodeProcess(device="cuda")`` nodes: the 2-D
    butterfly, thresholds 0.75 with a node stopped mid-run (re-mesh), a late
    joiner, and an int8 policy (each flush within two int8 steps of the mean,
    the error feedback's residuals on the card, the mean over rounds closer
-   than one round); a ``cluster-standby`` taking over from a killed
-   ``cluster-master`` under epoch 2 and completing the budget; ``obs demo
-   --nodes 2``; ``bench-wire --uring --intra-chunk --congestion`` with its
-   payloads on the card; no K1-K4 launch; (k) elasticity: config 5's
-   record (``bench_suite.config5_dropout_recovery``: the host tier and the
-   re-mesh tier on ``{0: [rank], 1: []}``, a zero-rank control node dropping
-   and rejoining; every flag true, one K1 launch for each of its 10 f32
-   steps); ``ElasticDPTrainer`` on ``MLP(hidden=(2048, 2048))`` over 4 nodes
-   x 2 virtual ranks, 16 rows a rank, f32: 2 steps, node 3 silent (6
+   than one round); ``obs demo --nodes 2``; ``bench-wire --uring
+   --intra-chunk --congestion`` with its payloads on the card; no K1-K4
+   launch; (k) elasticity: config 5's record
+   (``bench_suite.config5_dropout_recovery``: the host tier and the re-mesh
+   tier on ``{0: [rank], 1: []}``, a zero-rank control node dropping and
+   rejoining, the MoE tier over 4 nodes of 2 ranks; every flag true, one K1
+   launch for each of its 15 f32 steps); ``ElasticDPTrainer`` on
+   ``MLP(hidden=(2048, 2048))`` over 4 nodes x 2 virtual ranks, 16 rows a rank, f32: 2 steps, node 3 silent (6
    ranks), 2 steps, node 3 back (8 ranks), 2 steps, K1 once a step, every
    step bit-equal to a continuation oracle (a fresh ``DPTrainer`` restored
    from a ``Snapshot`` at each re-mesh) and the final parameters within
@@ -211,20 +211,21 @@ Phases, each printed as it ends:
    parameters and momentum within rtol 2e-4, atol 2e-5 of one unsharded
    ``torch.optim.SGD`` over the whole batch that never re-meshes;
    ``chaos-train --family dp`` and ``zero1``
-   at the JAX defaults (3 nodes, the victim's seeded crash at round 30)
+   (3 nodes, the victim's seeded crash at round 12, 10 rounds after it)
    with the nodes on the card: the victim's exit 23, every survivor's
    device, steps, K1 launches (one an f32 step), re-meshes and loss before
    and after the kill printed, no CUDA context in the drill's process or
    the master; the ``chaos`` drill at config 1's size (1,000,000 floats,
-   chunk 262,144, seed 1234, the default spec; the injected counts and the
-   median round printed); ``LocalAllreduceSystem`` at config 1's size
+   chunk 262,144, seed 1234, 20 rounds, the default spec; the injected
+   counts and the median round printed); ``LocalAllreduceSystem`` at config 1's size
    under a spec that drops, duplicates, reorders and corrupts (thresholds
    0.75, 10 rounds), every flush bit-equal to the same run on the CPU and
-   the event log byte-identical; ``chaos-adapt``, ``chaos-recover``,
-   ``chaos-failover``, ``chaos-gossip`` and ``chaos-scale`` (2x4 grid, 2
-   shards) with the JAX Makefile's levers, every summary printed on its own
-   line with the drill's wall seconds and the drills it ran beside (three
-   groups, a group's drills started together); ``train-mlp --profile-dir`` (a Chrome trace
+   the event log byte-identical; ``chaos-adapt``, ``chaos-recover`` and
+   ``chaos-failover`` (each 10 rounds after the wiped node's restore),
+   ``chaos-gossip`` and ``chaos-scale`` (2x4 grid, 2 shards) with the JAX
+   Makefile's levers, every summary printed on its own line with the
+   drill's wall seconds and the drills it ran beside (four at a time, each
+   started as soon as one ends); ``train-mlp --profile-dir`` (a Chrome trace
    holding K1, 5 launches); (m) the int8 KV cache and MoE: the flagship LM
    in bf16 served from an int8 cache (B 8, prompt 2048): the cache's bytes
    against the bf16 cache's ((D + 4) / 2D), K4 once a layer at the prefill
@@ -242,8 +243,7 @@ Phases, each printed as it ends:
    ``bench-mfu --workload moe`` and ``--mu-bf16``; at a dense width (d 128,
    T 256) three SGD steps on the card within 1e-4 of the CPU's and the
    scatter dispatch within 1e-5 of the einsum; ``train-moe`` at its defaults
-   with a falling loss, ``elastic-demo --family moe``, and config 5's MoE
-   fields from (k)'s record; (n) sequence and tensor parallelism over
+   with a falling loss and config 5's MoE fields from (k)'s record; (n) sequence and tensor parallelism over
    virtual ranks: ``LongContextTrainer`` on the flagship in bf16 over
    ``data_seq_model_mesh(2, 2, 2)`` with Ulysses (8 ranks: 4 rows a
    replica, 1,024 columns a seq rank, 8 heads a model rank, 4 a Ulysses
@@ -264,7 +264,33 @@ Phases, each printed as it ends:
    ``elastic-demo --family lc`` (8 ranks, dp 2 x sp 4 -> dp 3 x sp 2 ->
    dp 2 x sp 4); callable alone as ``chip_smoke.sharded_lm_path(dev,
    card_info(dev))`` after ``_build.build("local_reduce",
-   "flash_attention_wgmma", "flash_attention_bwd_wgmma")``;
+   "flash_attention_wgmma", "flash_attention_bwd_wgmma")``; (o) sharded
+   decode: ``LMGenerator`` over (model,) tp 2, (seq,) sp 4 and (seq,
+   model) 2 x 2 at the flagship in bf16 (B 8, a 2048-token prompt), each
+   with the bf16 and the int8 cache: the prefill and 8 teacher-forced
+   tokens, every rank's logits equal and within 2e-2 (seq meshes) or
+   1.6e-2 (tp 2) of max|logit| of the unsharded generator's, K4's forward
+   once a layer at the TP-only prefill (both ranks in one launch) and
+   nowhere else, ms a token (the slope between 4 and 16 tokens), prefill
+   ms, a rank's cache bytes and the peak memory beside the unsharded
+   generator's; in f32 the teacher-forced logits within 1e-5 (tp 2) or
+   2e-5 (seq meshes) of max|logit|, 1e-2 with the int8 cache, and the
+   greedy tokens of every mesh and cache equal to the unsharded
+   generator's; a control with one rank's cache zeroed after the prefill
+   (tp 2, sp 4; each precision and cache) outside those limits;
+   ``lm-generate --sp 2 --tp 2`` with each cache; (p) MoE over virtual
+   ranks at the bench width (8 experts top-1, scatter, bf16, B 8 x T
+   2048): one step over (data, expert) = (2, 4) and one over (data, seq,
+   expert) = (1, 2, 4) with Ulysses against the one-rank step at 2 of the
+   8 layers, capacity factor 8.0 (nothing dropped) and the aux loss out of
+   the gradient (the loss within 2e-4 relative, each gradient within 5e-2
+   of its max|grad|), K4's forward and backward once a layer a step for
+   all ranks and K1 once a step; the full depth at capacity 1.25 over (2,
+   4): a 16-step chain whose loss falls, ms a step, peak memory, two steps
+   under ``torch.profiler``; train-moe's width over (2, 2, 2) on the card
+   against the CPU with the bf16 wire and overlapped; ``train-moe --dp 2
+   --ep 2 --sp 2 --compress bf16`` and ``--overlap``; ``elastic-demo
+   --family moe`` over 8 ranks (dp 2 x ep 4 -> dp 3 x ep 2 -> dp 2 x ep 4);
 5. timings: K1 and K2 at K = 16 x 64M, K3 in each mode at 8 x 25M (padded to
    whole buckets), K4 at the flagship shape in bf16 and in f32 at B 2, each
    by CUDA events, beside its plain version, the nearest PyTorch library
@@ -374,11 +400,13 @@ CKPT_LM = dict(LM, n_layers=1)
 CKPT_STEPS_AFTER, CKPT_LM_BATCH, CKPT_BENCH_BASELINE, CKPT_FREE_BYTES = 2, 2, 5, 4e9
 MASK3 = [1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0]  # rank 3 masked
 # the TCP control plane (phase j): BASELINE config 1 between 4 node processes
-# (1M floats, chunk 262,144, thresholds 1.0, 8 rounds), ResNet-50's gradient
-# over three payload streams for 1 round, and the failover drill's budget
-# (the leader killed after 5): rounds cut from 20, 3 and 30 for the time limit
+# (1M floats, chunk 262,144, thresholds 1.0, 8 rounds; cut from 20) on the
+# card and on the CPU, and ResNet-50's gradient over three payload streams for
+# 1 round (cut from 3) in f32 and f16, the four clusters run at once (each on
+# its own ports; cut from one after another). The standby takeover runs in
+# phase (l)'s chaos-failover (cut from a run of its own here)
 CLUSTER_NODES, CLUSTER_FLOATS, CLUSTER_CHUNK, CLUSTER_ROUNDS = 4, 1_000_000, 262_144, 8
-CLUSTER_BIG_ROUNDS, FAILOVER_ROUNDS = 1, 10
+CLUSTER_BIG_ROUNDS = 1
 # elasticity (phase k): the DP cell's width over 4 nodes x 2 virtual ranks, the
 # node that drops, the re-mesh cycles of the leak check and the bytes they may
 # leave allocated, the training cluster's step budgets (long enough that both
@@ -397,6 +425,15 @@ CHAOS_STEPS = 24
 CHAOS_LOCAL_SPEC = "drop:p=0.02;duplicate:p=0.05;reorder:p=0.05;corrupt:p=0.05"
 CHAOS_LOCAL_SEED, CHAOS_LOCAL_CHUNK, CHAOS_LOCAL_ROUNDS = 0, 262_144, 10
 CHAOS_SCALE_GRID, CHAOS_SCALE_SHARDS = "2x4", 2
+# the drills' depth, cut for the time limit: chaos-train's crash at round 12
+# and 10 rounds after it (JAX defaults 30 and 25), the chaos drill's 20
+# rounds (50), chaos-recover's and chaos-failover's 10 rounds after the
+# restore (40; their crash stays at round 25: at round 8 chaos-failover's
+# respawned node found no complete replica of its checkpoint to restore from)
+CHAOS_TRAIN_DEPTH = ("--kill-at-round", "12", "--post-rounds", "10")
+CHAOS_ROUNDS = 20
+CHAOS_RESTORE_DEPTH = ("--min-post-rounds", "10")
+DRILL_WIDTH = 4  # drills running at once
 # the int8 KV cache and MoE (phase m): the serving cell is the flagship's; the
 # MoE cell is bench-mfu --workload moe's defaults (8 experts, top-1, capacity
 # factor 1.25, auto -> scatter, bf16, 2.28B parameters), its chain long enough
@@ -422,6 +459,50 @@ SHARDED_MESH, SHARDED_CHAIN = (2, 2, 2), 16
 # measured on an H100 (PERF.md, PR 18): loss 1.93e-5 relative, gradients
 # 2.28e-2 of max|grad| (bf16 partial sums rounded before the TP psum)
 SHARDED_LOSS_TOL, SHARDED_GRAD_TOL = 2e-4, 5e-2
+# sharded decode (phase o): the flagship in bf16 over each decode mesh of
+# virtual ranks (the JAX tests' tp 2, sp 4 and seq x model 2 x 2), a
+# 2048-token prompt then 8 teacher-forced tokens, the decode slope between 4
+# and 16 tokens
+DECODE_MESHES = {"tp2": ((2,), ("model",)), "sp4": ((4,), ("seq",)),
+                 "sp2_tp2": ((2, 2), ("seq", "model"))}
+DECODE_TF, DECODE_GEN = 8, 16
+# the teacher-forced logits of a mesh against the unsharded generator's, of
+# max|logit|, each limit set from an H100's readings (PERF.md). bf16, each
+# cache: the seq meshes within FLASH_TOL's bf16 band (the int8 cache's decode
+# check's; the seq merge changes the summation order; read 1.16e-2-1.55e-2),
+# tp 2 within DECODE_TP_BF16_TOL: its heads reduce as on one device, and only
+# each rank's partial out-projection and MLP sums are rounded to bf16 before
+# the psum over model (read 1.16e-2 and 1.53e-2 with the int8 cache: one
+# bf16 step of the largest logit). f32 with the f32 cache: tp 2 within
+# DECODE_TP_F32_TOL (read 2.67e-6), the seq meshes within DECODE_SEQ_F32_TOL
+# (3.21e-6-3.26e-6; K4's split TF32 at the unsharded prefill against the seq
+# ranks' f32 partials); with the int8 cache every mesh within
+# DECODE_INT8_F32_TOL (4.00e-3-4.72e-3: a K or V element that lands on the
+# other side of an int8 rounding step moves by max|row|/127).
+# DECODE_CONTROL_RANK: a control zeroes this rank's cache after the prefill
+# (tp 2: half the heads; sp 4: a quarter of the slots) and must fail the
+# limit of its mesh, precision and cache (read 0.20-0.69)
+DECODE_TP_BF16_TOL, DECODE_TP_F32_TOL, DECODE_SEQ_F32_TOL = 1.6e-2, 1e-5, 2e-5
+DECODE_INT8_F32_TOL = 1e-2
+DECODE_CONTROL_RANK = 1
+# MoE over virtual ranks (phase p): (p1) the bench width's one-rank step
+# against (data, expert) = (2, 4) and (data, seq, expert) = (1, 2, 4) with
+# Ulysses at capacity factor 8.0 (nothing drops: the JAX tests' oracle), its
+# depth cut to 2 of 8 layers (at 8.0 the expert activations of 8 layers,
+# 16,384 slots an expert, would not fit the card beside the one-rank trainer's
+# state); (p2) the full depth at the bench's 1.25 over (2, 4), a chain long
+# enough for Adam at 1e-3 to bring the loss down (phase m's note). The (p1)
+# steps leave the aux loss out of the gradient (aux_coef 0): its Switch
+# statistics are per rank, so its value depends on how the rows are split
+# (the JAX tests hold a mesh against the dense mesh with the same row split;
+# here the one-rank step has one row group), and the cross-entropy's gradient
+# is what the all_to_all pair, the attention and the sums must give. (p3)
+# train-moe's width (vocab 64, d 128, 4 heads, 2 layers, 4 experts, T 64)
+MOE_MESHES = {"data2_expert4": ((2, 4), ("data", "expert"), "ring"),
+              "data1_seq2_expert4": ((1, 2, 4), ("data", "seq", "expert"), "ulysses")}
+MOE_ORACLE_LAYERS, MOE_ORACLE_CF, MOE_PAR_CHAIN = 2, 8.0, 16
+MOE_TRAIN = dict(vocab=64, d_model=128, n_heads=4, n_layers=2, n_experts=4)
+MOE_TRAIN_SEQ = 64
 SMALL_LM = dict(vocab=64, d_model=128, n_heads=4, n_layers=2)
 SMALL_LM_SEQ, SMALL_LM_BATCH, SMALL_LM_STEPS, SMALL_LM_LR = 256, 8, 3, 0.1
 SMALL_LM_TOL = 1e-5  # card vs CPU and f32 meshes vs 1 x 1: losses relative, params of max
@@ -1859,12 +1940,14 @@ def inproc_mean_err(h: dict, nodes, contributors, count: int) -> float:
 
 def cluster_path(dev, card: dict) -> dict:
     """Phase (j): the TCP control plane with the nodes' round buffers on the
-    card. BASELINE config 1 and ResNet-50's gradient over TCP between node
-    processes, in-process clusters on the card (butterfly, dropout at
-    th 0.75, a late joiner, an int8 policy with error feedback), a standby
-    takeover, ``obs demo`` and ``bench-wire``; no K1-K4 launch."""
+    card. BASELINE config 1 (nodes on the card and on the CPU) and
+    ResNet-50's gradient (f32 and f16 wires) over TCP between node
+    processes, the four clusters at once, in-process clusters on the card
+    (butterfly, dropout at th 0.75, a late joiner, an int8 policy with error
+    feedback), ``obs demo`` and ``bench-wire``; no K1-K4 launch."""
     import asyncio
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
     import tempfile
     from pathlib import Path
 
@@ -1882,32 +1965,37 @@ def cluster_path(dev, card: dict) -> dict:
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_cluster_"))
     t0 = time.perf_counter()
     try:
-        # config 1 over TCP: 4 node processes on the card, then on the CPU
-        for tag, device in (("config1_cuda", str(dev)), ("config1_cpu", "cpu")):
-            run = tcp_cluster_run(root, tag, CLUSTER_FLOATS, CLUSTER_ROUNDS, device)
-            err = check_tcp_flushes(run, CLUSTER_FLOATS, tag)
+        # over TCP, at once, each cluster on its own ports: config 1 with 4
+        # node processes on the card and on the CPU; ResNet-50's gradient
+        # over three payload streams, f32 then f16; and in this thread ``obs
+        # demo``'s cluster. Their readings are taken beside the others' load
+        # (``with``)
+        runs = {"config1_cuda": (CLUSTER_FLOATS, CLUSTER_ROUNDS, str(dev), ()),
+                "config1_cpu": (CLUSTER_FLOATS, CLUSTER_ROUNDS, "cpu", ())}
+        for wire in ("f32", "f16"):
+            runs[f"resnet_grad_{wire}"] = (RESNET_PARAMS, CLUSTER_BIG_ROUNDS, str(dev),
+                                           ("--streams", "3", "--wire-dtype", wire))
+        with ThreadPoolExecutor(len(runs)) as pool:
+            done = {tag: pool.submit(tcp_cluster_run, root, tag, *args)
+                    for tag, args in runs.items()}
+            out["obs_demo"] = {**obs_demo_run(root, dev), "s": time.perf_counter() - t0}
+            results = {tag: f.result() for tag, f in done.items()}
+        out["tcp_clusters_s"] = time.perf_counter() - t0
+        for tag, run in results.items():
+            size, rounds, device, _ = runs[tag]
+            err = check_tcp_flushes(run, size, tag, f16=tag == "resnet_grad_f16")
             for s in run["stats"]:
-                require(s["rounds"] >= CLUSTER_ROUNDS, f"{tag}: node rounds {s['rounds']}")
+                require(s["rounds"] >= rounds, f"{tag}: node rounds {s['rounds']}")
                 require(s["wire"] == "native", f"{tag}: node {s['node']} ran wire={s['wire']}")
                 want = card["name"] if device != "cpu" else "cpu"
                 require(s["device"] == want, f"{tag}: node device {s['device']}")
             out[tag] = {**tcp_summary(run, card, device), "max_abs_err": err,
-                        "s": time.perf_counter() - t0}
-            t0 = time.perf_counter()
-            print("\n".join(run["node_lines"]), flush=True)
-        # ResNet-50's gradient over TCP, three payload streams, f32 then f16
-        for wire in ("f32", "f16"):
-            tag = f"resnet_grad_{wire}"
-            run = tcp_cluster_run(root, tag, RESNET_PARAMS, CLUSTER_BIG_ROUNDS, str(dev),
-                                  extra=("--streams", "3", "--wire-dtype", wire))
-            err = check_tcp_flushes(run, RESNET_PARAMS, tag, f16=wire == "f16")
-            require(all(s["wire"] == "native" for s in run["stats"]), f"{tag}: wire path")
-            out[tag] = {**tcp_summary(run, card, str(dev)), "max_abs_err": err,
-                        "s": time.perf_counter() - t0}
-            t0 = time.perf_counter()
+                        "wall_s": run["wall_s"],
+                        "with": [t for t in (*runs, "obs demo") if t != tag]}
             print("\n".join(run["node_lines"]), flush=True)
         shutil.rmtree(root / "resnet_grad_f32")
         shutil.rmtree(root / "resnet_grad_f16")
+        t0 = time.perf_counter()
 
         # in-process clusters on the card, in this process's event loop
         h = inproc_cluster(dev, nodes=4, dims=2, size=CLUSTER_FLOATS, rounds=3)
@@ -1958,10 +2046,6 @@ def cluster_path(dev, card: dict) -> dict:
                            policy=RoundPolicy(wire="int8"))
         out["int8_ef"] = {**int8_ef_check(h, dev), "s": time.perf_counter() - t0}
         t0 = time.perf_counter()
-        out["failover"] = {**failover_run(root, dev), "s": time.perf_counter() - t0}
-        t0 = time.perf_counter()
-        out["obs_demo"] = {**obs_demo_run(root, dev), "s": time.perf_counter() - t0}
-        t0 = time.perf_counter()
         rc, text = run_cli(["bench-wire", "--json", "--uring", "--intra-chunk",
                             "--congestion", "--device", str(dev)])
         records = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
@@ -2002,54 +2086,6 @@ def int8_ef_check(h: dict, dev) -> dict:
     require(rounds_mean < first, f"EF: the mean over rounds {rounds_mean} vs one round {first}")
     return {"max_abs_err": max(errs), "bound": bound, "mean_over_rounds_err": rounds_mean,
             "residuals_on_card": len(residuals)}
-
-
-def failover_run(root, dev) -> dict:
-    """A leader ``cluster-master``, a ``cluster-standby`` and 2
-    ``cluster-node`` processes on the card; the leader is killed after a few
-    rounds; the standby takes over under epoch 2 and completes the round
-    budget, every node's flushes strictly increasing."""
-    d = root / "failover"
-    d.mkdir()
-    master = spawn_role("cluster-master", "--nodes", "2", "--size", "100000", "--chunk",
-                        "16384", "--rounds", str(FAILOVER_ROUNDS), "--heartbeat", "0.2",
-                        "--metrics-out", str(d / "master.jsonl"), log=d / "master.log")
-    procs = [master]
-    try:
-        seed = read_endpoint(master, "master listening on ")
-        standby = spawn_role("cluster-standby", "--seed", seed, "--heartbeat", "0.2",
-                             "--phi", "3", log=d / "standby.log")
-        procs.append(standby)
-        read_endpoint(standby, "standby listening on ")
-        for k in range(2):
-            procs.append(spawn_role("cluster-node", "--seed", seed, "--device", str(dev),
-                                    log=d / f"node{k}.log"))
-        t_end = time.perf_counter() + 90
-        while sum(r.get("kind") == "round" for r in jsonl(d / "master.jsonl")) < 5:
-            require(time.perf_counter() < t_end and master.poll() is None,
-                    "the leader ran 5 rounds")
-            time.sleep(0.1)
-        master.kill()
-        master.wait(timeout=30)
-        t0 = time.perf_counter()
-        outs = [p.communicate(timeout=120)[0] for p in procs[1:]]
-        require(all(p.returncode == 0 for p in procs[1:]),
-                f"failover exit codes: {outs}\n{log_tails(d)}")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
-    take = next(json.loads(ln.split(" ", 1)[1]) for ln in outs[0].splitlines()
-                if ln.startswith("TAKEOVER "))
-    done = next(ln for ln in outs[0].splitlines() if ln.startswith("master done: "))
-    require(take["epoch"] == 2 and "(epoch 2" in done, f"takeover: {take} {done}")
-    nodes = [ln for o in outs[1:] for ln in o.splitlines() if " shut down " in ln]
-    require(len(nodes) == 2 and all("dup_flushes=0" in ln for ln in nodes),
-            f"the nodes' flushes after the takeover: {nodes}")
-    print(done, *nodes, sep="\n", flush=True)
-    return {"takeover": take, "standby_done": done, "nodes": nodes,
-            "after_kill_s": time.perf_counter() - t0}
 
 
 def obs_demo_run(root, dev) -> dict:
@@ -2304,8 +2340,9 @@ def elastic_path(dev, card: dict) -> dict:
     require(all(rec[k] is True for k in flags) and len(flags) == 6
             and rec["zero_device_control_node"] is True and rec["rounds_completed"] == 10
             and 2.0 <= rec["mean_contributors"] <= 3.0, f"config 5 record {rec}")
-    # the DP and ZeRO-1 trainers: 5 f32 steps each, one K1 launch a step
-    require(launches["config5"] == k1(10) and count["elastic_average_step"] == 0,
+    # the DP and ZeRO-1 trainers at one rank and the MoE trainer over 8 and
+    # 6 ranks: 5 f32 steps each, one K1 launch a step
+    require(launches["config5"] == k1(15) and count["elastic_average_step"] == 0,
             f"config 5: one K1 launch an f32 step: {dict(count)}")
     out["config5"] = {k: rec[k] for k in (
         "rounds_completed", "mean_contributors", "drop_remesh_and_first_step_s",
@@ -2593,40 +2630,47 @@ def zero1_schedule_run(dev, lives) -> dict:
     return out
 
 
-def run_drills(root, group, *, dev, timeout: float = 480) -> list[dict]:
-    """Start the drills of ``group`` (``(name, argv)`` pairs) together, each
+def run_drills(root, drills, *, dev, width: int = DRILL_WIDTH,
+               timeout: float = 480) -> list[dict]:
+    """Run the drills (``(name, argv)`` pairs), at most ``width`` at a time,
+    each started as soon as a running one ends, in the order given: each
     ``python -m akka_allreduce_tpu_torch <name> <argv>`` with its nodes on
     ``dev``, its stderr (and its roles') in a log and its own process
-    group, killed whole if it outlives ``timeout``; each must exit 0 with
-    an empty ``failures`` list in its summary JSON (its last stdout line).
-    Returns the summaries, each with its wall seconds, the drills it ran
-    beside (``with``: its readings were taken under their load) and its
-    output directory."""
+    group, killed whole if it outlives ``timeout``; each must exit 0 with an
+    empty ``failures`` list in its summary JSON (its last stdout line).
+    Returns the summaries in the order given, each with its wall seconds,
+    the drills that ran beside it for some of its time (``with``: its
+    readings were taken under their load) and its output directory."""
     import signal
     import subprocess
 
-    runs = []
+    pending, runs = list(drills), []
+
+    def start(name, argv):
+        d = root / "_".join((name, *argv[:2]))
+        d.mkdir()
+        cli = [name, *argv, "--out-dir", str(d / "out"), "--device", str(dev)]
+        with open(d / "drill.log", "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "akka_allreduce_tpu_torch", *cli],
+                stdout=subprocess.PIPE, stderr=err, text=True, start_new_session=True)
+        runs.append({"name": name, "argv": list(argv), "dir": d, "cli": cli,
+                     "proc": proc, "t0": time.perf_counter()})
+
     try:
-        for name, argv in group:
-            d = root / "_".join((name, *argv[:2]))
-            d.mkdir()
-            cli = [name, *argv, "--out-dir", str(d / "out"), "--device", str(dev)]
-            with open(d / "drill.log", "w") as err:
-                proc = subprocess.Popen(
-                    [sys.executable, "-m", "akka_allreduce_tpu_torch", *cli],
-                    stdout=subprocess.PIPE, stderr=err, text=True, start_new_session=True)
-            runs.append({"name": name, "argv": list(argv), "dir": d, "cli": cli,
-                         "proc": proc, "t0": time.perf_counter()})
-        t_end = time.perf_counter() + timeout
         # a drill prints a few lines before its summary, far below a pipe's
         # buffer, so polling cannot stall one
-        while any("wall_s" not in r for r in runs) and time.perf_counter() < t_end:
+        while pending or any("t1" not in r for r in runs):
+            while pending and sum("t1" not in r for r in runs) < width:
+                start(*pending.pop(0))
+            now = time.perf_counter()
             for r in runs:
-                if "wall_s" not in r and r["proc"].poll() is not None:
-                    r["wall_s"] = time.perf_counter() - r["t0"]
+                if "t1" not in r and (r["proc"].poll() is not None
+                                      or now - r["t0"] > timeout):
+                    r["t1"] = now
             time.sleep(0.1)
         for r in runs:
-            r.setdefault("wall_s", time.perf_counter() - r["t0"])
+            r["wall_s"] = r["t1"] - r["t0"]
             r["stdout"] = r["proc"].communicate(timeout=5)[0] if r["proc"].poll() is not None else ""
     finally:
         for r in runs:
@@ -2645,7 +2689,8 @@ def run_drills(root, group, *, dev, timeout: float = 480) -> list[dict]:
         summary = json.loads(lines[-1])
         require(summary.get("failures", []) == [], f"{r['name']}: {summary}")
         summary["wall_s"] = r["wall_s"]
-        summary["with"] = [" ".join((o["name"], *o["argv"][:2])) for o in runs if o is not r]
+        summary["with"] = [" ".join((o["name"], *o["argv"][:2])) for o in runs
+                           if o is not r and o["t0"] < r["t1"] and r["t0"] < o["t1"]]
         print(json.dumps({"drill": r["name"], "argv": r["argv"], **summary}), flush=True)
         summary["out_dir"] = str(r["dir"] / "out")
         out.append(summary)
@@ -2659,18 +2704,16 @@ def chaos_path(dev, card: dict) -> dict:
     continuation oracle, the final parameters within ``STEP_TOL`` of the
     same schedule on the CPU, each re-mesh timed; ``leader_kill_step``
     printed beside the schedule. (l2) ``chaos-train --family dp`` and
-    ``zero1`` at the JAX defaults, the nodes on the card: the victim ends
+    ``zero1`` (depth cut: ``CHAOS_TRAIN_DEPTH``), the nodes on the card: the victim ends
     with exit 23, every survivor re-meshes within the loss band, K1 once an
     f32 step in each node, neither the drill's process nor the master with
     a CUDA context. (l3) the ``chaos`` drill at config 1's size. (l4)
     ``LocalAllreduceSystem`` under a spec that drops, duplicates, reorders
     and corrupts, on the card against the CPU: every flush bit-equal, the
-    event log byte-identical. (l5) ``chaos-adapt``, ``chaos-recover``,
-    ``chaos-failover``, ``chaos-gossip`` and ``chaos-scale`` with the JAX
-    Makefile's levers. The drills run in three groups, the drills of a
-    group started together (each its own cluster on its own ports): (l2)
-    and (l3); adapt, recover and failover;
-    gossip and scale. Then ``train-mlp --profile-dir``. Returns K1's
+    event log byte-identical. (l5) ``chaos-adapt``, ``chaos-failover``,
+    ``chaos-gossip`` and ``chaos-scale`` with the JAX Makefile's levers.
+    The drills run four at a time (each its own cluster on its own ports),
+    each started as soon as one ends. Then ``train-mlp --profile-dir``. Returns K1's
     launches in this process and the figures."""
     import shutil
     import statistics
@@ -2743,32 +2786,36 @@ def chaos_path(dev, card: dict) -> dict:
         # (l2) chaos-train, the nodes' trainers on the card, beside (l3) the
         # chaos drill at config 1's size, the nodes' payloads on the card
         levers = ("--uring", "--intra-chunk", "1048576", "--congestion")
-        groups = [
-            [("chaos-train", ("--family", "dp")), ("chaos-train", ("--family", "zero1")),
-             ("chaos", ("--size", str(CLUSTER_FLOATS), "--chunk", str(CLUSTER_CHUNK),
-                        "--seed", "1234"))],
-            # (l5) the other drills, with the JAX Makefile's levers
-            [("chaos-adapt", ("--seed", "1234", "--streams", "2", "--gossip", *levers)),
-             ("chaos-recover", ("--seed", "1234", "--streams", "2", "--gossip", *levers)),
-             ("chaos-failover", ("--seed", "1234", "--streams", "2", "--gossip", *levers))],
-            [("chaos-gossip", ("--seed", "1234", "--streams", "2", *levers)),
-             ("chaos-scale", ("--seed", "1234", "--grid", CHAOS_SCALE_GRID, "--line-shards",
-                              str(CHAOS_SCALE_SHARDS), "--streams", "2", *levers))],
+        # the longest first, so that the short ones fill in behind them
+        drills = [
+            ("chaos-failover", ("--seed", "1234", "--streams", "2", "--gossip",
+                                *CHAOS_RESTORE_DEPTH, *levers)),
+            ("chaos-recover", ("--seed", "1234", "--streams", "2", "--gossip",
+                               *CHAOS_RESTORE_DEPTH, *levers)),
+            ("chaos-scale", ("--seed", "1234", "--grid", CHAOS_SCALE_GRID, "--line-shards",
+                             str(CHAOS_SCALE_SHARDS), "--streams", "2", *levers)),
+            ("chaos-adapt", ("--seed", "1234", "--streams", "2", "--gossip", *levers)),
+            ("chaos-train", ("--family", "dp", *CHAOS_TRAIN_DEPTH)),
+            ("chaos-train", ("--family", "zero1", *CHAOS_TRAIN_DEPTH)),
+            ("chaos-gossip", ("--seed", "1234", "--streams", "2", *levers)),
+            ("chaos", ("--size", str(CLUSTER_FLOATS), "--chunk", str(CLUSTER_CHUNK),
+                       "--seed", "1234", "--rounds", str(CHAOS_ROUNDS))),
         ]
         # On an H100 host a drill is bound by its processes' start-up, not
         # its rounds (chaos-train dp: 45.9 of 50.6 s before its first round;
         # import torch alone 6.7 s): one after another the eight took 422.6
-        # s and the script 1,063 s of its 1,200. Started three at a time
-        # their start-ups overlap (groups of 57.7-71.8 s; a drill's wall
-        # 0.92-1.23x its wall alone, on another host). A drill's readings in
-        # a group are taken beside its siblings' load, which its summary
-        # line names (``with``).
+        # s and the script 1,063 s of its 1,200. Run DRILL_WIDTH at a time
+        # their start-ups overlap (three groups of three took 57.7-71.8 s; a
+        # drill's wall 0.92-1.23x its wall alone, on another host), and a
+        # drill starts as soon as one ends (the eight: 114.6 s four at a
+        # time, 126.4 s five at a time: their start-ups share 8 CPU cores).
+        # A drill's readings are taken beside its siblings' load, which its
+        # summary line names (``with``).
         summaries = {}
-        for group in groups:
-            t0 = time.perf_counter()
-            for (name, argv), s in zip(group, run_drills(root, group, dev=dev)):
-                summaries["_".join((name, *argv[:2])) if name == "chaos-train" else name] = s
-            out.setdefault("drill_groups_s", []).append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for (name, argv), s in zip(drills, run_drills(root, drills, dev=dev)):
+            summaries["_".join((name, *argv[:2])) if name == "chaos-train" else name] = s
+        out["drills_s"] = time.perf_counter() - t0
         for family in ("dp", "zero1"):
             s = summaries[f"chaos-train_--family_{family}"]
             require(s["victim_exit"] == CRASH_EXIT_CODE and s["master_done"]
@@ -3134,9 +3181,10 @@ def moe_training(dev, card: dict) -> dict:
 
 def moe_int8_path(dev, card: dict, config5: dict) -> dict:
     """Phase (m): (m1) :func:`int8_serving`; (m2) :func:`moe_training`; (m3)
-    ``train-moe`` at its defaults with a falling loss, ``elastic-demo
-    --family moe`` and config 5's MoE fields from phase (k)'s record.
-    Returns K4's launches by kernel name and the figures."""
+    ``train-moe`` at its defaults with a falling loss and config 5's MoE
+    fields from phase (k)'s record (``elastic-demo --family moe`` runs in
+    phase (p), over 8 ranks). Returns K4's launches by kernel name and the
+    figures."""
     import torch
 
     from akka_allreduce_tpu_torch.ops import flash_attention as fa
@@ -3152,10 +3200,7 @@ def moe_int8_path(dev, card: dict, config5: dict) -> dict:
     print(line, flush=True)
     require(rc == 0 and last < first and line.startswith("moe: 30 steps on 1 devices"),
             f"train-moe: rc {rc}\n{text}")
-    rc, text = run_cli(["elastic-demo", "--family", "moe"])
-    require(rc == 0 and "final generation 2" in text and "dp1 x ep1" in text,
-            f"elastic-demo --family moe: rc {rc}\n{text}")
-    require(all(n == 0 for n in count.values()), f"train-moe / elastic-demo: K4 {count}")
+    require(all(n == 0 for n in count.values()), f"train-moe: K4 {count}")
     moe5 = {k: v for k, v in config5.items() if k.startswith("moe_")}
     require(moe5.get("moe_remeshed") is True and len(moe5) == 5
             and all(v is not None for v in moe5.values()), f"config 5's MoE fields {moe5}")
@@ -3163,8 +3208,7 @@ def moe_int8_path(dev, card: dict, config5: dict) -> dict:
     for name, n in training.pop("launches").items():
         launches[name] = launches.get(name, 0) + n
     return {"launches": launches, "int8_serving": serving, "moe_training": training,
-            "train_moe": line, "elastic_demo": text.strip().splitlines()[-1],
-            "config5_moe": moe5}
+            "train_moe": line, "config5_moe": moe5}
 
 
 # -- phase (n): sequence and tensor parallelism over virtual ranks ------------------
@@ -3399,6 +3443,433 @@ def sharded_lm_path(dev, card: dict) -> dict:
           f"{losses[-1]:.4f}; bench-mfu --dp 2 --sp 2 {out['bench_mfu']['ms_per_step']} "
           f"ms/step, MFU {out['bench_mfu']['value']} (one card), peak "
           f"{out['bench_mfu']['peak_memory_gb']:.2f} GB", flush=True)
+    out["launches"] = launches
+    return out
+
+
+# -- phase (o): sharded decode over virtual ranks --------------------------------
+
+
+def teacher_forced(gen, tokens, prompt: int, *, every_rank: bool = False,
+                   after_prefill=None):
+    """``gen``'s logits over ``tokens`` (B, T): the first ``prompt`` tokens
+    in one prefill, then one decode step a token (``every_rank``: every
+    rank's, (R, B, T, vocab)); ``after_prefill(cache)`` runs between them."""
+    import torch
+
+    cache = gen.init_cache(tokens.shape[0])
+    params = gen.place_params()
+    out = [gen.step(cache, tokens[:, :prompt], params=params, every_rank=every_rank)]
+    if after_prefill is not None:
+        after_prefill(cache)
+    for i in range(prompt, tokens.shape[1]):
+        out.append(gen.step(cache, tokens[:, i:i + 1], params=params, every_rank=every_rank))
+    return torch.cat(out, dim=-2)
+
+
+def cache_bytes_a_rank(cache) -> int:
+    """One rank's bytes of a cache (a ``RankKVCache``'s first row)."""
+    parts = cache.k + cache.v + (cache.k_scale or []) + (cache.v_scale or [])
+    ranked = hasattr(cache, "seq_shards")
+    return sum((t[0] if ranked else t).numel() * t.element_size() for t in parts)
+
+
+def decode_timing(gen, prompt) -> dict:
+    """The decode slope (ms a token between ``DECODE_GEN`` and its quarter,
+    median of 3, host clock ended by a synchronize), the prefill (median of
+    3) and the peak memory of those runs."""
+    import statistics
+
+    import torch
+
+    lo, hi = DECODE_GEN // 4, DECODE_GEN
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    gen.generate(prompt, lo)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    slopes = [(timed(lambda: gen.generate(prompt, hi)) - timed(lambda: gen.generate(prompt, lo)))
+              / (hi - lo) * 1e3 for _ in range(3)]
+    def prefill_ms() -> float:
+        cache = gen.init_cache(prompt.shape[0])
+        return timed(lambda: gen.step(cache, prompt)) * 1e3
+
+    prefill = [prefill_ms() for _ in range(3)]
+    return {"ms_per_token": statistics.median(slopes), "ms_per_token_all": slopes,
+            "prefill_ms": statistics.median(prefill), "prefill_ms_all": prefill,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+DECODE_TIMING_PREFILLS = 10  # decode_timing's: the warm-up, 3 slope pairs, 3 prefills
+
+
+def sharded_decode_path(dev, card: dict) -> dict:
+    """Phase (o): ``LMGenerator`` over meshes of virtual ranks at the
+    flagship's width in bf16 (B 8, a 2048-token prompt): tensor-parallel
+    over ``(model,)`` tp 2, sequence-sharded over ``(seq,)`` sp 4 and both
+    over ``(seq, model)`` 2 x 2, each with the bf16 and the int8 cache.
+    Teacher-forced logits (the prefill, then ``DECODE_TF`` one-token steps)
+    equal on every rank and within ``FLASH_TOL`` bf16 of max|logit| of the
+    unsharded generator's, tp 2 within ``DECODE_TP_BF16_TOL``; a control
+    with one rank's cache zeroed after the prefill (tp 2, sp 4) outside
+    those limits; K4's forward once a layer at the TP-only prefill (all
+    ranks in one launch, the int8 cache's dequantize branch too) and
+    nowhere else; ms a token, prefill ms, a rank's cache bytes and the peak
+    memory; in f32, the teacher-forced logits of every mesh within
+    ``DECODE_TP_F32_TOL`` (tp 2) or ``DECODE_SEQ_F32_TOL`` (the seq meshes)
+    of the unsharded generator's, ``DECODE_INT8_F32_TOL`` with the int8
+    cache, the control outside them, and
+    greedy generation equal to the unsharded generator's tokens;
+    ``lm-generate --sp 2 --tp 2`` with each cache. Returns K4's launches and
+    the figures."""
+    import torch
+
+    from akka_allreduce_tpu_torch.models import LMGenerator, SyntheticCopyLM, TransformerLM
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.parallel import RankMesh
+
+    count = fa.LAUNCHES
+    n_layers = LM["n_layers"]
+    launches = {"flash_attention_bf16": 0, "flash_attention_f32": 0}
+    x, _ = next(SyntheticCopyLM(LM_SEQ + LM_GEN, vocab=LM["vocab"], seed=SEED).batches(
+        LM_BATCH, 1))
+    tokens = torch.from_numpy(x[:, :LM_SEQ + DECODE_TF]).to(dev)
+    prompt = tokens[:, :LM_SEQ]
+    max_len = LM_SEQ + LM_GEN
+    out: dict = {"meshes": {}}
+
+    def take(what: str, k4: int, dtype: str = "bf16") -> None:
+        torch.cuda.synchronize()
+        kernel = "flash_attention_wgmma" if dtype == "bf16" else "flash_attention_3xtf32"
+        require(count["flash_attention"] == count[kernel] == k4
+                and sum(count.values()) == 2 * k4, f"{what}: K4 launches {dict(count)}")
+        launches[f"flash_attention_{dtype}"] += k4
+        zero(count)
+
+    def lose_a_rank(cache) -> None:
+        for t in cache.k + cache.v + (cache.k_scale or []) + (cache.v_scale or []):
+            t[DECODE_CONTROL_RANK].zero_()
+
+    def held(got, want, limit: float, what: str) -> float:
+        """``got``'s worst logit error of max|logit| of ``want``, required
+        within ``limit``."""
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= limit,
+                f"{what}: logits vs the unsharded decode {err} of max|logit| (limit {limit})")
+        return err
+
+    def control(gen, want, limit: float, what: str, k4: int, dtype: str) -> float:
+        """The same with ``DECODE_CONTROL_RANK``'s cache zeroed after the
+        prefill, required outside ``limit``."""
+        got = teacher_forced(gen, tokens, LM_SEQ, after_prefill=lose_a_rank)
+        take(f"{what} control", k4, dtype)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        require(err > limit, f"{what}: with rank {DECODE_CONTROL_RANK}'s cache zeroed the "
+                f"logits are {err} of max|logit| from the unsharded decode, within the "
+                f"limit {limit}")
+        return err
+
+    def limits(axes, dtype: str, quant) -> float:
+        if dtype == "bf16":
+            return FLASH_TOL["bfloat16"] if "seq" in axes else DECODE_TP_BF16_TOL
+        if quant == "int8":
+            return DECODE_INT8_F32_TOL
+        return DECODE_SEQ_F32_TOL if "seq" in axes else DECODE_TP_F32_TOL
+
+    controls = {"tp2", "sp4"}
+    out["controls"] = {}
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, seed=SEED, device=dev)
+    for quant in (None, "int8"):
+        qname = quant or "bf16"
+        zero(count)
+        one = LMGenerator(model, max_len, cache_quant=quant)
+        want = teacher_forced(one, tokens, LM_SEQ)
+        take(f"the unsharded {qname} decode", n_layers)
+        for name, (shape, axes) in DECODE_MESHES.items():
+            mesh = RankMesh(axes, shape, dev)
+            gen = LMGenerator(model, max_len, cache_quant=quant, mesh=mesh)
+            got = teacher_forced(gen, tokens, LM_SEQ, every_rank=True)
+            k4 = n_layers if "seq" not in axes else 0  # the TP-only prefill
+            take(f"{name} {qname} teacher-forced", k4)
+            equal = all(torch.equal(got[0], got[r]) for r in range(1, mesh.size))
+            require(equal, f"{name} {qname}: every rank's logits equal")
+            limit = limits(axes, "bf16", quant)
+            err = held(got[0], want, limit, f"{name} {qname}")
+            del got
+            if name in controls:
+                out["controls"][f"{name}_{qname}"] = control(
+                    gen, want, limit, f"{name} {qname}", k4, "bf16")
+            cache = gen.init_cache(LM_BATCH)
+            rank_bytes = cache_bytes_a_rank(cache)
+            del cache
+            t = decode_timing(gen, prompt)
+            take(f"{name} {qname} timing", k4 * DECODE_TIMING_PREFILLS)
+            out["meshes"][f"{name}_{qname}"] = {
+                "ranks": mesh.size, "logits_err_of_max": err, "limit": limit,
+                "k4_at_prefill": k4, "cache_bytes_a_rank": rank_bytes, **t}
+            print(json.dumps({"sharded_decode": f"{name}_{qname}",
+                              **out["meshes"][f"{name}_{qname}"]}), flush=True)
+            del gen
+            torch.cuda.empty_cache()
+        t = decode_timing(one, prompt)
+        take(f"the unsharded {qname} timing", n_layers * DECODE_TIMING_PREFILLS)
+        out["meshes"][f"unsharded_{qname}"] = {
+            "ranks": 1, "cache_bytes_a_rank": cache_bytes_a_rank(one.init_cache(LM_BATCH)), **t}
+        print(json.dumps({"sharded_decode": f"unsharded_{qname}",
+                          **out["meshes"][f"unsharded_{qname}"]}), flush=True)
+        del one, want
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+
+    # in f32: the teacher-forced logits and the greedy tokens of each mesh
+    # against the unsharded generator's
+    model32 = TransformerLM(**LM, seed=SEED, device=dev)
+    out["greedy"], out["f32_logits_err_of_max"] = {}, {}
+    for quant in (None, "int8"):
+        qname = quant or "f32"
+        one = LMGenerator(model32, max_len, cache_quant=quant)
+        want = teacher_forced(one, tokens, LM_SEQ)
+        ref = one.generate(prompt, LM_GEN)
+        take(f"the unsharded f32 {qname} decode", 2 * n_layers, "f32")
+        for name, (shape, axes) in DECODE_MESHES.items():
+            gen = LMGenerator(model32, max_len, cache_quant=quant,
+                              mesh=RankMesh(axes, shape, dev))
+            k4 = n_layers if "seq" not in axes else 0
+            limit = limits(axes, "f32", quant)
+            out["f32_logits_err_of_max"][f"{name}_{qname}"] = held(
+                teacher_forced(gen, tokens, LM_SEQ), want, limit, f"{name} f32 {qname}")
+            take(f"{name} f32 {qname} teacher-forced", k4, "f32")
+            if name in controls:
+                out["controls"][f"{name}_f32_{qname}"] = control(
+                    gen, want, limit, f"{name} f32 {qname}", k4, "f32")
+            toks = gen.generate(prompt, LM_GEN)
+            take(f"{name} f32 {qname} generation", n_layers if "seq" not in axes else 0, "f32")
+            agree = float((toks == ref).float().mean())
+            out["greedy"][f"{name}_{qname}"] = agree
+            require(agree == 1.0,
+                    f"{name} f32 {qname}: greedy tokens vs the unsharded generator's: {agree}")
+    print(json.dumps({"sharded_decode_greedy_agreement": out["greedy"],
+                      "f32_logits_err_of_max": out["f32_logits_err_of_max"],
+                      "limits": {"tp_bf16": DECODE_TP_BF16_TOL, "seq_bf16": FLASH_TOL["bfloat16"],
+                                 "tp_f32": DECODE_TP_F32_TOL, "seq_f32": DECODE_SEQ_F32_TOL,
+                                 "int8_f32": DECODE_INT8_F32_TOL},
+                      "controls_rank_zeroed": out["controls"]}), flush=True)
+    del model32
+    torch.cuda.empty_cache()
+
+    # the command at the flagship: --sp 2 --tp 2, each cache
+    argv = ["lm-generate", "--vocab", str(LM["vocab"]), "--d-model", str(LM["d_model"]),
+            "--heads", str(LM["n_heads"]), "--layers", str(n_layers), "--batch",
+            str(LM_BATCH), "--prompt-len", str(LM_SEQ), "--gen", str(DECODE_GEN), "--bf16",
+            "--sp", "2", "--tp", "2"]
+    for name, extra in (("bf16", []), ("int8", ["--cache-quant", "int8"])):
+        rc, text = run_cli(argv + extra)
+        torch.cuda.synchronize()
+        rec = json.loads(text.strip().splitlines()[-1])
+        print(json.dumps(rec), flush=True)
+        require(rc == 0 and rec["prefill_ms"] > 0 and rec["ms_per_token"] > 0
+                and (rec["sp"], rec["tp"]) == (2, 2) and rec["device"] == card["name"]
+                and rec["cache_quant"] == (extra[-1] if extra else None),
+                f"lm-generate --sp 2 --tp 2 {name}: rc {rc}, {rec}")
+        take(f"lm-generate --sp 2 --tp 2 {name}", 0)  # seq-sharded: no K4
+        out[f"lm_generate_sp2_tp2_{name}"] = {k: rec[k] for k in (
+            "prefill_ms", "ms_per_token", "tokens_per_s", "device", "power_limit")}
+    m = out["meshes"]
+    print(f"sharded decode (the flagship, bf16, B {LM_BATCH}, prompt {LM_SEQ}; {card['name']}, "
+          f"{card['power_limit']}): ms a token "
+          + ", ".join(f"{k} {v['ms_per_token']:.2f}" for k, v in m.items())
+          + "; prefill ms " + ", ".join(f"{k} {v['prefill_ms']:.1f}" for k, v in m.items())
+          + "; cache bytes a rank "
+          + ", ".join(f"{k} {v['cache_bytes_a_rank']}" for k, v in m.items()), flush=True)
+    out["launches"] = launches
+    return out
+
+
+# -- phase (p): MoE over virtual ranks --------------------------------------------
+
+
+def moe_parallel_path(dev, card: dict) -> dict:
+    """Phase (p): ``MoETrainer`` over virtual ranks at the bench width
+    (``MOE``: d 2048, 16 heads, 8 experts top-1, scatter, bf16, B 8 x T
+    2048, Adam 1e-3). (p1) One step over (data, expert) = (2, 4) and one
+    over (data, seq, expert) = (1, 2, 4) with Ulysses, each against the
+    one-rank trainer's step from the same weights and batch at capacity
+    factor 8.0 (nothing dropped: routing is partition-independent) with the
+    aux loss out of the gradient, at ``MOE_ORACLE_LAYERS`` layers: the loss within ``SHARDED_LOSS_TOL``
+    relative and each gradient within ``SHARDED_GRAD_TOL`` of its max|grad|;
+    K4's forward and backward once a layer a step (the ranks in one launch)
+    and K1 once a step (the replicated class). (p2) The full depth at the
+    bench's capacity factor 1.25 over (2, 4): a chain whose loss falls, ms a
+    step (median of 3), peak memory, two steps under ``torch.profiler``.
+    (p3) ``train-moe``'s width over (2, 2, 2) by SGD with the bf16 wire and
+    overlapped, three steps on the card against the CPU; ``train-moe --dp 2
+    --ep 2 --sp 2 --compress bf16`` and ``--overlap`` (falling losses).
+    (p4) ``elastic-demo --family moe`` over 8 ranks. Returns the launches
+    and the figures."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.models import lm_copy_task
+    from akka_allreduce_tpu_torch.ops import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops import local_reduce as lr
+    from akka_allreduce_tpu_torch.parallel import RankMesh
+    from akka_allreduce_tpu_torch.train import MoETrainer
+
+    k1, k4 = lr.LAUNCHES, fa.LAUNCHES
+    launches = {"masked_average": 0, "flash_attention_bf16": 0, "flash_attention_bwd_bf16": 0}
+    out: dict = {}
+
+    def take(what: str, steps: int, layers: int, k1_per_step: int | None) -> None:
+        torch.cuda.synchronize()
+        want4 = layers * steps
+        require(k4["flash_attention"] == k4["flash_attention_wgmma"] == want4
+                and k4["flash_attention_bwd"] == k4["flash_attention_bwd_wgmma"] == want4
+                and k4["flash_attention_3xtf32"] == k4["flash_attention_bwd_3xtf32"] == 0
+                and (k1_per_step is None or k1["masked_average"] == k1_per_step * steps),
+                f"{what}: launches K1 {dict(k1)}, K4 {dict(k4)} for {steps} steps")
+        launches["masked_average"] += k1["masked_average"]
+        launches["flash_attention_bf16"] += k4["flash_attention_wgmma"]
+        launches["flash_attention_bwd_bf16"] += k4["flash_attention_bwd_wgmma"]
+        zero(k1)
+        zero(k4)
+
+    ds = lm_copy_task(MOE["seq_len"], vocab=MOE["vocab"], seed=SEED)
+    x, y = next(ds.batches(MOE_BATCH, 1))
+
+    # (p1) the sharded steps against the one-rank step, nothing dropped
+    torch.cuda.empty_cache()
+    kw = dict(MOE, n_layers=MOE_ORACLE_LAYERS, capacity_factor=MOE_ORACLE_CF, aux_coef=0.0,
+              compute_dtype=torch.bfloat16, learning_rate=1e-3, seed=SEED)
+    zero(k1)
+    zero(k4)
+    one = MoETrainer(**kw, device=dev)
+    init = one.flat_params_tensor()
+    m1 = one.train_step(x, y)
+    take("the one-rank MoE step", 1, MOE_ORACLE_LAYERS, 0)
+    want = {n: p.grad.clone() for n, p in one.model.named_parameters()}
+    del one
+    torch.cuda.empty_cache()
+    out["vs_one_rank"] = {}
+    for name, (shape, axes, impl) in MOE_MESHES.items():
+        torch.cuda.reset_peak_memory_stats()
+        t = MoETrainer(RankMesh(axes, shape, dev), seq_impl=impl, **kw)
+        t.set_flat_params(init)
+        m = t.train_step(x, y)
+        take(f"the MoE step over {name}", 1, MOE_ORACLE_LAYERS, 1)
+        got = {n: p.grad for n, p in t.model.named_parameters()}
+        loss_err = abs(m.loss - m1.loss) / abs(m1.loss)
+        grad_err = grad_err_of_max(got, want)
+        rec = {"loss": m.loss, "loss_one_rank": m1.loss, "loss_rel_err": loss_err,
+               "aux": m.aux_loss, "aux_one_rank": m1.aux_loss, "dropped": m.dropped,
+               "grad_err_of_max": grad_err, "peak_memory_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+        out["vs_one_rank"][name] = rec
+        print(json.dumps({"moe_vs_one_rank": name, **rec}), flush=True)
+        require(m.dropped == m1.dropped == 0.0 and m.contributors == shape[0]
+                and loss_err <= SHARDED_LOSS_TOL and grad_err <= SHARDED_GRAD_TOL,
+                f"the MoE step over {name} vs the one-rank step: {rec}")
+        del t, got
+        torch.cuda.empty_cache()
+    del want, init
+
+    # (p2) the full depth at the bench's capacity factor over (2, 4)
+    torch.cuda.reset_peak_memory_stats()
+    shape, axes, _ = MOE_MESHES["data2_expert4"]
+    t = MoETrainer(RankMesh(axes, shape, dev), **MOE, compute_dtype=torch.bfloat16,
+                   learning_rate=1e-3, seed=SEED)
+    n_layers = MOE["n_layers"]
+    batches = list(ds.batches(MOE_BATCH, 6, seed_offset=1))
+    m = t.train_step(*batches[0])
+    take("the bench-width MoE step over (2, 4)", 1, n_layers, 1)
+    out["first_step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    hist = t.train_chain(ds.device_sampler(), MOE_PAR_CHAIN, MOE_BATCH // (shape[0] * shape[1]))
+    take("the MoE chain over (2, 4)", MOE_PAR_CHAIN, n_layers, 1)
+    losses = [m.loss] + [h.loss for h in hist]
+    out["losses"], out["dropped"] = losses, [m.dropped] + [h.dropped for h in hist]
+    require(all(math.isfinite(v) for v in losses) and sum(losses[-3:]) / 3 < losses[0],
+            f"the MoE chain over (2, 4): the loss does not fall: {losses}")
+    times = []
+    for bx, by in batches[1:4]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        t.train_step(bx, by)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+
+    def two_steps():
+        for bx, by in batches[4:6]:
+            t.train_step(bx, by)
+
+    prof = profile_window(two_steps, top=12)
+    take("the timed and profiled MoE steps", 5, n_layers, 1)
+    out["step_ms"], out["step_ms_all"] = statistics.median(times), times
+    out["profile"] = {**prof, "steps": 2}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"moe_parallel_profile": out["profile"]}), flush=True)
+    del t, hist
+    torch.cuda.empty_cache()
+
+    # (p3) train-moe's width: card against CPU, then the commands
+    small = list(lm_copy_task(MOE_TRAIN_SEQ, vocab=64, seed=SEED).batches(8, 3))
+    skw = dict(MOE_TRAIN, seq_len=MOE_TRAIN_SEQ, capacity_factor=4.0, seed=SEED,
+               optimizer=lambda ps: torch.optim.SGD(ps, lr=0.05))
+    out["small"] = {}
+    for name, ckw in (("bf16", dict(compress="bf16")), ("overlap", dict(overlap=True))):
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            tr = MoETrainer(RankMesh(("data", "seq", "expert"), (2, 2, 2), d), **skw, **ckw)
+            if runs:
+                tr.set_flat_params(runs[0][2])
+            init_params = tr.get_flat_params()
+            rows = [tr.train_step(bx, by, [1.0, 0.0] if i == 1 else None)
+                    for i, (bx, by) in enumerate(small)]
+            runs.append(([(r.loss, r.contributors) for r in rows], tr.get_flat_params(),
+                         init_params))
+        take(f"train-moe's width {name} on the card and the CPU", 3, 0,
+             None if name == "overlap" else 0)
+        (a, pa, _), (b, pb, _) = runs
+        loss_err = max(abs(p[0] - q[0]) / abs(q[0]) for p, q in zip(a, b))
+        perr = float(np.abs(pa - pb).max() / np.abs(pb).max())
+        tol = WIRE_CARD_TOL if name == "bf16" else SMALL_LM_TOL
+        require([c for _, c in a] == [c for _, c in b] == [2.0, 1.0, 2.0]
+                and loss_err <= tol and perr <= tol,
+                f"train-moe's width {name}: card vs CPU losses {a} / {b}, params {perr} of max")
+        out["small"][name] = {"card_vs_cpu_loss": loss_err, "card_vs_cpu_params": perr,
+                              "tol": tol}
+    print(json.dumps({"moe_parallel_small": out["small"]}), flush=True)
+    for name, extra in (("bf16", ["--compress", "bf16"]), ("overlap", ["--overlap"])):
+        rc, text = run_cli(["train-moe", "--dp", "2", "--ep", "2", "--sp", "2", *extra])
+        print(text, flush=True)
+        trend = re.search(r"loss (\S+) -> (\S+)", text)
+        require(rc == 0 and "mesh dp=2 x sp=2 x ep=2" in text and "on 8 devices" in text
+                and trend and float(trend.group(2)) < float(trend.group(1)),
+                f"train-moe --dp 2 --ep 2 --sp 2 {name}: rc {rc}\n{text}")
+        out[f"train_moe_{name}"] = [float(trend.group(1)), float(trend.group(2))]
+        take(f"train-moe {name}", 0, 0, None)
+
+    # (p4) elastic-demo --family moe over the JAX assignment's 8 ranks
+    rc, text = run_cli(["elastic-demo", "--family", "moe"])
+    print(text, flush=True)
+    require(rc == 0 and "8 ranks on" in text and "dp3 x ep2 (generation 1)" in text
+            and "dp2 x ep4 (generation 2)" in text, f"elastic-demo --family moe: rc {rc}\n{text}")
+    take("elastic-demo --family moe", 0, 0, None)
+    out["elastic_demo"] = [ln for ln in text.splitlines() if "re-meshed" in ln]
+    v = out["vs_one_rank"]
+    print(f"MoE over virtual ranks (bench width, bf16; {card['name']}, {card['power_limit']}): "
+          f"(2, 4) {out['step_ms']:.1f} ms a step (median of {len(times)}, host clock), peak "
+          f"{out['peak_memory_gb']:.2f} GB, device busy "
+          f"{out['profile']['busy_share'] * 100:.1f}%; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          "vs the one-rank step at capacity factor 8.0: "
+          + ", ".join(f"{k} loss {r['loss_rel_err']:.2e}, gradients "
+                      f"{r['grad_err_of_max']:.2e} of max" for k, r in v.items()), flush=True)
     out["launches"] = launches
     return out
 
@@ -4325,9 +4796,8 @@ def main() -> int:
     cl = cluster_path(dev, card)
     phase("cluster_path", t0, card=card["smi"], k1_k4_launches=cl["k1_k4_launches"],
           native_build_s=cl["native_build_s"],
-          **{k: cl[k] for k in ("config1_cuda", "config1_cpu", "resnet_grad_f32",
-                                "resnet_grad_f16", "butterfly_2d", "dropout_th075",
-                                "late_joiner", "int8_ef", "failover")},
+          **{k: cl[k] for k in ("config1_cuda", "butterfly_2d", "dropout_th075",
+                                "late_joiner", "int8_ef")},
           bench_wire=cl["bench_wire"])
 
     # -- 4k. elasticity: re-mesh cycles, the training cluster ---------------------
@@ -4356,6 +4826,27 @@ def main() -> int:
     sq = sharded_lm_path(dev, card)
     phase("sharded_lm_path", t0, card=card["smi"], launches=sq["launches"],
           **{k: v for k, v in sq.items() if k not in ("launches", "profile")})
+
+    # the timings' stacks wait on the host while phases (o) and (p) run: the
+    # bench-width MoE step over (2, 4) peaks at 73.5 GB of the card's 80
+    parked = {"x": x.cpu(), "xr": xr.cpu()}
+    del x, xt, xr
+    torch.cuda.empty_cache()
+
+    # -- 4o. sharded decode over virtual ranks ---------------------------------------
+    t0 = time.perf_counter()
+    sd = sharded_decode_path(dev, card)
+    phase("sharded_decode_path", t0, card=card["smi"], launches=sd["launches"],
+          **{k: v for k, v in sd.items() if k != "launches"})
+
+    # -- 4p. MoE over virtual ranks ----------------------------------------------------
+    t0 = time.perf_counter()
+    mp = moe_parallel_path(dev, card)
+    phase("moe_parallel_path", t0, card=card["smi"], launches=mp["launches"],
+          **{k: v for k, v in mp.items() if k not in ("launches", "profile")})
+
+    x, xr = parked["x"].to(dev), parked["xr"].to(dev)
+    del parked
 
     # -- 5. timings at K = 16 x 64M -----------------------------------------------
     t0 = time.perf_counter()
@@ -4522,7 +5013,7 @@ def main() -> int:
     path_launches = {**launches, **ring_launches}
     path_launches["masked_average"] += dp_launches + el["launches"] + ch["launches"]
     for part in (lm["launches"], train["launches"], ck["launches"], mi["launches"],
-                 sq["launches"]):
+                 sq["launches"], sd["launches"], mp["launches"]):
         for name, n in part.items():
             path_launches[name] = path_launches.get(name, 0) + n
     kernels = []

@@ -539,9 +539,11 @@ def test_elastic_demo_moe_on_the_cpu(capsys):
     assert cli_main(["elastic-demo", "--device", "cpu", "--family", "moe", "--steps", "10",
                      "--drop-at", "3", "--rejoin-at", "7", "--batch-per-device", "2"]) == 0
     out = capsys.readouterr().out
-    assert "elastic-demo: moe, 4 nodes, 1 ranks on cpu" in out
-    assert "re-meshed to 3 nodes / dp1 x ep1 (generation 1)" in out
-    assert "re-meshed to 4 nodes / dp1 x ep1 (generation 2)" in out
+    # 8 virtual ranks over 4 nodes, as the JAX demo splits its 8 CPU devices:
+    # the expert axis is gcd(ranks, 4 experts), 4 then 2 then 4
+    assert "elastic-demo: moe, 4 nodes, 8 ranks on cpu" in out
+    assert "re-meshed to 3 nodes / dp3 x ep2 (generation 1)" in out
+    assert "re-meshed to 4 nodes / dp2 x ep4 (generation 2)" in out
     assert "final generation 2" in out
 
 

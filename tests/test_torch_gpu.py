@@ -1283,3 +1283,92 @@ def test_sharded_steps_on_the_card_match_the_cpu(card, shape, kw):
         torch.backends.cuda.matmul.allow_tf32 = prev
     got, want = on_card.get_flat_params(), cpu.get_flat_params()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# -- sharded decode and MoE over virtual ranks ---------------------------------------
+
+
+def test_tp_decode_prefill_folds_the_ranks_into_one_k4_launch(card):
+    """Decode over (model,) tp 2 at a gated prompt (T 1024, D 128, bf16): the
+    prefill launches K4's forward once a layer for both ranks, the decode
+    steps none, every rank's logits equal and within 2e-2 of max|logit| of
+    the unsharded generator's; over (seq,) sp 2 no K4 (the split-K merge);
+    in f32 the greedy tokens of (model,), (seq,) and (seq, model) meshes
+    equal the unsharded generator's."""
+    from chip_smoke import teacher_forced
+
+    from akka_allreduce_tpu_torch.parallel import RankMesh
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 1028))).to(card)
+    model = TransformerLM(vocab=64, d_model=256, n_heads=2, n_layers=2,
+                          compute_dtype=torch.bfloat16, seed=0, device=card)
+    want = teacher_forced(LMGenerator(model, 1040), tokens, 1024)
+    for axes, k4 in ((("model",), 2), (("seq",), 0)):
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        gen = LMGenerator(model, 1040, mesh=RankMesh(axes, (2,), card))
+        got = teacher_forced(gen, tokens, 1024, every_rank=True)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention_wgmma"] == fa.LAUNCHES["flash_attention"] == k4
+        assert torch.equal(got[0], got[1])
+        assert float((got[0] - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    model32 = TransformerLM(vocab=64, d_model=256, n_heads=2, n_layers=2, seed=0, device=card)
+    ref = LMGenerator(model32, 1040).generate(tokens[:, :1024], 8)
+    for axes, shape in ((("model",), (2,)), (("seq",), (2,)), (("seq", "model"), (2, 2))):
+        gen = LMGenerator(model32, 1040, mesh=RankMesh(axes, shape, card))
+        assert torch.equal(gen.generate(tokens[:, :1024], 8), ref)
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_sharded_decode_on_the_card_matches_the_cpu(card, quant):
+    """f32 decode over (data, seq, model) = (2, 2, 2) at a small width, a
+    prefill chunk spanning seq ranks then single tokens: the card's logits
+    within 1e-5 of max|logit| of the CPU's (the same seeded weights)."""
+    from chip_smoke import teacher_forced
+
+    from akka_allreduce_tpu_torch.parallel import RankMesh
+
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 32, (2, 12)))
+    got, want = (
+        teacher_forced(LMGenerator(
+            TransformerLM(vocab=32, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2, seed=0,
+                          device=d),
+            16, cache_quant=quant,
+            mesh=RankMesh(("data", "seq", "model"), (2, 2, 2), torch.device(d))),
+            tokens.to(d), 6).cpu()
+        for d in (card, "cpu"))
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_moe_over_ranks_folds_the_ranks_and_matches_the_cpu(card):
+    """A bf16 MoE step over (data, expert) = (2, 4) at a gated length: K4's
+    forward and backward once a layer for all 8 ranks, K1 once a step (the
+    replicated class); at a small width over (data, seq, expert) = (2, 2, 2)
+    two SGD steps (the second with replica row 1 masked) on the card within
+    1e-5 of the CPU's."""
+    from akka_allreduce_tpu_torch.models import lm_copy_task
+    from akka_allreduce_tpu_torch.parallel import RankMesh
+    from akka_allreduce_tpu_torch.train import MoETrainer
+
+    t = MoETrainer(RankMesh(("data", "expert"), (2, 4), card), vocab=64, d_model=256,
+                   n_heads=2, n_layers=2, n_experts=8, seq_len=1024,
+                   compute_dtype=torch.bfloat16)
+    before_fa, before_k1 = dict(fa.LAUNCHES), lr.LAUNCHES["masked_average"]
+    m = t.train_step(*next(lm_copy_task(1024, vocab=64).batches(8, 1)))
+    torch.cuda.synchronize()
+    assert np.isfinite(m.loss) and m.contributors == 2.0
+    for name in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
+        assert fa.LAUNCHES[name] == before_fa[name] + 2
+    assert lr.LAUNCHES["masked_average"] == before_k1 + 1
+    kw = dict(vocab=32, d_model=64, n_heads=4, n_layers=2, n_experts=4, seq_len=64,
+              capacity_factor=4.0, optimizer=lambda ps: torch.optim.SGD(ps, lr=0.05))
+    on_card, cpu = (MoETrainer(RankMesh(("data", "seq", "expert"), (2, 2, 2), torch.device(d)),
+                               **kw) for d in (card, "cpu"))
+    cpu.set_flat_params(on_card.get_flat_params())
+    for i, (x, y) in enumerate(lm_copy_task(64, vocab=32).batches(8, 2)):
+        valid = [1.0, 0.0] if i else None
+        a, b = on_card.train_step(x, y, valid), cpu.train_step(x, y, valid)
+        assert a.contributors == b.contributors
+        assert abs(a.loss - b.loss) <= 1e-5 * abs(b.loss)
+    got, want = on_card.get_flat_params(), cpu.get_flat_params()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

@@ -24,7 +24,8 @@ one-device ``(data,)`` mesh) and their counterparts in
   ``tests/test_torch_train.py``), then one step with the first moment in
   bf16: losses, aux and dropped within 1e-5 relative, the parameters within
   1e-5 of max|param| (the first moment's dtype checked on both sides);
-- ``moe_active_params`` equal; the refusals (dp 2, compress, overlap);
+- ``moe_active_params`` equal; a step at dp 2, on a (data, expert) mesh,
+  with ``compress`` and with ``overlap``, and the JAX trainer's refusals;
 - ``ElasticMoETrainer`` over ``{0: [0], 1: []}``: a drop/rejoin cycle, then
   the trainer equal bit for bit to a fresh one restored from the same
   ``Snapshot`` over two more steps; a checkpoint round trip with a bf16 first
@@ -57,7 +58,7 @@ from akka_allreduce_tpu_torch.models import (
     moe_state_dict_from_flax,
 )
 from akka_allreduce_tpu_torch.ops import moe as tmoe
-from akka_allreduce_tpu_torch.parallel import grid_mesh, line_mesh
+from akka_allreduce_tpu_torch.parallel import RankMesh, grid_mesh, line_mesh
 from akka_allreduce_tpu_torch.train import (
     ElasticMoETrainer,
     MoETrainer,
@@ -234,8 +235,26 @@ def test_bf16_scatter_matches_einsum_and_refusals():
     np.testing.assert_allclose(ys.float().numpy(), ye.float().numpy(), rtol=3e-2, atol=3e-2)
     with pytest.raises(ValueError, match="dispatch_impl"):
         tmoe.moe_dispatch_compute(x, *rest, n_experts=4, dispatch_impl="typo")
+    # over a (data, expert) = (1, 2) mesh: each rank routes its own half of
+    # the tokens over all 4 experts, 2 of them its own; the all_to_all pair
+    # moves slots, so each rank's output is its half's one-device dispatch
+    mesh = grid_mesh(1, 2, axes=("data", "expert"), device="cpu")
+    router, w1, b1, w2 = rest
+    stack = x.reshape(2, 12, -1)
+    for impl in ("einsum", "scatter"):
+        y, aux, dropped = tmoe.moe_dispatch_compute(
+            stack, router.expand(2, *router.shape), *(w.reshape(2, 2, *w.shape[1:])
+                                                       for w in (w1, b1, w2)),
+            n_experts=4, expert_axis="expert", dispatch_impl=impl, mesh=mesh)
+        assert y.dtype == torch.bfloat16 and aux.shape == dropped.shape == (2,)
+        for r in range(2):
+            want = tmoe.moe_dispatch_compute(stack[r], *rest, n_experts=4, dispatch_impl=impl)
+            np.testing.assert_allclose(y[r].float().numpy(), want[0].float().numpy(),
+                                       rtol=3e-2, atol=3e-2)
+            assert float(aux[r]) == pytest.approx(float(want[1]), rel=1e-6)
+            assert float(dropped[r]) == float(want[2])
     for kw in ({"expert_axis": "expert"}, {"seq_axis": "seq"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        with pytest.raises(ValueError, match="mesh"):
             tmoe.moe_dispatch_compute(x, *rest, n_experts=4, **kw)
 
 
@@ -256,8 +275,8 @@ def test_moe_lm_matches_flax(trainers):
     np.testing.assert_allclose(logits.numpy(), np.asarray(want[0]), rtol=TOL, atol=TOL)
     assert float(aux) == pytest.approx(float(want[1]), rel=TOL)
     assert float(dropped) == pytest.approx(float(want[2]), abs=1e-7) and float(dropped) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        MoETransformerLM(ep_size=2, device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        MoETransformerLM(n_experts=4, ep_size=3, device="cpu")
     tree = tree["params"]
     tree["MoEBlock_0"] = {k: v for k, v in tree["MoEBlock_0"].items() if k != "router"}
     with pytest.raises(ValueError, match="MoEBlock_0/router"):
@@ -338,10 +357,18 @@ def test_masked_step_and_chain_and_refusals():
     expert_axis = grid_mesh(1, 1, device="cpu", axes=("data", "expert"))
     for kw in (dict(mesh=line_mesh(2, axis="data", device="cpu")), dict(mesh=expert_axis),
                dict(compress="bf16"), dict(overlap=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            MoETrainer(**{**dict(device="cpu"), **kw})
+        u = MoETrainer(**{**KW, **dict(device="cpu"), **kw})
+        m = u.train_step(x, y)
+        assert np.isfinite(m.loss) and m.contributors == u.dp
     with pytest.raises(ValueError, match="batch"):
         t.train_step(x[:, :16], y[:, :16])
+    # the JAX trainer's refusals
+    with pytest.raises(ValueError, match="overlap excludes"):
+        MoETrainer(device="cpu", compress="int8", overlap=True)
+    with pytest.raises(ValueError, match="not divisible by ep=2"):
+        MoETrainer(grid_mesh(1, 2, axes=("data", "expert"), device="cpu"), n_experts=3)
+    with pytest.raises(ValueError, match="need a"):
+        MoETrainer(RankMesh(("a", "b", "c", "d"), (1, 1, 1, 1), torch.device("cpu")))
 
 
 def test_elastic_cycle_continues_like_a_fresh_trainer_from_the_snapshot():
@@ -369,9 +396,9 @@ def test_elastic_cycle_continues_like_a_fresh_trainer_from_the_snapshot():
         x, y = next(ds.batches(1, 1, seed_offset=s))
         assert e.train_step(x, y) == fresh.train_step(x, y)
     np.testing.assert_array_equal(e.get_flat_params(), fresh.get_flat_params())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ElasticMoETrainer({0: [0], 1: [1]}, n_experts=4, vocab=16, d_model=32, n_heads=2,
-                          n_layers=1, seq_len=32, device="cpu")
+    two = ElasticMoETrainer({0: [0], 1: [1]}, n_experts=4, vocab=16, d_model=32, n_heads=2,
+                            n_layers=1, seq_len=32, device="cpu")
+    assert (two.trainer.dp, two.trainer.ep) == (1, 2)  # gcd(2 ranks, 4 experts)
 
 
 def test_checkpoint_round_trip_keeps_the_bf16_moment(tmp_path):
@@ -401,8 +428,14 @@ def test_train_moe_cli_on_the_cpu(capsys):
     trend = lines[-1].split("loss ")[1].split(" (aux")[0]
     first, last = (float(v) for v in trend.split(" -> "))
     assert lines[-1].startswith("moe: 12 steps on 1 devices") and last < first
-    for flag in (["--dp", "2"], ["--ep", "2"], ["--sp", "2"], ["--compress", "bf16"],
-                 ["--overlap"]):
-        with pytest.raises(SystemExit):
-            cli_main(["train-moe", "--device", "cpu", *flag])
-        assert "ROADMAP item 10" in capsys.readouterr().err
+    small = ["train-moe", "--device", "cpu", "--vocab", "16", "--d-model", "32", "--heads",
+             "2", "--layers", "1", "--seq-len", "16", "--batch", "4", "--steps", "2"]
+    for flag, mesh in ((["--dp", "2"], "dp=2 x sp=1 x ep=1"), (["--ep", "2"], "dp=1 x sp=1 x ep=2"),
+                       (["--sp", "2"], "dp=1 x sp=2 x ep=1"),
+                       (["--compress", "bf16"], "dp=1 x sp=1 x ep=1"),
+                       (["--overlap"], "dp=1 x sp=1 x ep=1")):
+        assert cli_main([*small, *flag]) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert mesh in lines[0] and lines[-1].startswith("moe: 2 steps on ")
+    with pytest.raises(ValueError, match="overlap excludes"):  # the JAX trainer's refusal
+        cli_main([*small, "--compress", "int8", "--overlap"])

@@ -46,6 +46,7 @@ from akka_allreduce_tpu_torch.models import (
 )
 from akka_allreduce_tpu_torch.ops import flash_attention as fa
 from akka_allreduce_tpu_torch.ops import local_attention as la
+from akka_allreduce_tpu_torch.parallel import line_mesh
 from akka_allreduce_tpu_torch.utils import benchmarking as tbench
 
 TOL = 1e-5
@@ -202,8 +203,8 @@ def test_guards_and_the_gqa_compact_cache():
         gen.generate(torch.zeros((1, 2), dtype=torch.int64), 0)
     with pytest.raises(ValueError, match="prompt must be"):
         gen.generate(torch.zeros(4, dtype=torch.int64), 2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LMGenerator(model, max_len=8, mesh=object())
+    with pytest.raises(ValueError, match="'seq' and/or 'model' axis"):
+        LMGenerator(model, max_len=8, mesh=line_mesh(2, axis="data", device="cpu"))
     cache = LMGenerator(model, max_len=16).init_cache(batch=2)
     assert len(cache.k) == len(cache.v) == 2 and cache.index == 0
     assert cache.k[0].shape == (2, 16, 1, 8)  # H_kv = 1, head_dim = 8
@@ -315,6 +316,19 @@ def test_lm_generate_cli_with_the_int8_cache_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"]])
 def test_lm_generate_refuses_what_is_not_ported(capsys, flag):
+    """``--sp``/``--tp`` decode over virtual ranks; the JAX command's own
+    refusal (a size below 1) stays."""
+    rc = cli_main(["lm-generate", "--device", "cpu", "--vocab", "16", "--d-model", "32",
+                   "--heads", "4", "--kv-heads", "2", "--layers", "1", "--batch", "2",
+                   "--prompt-len", "5", "--gen", "4", *flag])
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(json.loads(lines[1][9:])) == 4
+    rec = json.loads(lines[-1])
+    assert (rec["sp"], rec["tp"]) == ((2, 1) if flag[0] == "--sp" else (1, 2))
+    assert rec["prefill_ms"] > 0 and rec["ms_per_token"] > 0
+    # max_len rounded up to whole slots a seq rank: 5 + 4 -> 10 at sp 2
+    assert "cache (B,10,2,8)" in lines[2] if flag[0] == "--sp" else "cache (B,9,2,8)" in lines[2]
     with pytest.raises(SystemExit):
-        cli_main(["lm-generate", "--device", "cpu", *flag])
-    assert "not ported yet" in capsys.readouterr().err
+        cli_main(["lm-generate", "--device", "cpu", flag[0], "0"])
+    assert "--sp and --tp must be >= 1" in capsys.readouterr().err
